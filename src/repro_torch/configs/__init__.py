@@ -1,0 +1,92 @@
+"""Config registry: the paper's models and the reductions derived from them.
+
+The port's registry holds the paper models (``configs/paper_models.py``);
+the JAX package's assigned architectures (MoE, SSM, hybrid, VLM, audio)
+join it with the slices that port their model families.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.paper_models import GROWTH_PAIRS, PAPER_MODELS
+
+REGISTRY: Dict[str, ModelConfig] = dict(PAPER_MODELS)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests (tiny dims, same structure)."""
+    n_layers = max(2, 2 * len(cfg.block_pattern))
+    return cfg.scaled(
+        name=cfg.name + "-smoke",
+        n_layers=n_layers,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
+        d_head=16,
+        d_ff=0 if cfg.d_ff == 0 else 128,
+        vocab_size=128,
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        experts_top_k=min(cfg.experts_top_k, 2) if cfg.experts_top_k else 0,
+        moe_d_ff=64 if cfg.n_experts else 0,
+        capacity_factor=8.0,   # no token dropping in smoke numerics tests
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        window=min(cfg.window, 32) if cfg.window else 0,
+        shared_attn_every=2,
+        frontend_dim=64 if cfg.frontend_dim else 0,
+        num_patches=8 if cfg.num_patches else 0,
+        mrope_sections=(2, 3, 3),
+        dtype="float32",
+        max_seq=256,
+    )
+
+
+def _mrope_for(d_head: int, base=(16, 24, 24)):
+    half = d_head // 2
+    t = max(1, half * base[0] // sum(base))
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def grow_target(cfg: ModelConfig, *, layers_mult: int = 2,
+                width_mult: float = 1.5) -> ModelConfig:
+    """A valid larger same-family config (LiGO growth target) for any arch."""
+    d_model = int(cfg.d_model * width_mult)
+    d_head = int(cfg.d_head * width_mult)
+    return cfg.scaled(
+        name=cfg.name + "-grown",
+        n_layers=cfg.n_layers * layers_mult,
+        d_model=d_model,
+        d_head=d_head,
+        d_ff=0 if cfg.d_ff == 0 else int(cfg.d_ff * width_mult),
+        moe_d_ff=int(cfg.moe_d_ff * width_mult) if cfg.n_experts else 0,
+        mrope_sections=_mrope_for(d_head) if cfg.rope == "mrope"
+        else cfg.mrope_sections,
+    )
+
+
+def half_config(cfg: ModelConfig) -> ModelConfig:
+    """The smaller pretrained source model for growing into ``cfg`` (the
+    paper's setting: the source is roughly half depth / ~2/3 width)."""
+    d_head = max(cfg.d_head // 2, 8)
+    return cfg.scaled(
+        name=cfg.name + "-half",
+        n_layers=cfg.n_layers // 2,
+        d_model=cfg.d_model // 2,
+        d_head=d_head,
+        d_ff=0 if cfg.d_ff == 0 else cfg.d_ff // 2,
+        moe_d_ff=cfg.moe_d_ff // 2 if cfg.n_experts else 0,
+        mrope_sections=_mrope_for(d_head) if cfg.rope == "mrope"
+        else cfg.mrope_sections,
+        shared_attn_every=cfg.shared_attn_every,
+    )
+
+
+__all__ = ["REGISTRY", "PAPER_MODELS", "GROWTH_PAIRS", "ModelConfig",
+           "get_config", "smoke_config", "grow_target", "half_config"]

@@ -1,0 +1,11 @@
+from repro_torch.core.ligo import (apply_ligo, gamma_expand, init_ligo_params,
+                                  interp_pattern, resolve_expander,
+                                  stack_pattern)
+from repro_torch.core.plan import (GrowthPlan, LeafGroup, compose_chain,
+                                   compose_ligo, plan_for)
+from repro_torch.core.spec import check_growable, family_hop, width_dims
+
+__all__ = ["apply_ligo", "gamma_expand", "init_ligo_params", "interp_pattern",
+           "resolve_expander", "stack_pattern", "GrowthPlan", "LeafGroup",
+           "compose_chain", "compose_ligo", "plan_for", "check_growable",
+           "family_hop", "width_dims"]

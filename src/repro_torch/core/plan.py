@@ -1,0 +1,416 @@
+"""GrowthPlan: the compiled growth engine behind ``apply_ligo``.
+
+A :class:`GrowthPlan` is built once per ``(cfg1, cfg2, tree shape)`` and
+fixes, ahead of time:
+
+1. the distinct ``(expander expression, role)`` pairs, resolved once per
+   apply and shared by every leaf;
+2. a grouping of leaves by ``(module family, shape, in/out expander pair)``,
+   each group run as one stacked contraction;
+3. a min-FLOP contraction order per group (:func:`_best_order`), and whether
+   the group may run on kernel K1, the fused depth-blend + left-expansion
+   (:func:`repro_torch.kernels.ligo_blend_expand_grouped`).
+
+Kernel eligibility. The JAX package gates its fused path on
+``fused_vmem_bytes``: the resident VMEM state of its *backward* TPU kernel
+(B whole, an (I, A) dB accumulator, an (L1, A, TB) dW accumulator) against a
+10 MiB budget — at GPT-2 widths that rejects every group. That check sizes a
+TPU dataflow and is not ported. K1 on Hopper streams B through shared memory
+in tiles and keeps no state between blocks, so its eligibility does not
+depend on width: a stacked ``(L1, a, b)`` or ``(L1, E, a, b)`` leaf with an
+in-expander and no empty dim qualifies. The gradient kernel K2 comes with the
+training slice and will set its own limits there.
+
+``compose_ligo`` / ``compose_chain`` fold successive hops' operators into one
+``cfg_A→cfg_C`` operator analytically (width factors as matrix products,
+depth patterns as chained blends), so a multi-hop ``--grow-to`` runs as one
+plan apply. The JAX package's mesh, shardings and ``place_operator`` are left
+out: the port grows on one card.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from itertools import permutations
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spec as S
+from repro_torch.core.ligo import (_flatten, _kind_counts, _unflatten,
+                                   resolve_expander)
+from repro_torch.kernels import ops
+
+ExprRef = Tuple[Any, str]          # (hashable expr key, role) — plan.exprs key
+
+
+def _expr_key(expr) -> Any:
+    """Canonical hashable key for a spec expander expression."""
+    if expr is None or isinstance(expr, str):
+        return expr
+    kind = expr[0]
+    if kind == "gamma":
+        return ("gamma", _expr_key(expr[1]))
+    if kind == "seg":
+        return ("seg", tuple((_expr_key(sub), n1, n2)
+                             for (sub, n1, n2) in expr[1]))
+    raise ValueError(expr)
+
+
+def _expr_dims(expr, cfg1: ModelConfig, cfg2: ModelConfig) -> Tuple[int, int]:
+    """Static (d2, d1) shape of a resolved expander expression."""
+    if isinstance(expr, str):
+        return S.width_dims(cfg2)[expr], S.width_dims(cfg1)[expr]
+    if expr[0] == "gamma":
+        return (cfg2.n_heads * cfg2.d_head, cfg1.n_heads * cfg1.d_head)
+    if expr[0] == "seg":
+        return (sum(n2 for (_, _, n2) in expr[1]),
+                sum(n1 for (_, n1, _) in expr[1]))
+    raise ValueError(expr)
+
+
+@dataclass(frozen=True)
+class LeafGroup:
+    """A batch of same-shaped leaves sharing one (in, out) expander pair."""
+    kind: str                      # layer-stack kind; "" for top-level params
+    stacked: bool                  # leading L1 layer dim present
+    paths: Tuple[str, ...]
+    shape: Tuple[int, ...]         # per-leaf shape (incl. L1 when stacked)
+    in_ref: Optional[ExprRef]
+    out_ref: Optional[ExprRef]
+    vec: bool                      # per-layer vector leaf (out-expander only)
+    order: Tuple[str, ...]         # op sequence drawn from {in, out, blend}
+    kernel_ok: bool                # may run on kernel K1
+
+
+def _best_order(ops_present, L1: int, L2: int, extra: int, a: int, b: int,
+                i: int, j: int) -> Tuple[str, ...]:
+    """Min-FLOP ordering of the (commuting) expand/blend contractions,
+    searched exhaustively over the ≤ 3! arrangements."""
+    best, best_cost = None, None
+    for perm in dict.fromkeys(permutations(ops_present)):
+        l, ca, cb = L1, a, b
+        cost = 0
+        for op in perm:
+            if op == "in":
+                cost += extra * l * i * ca * cb
+                ca = i
+            elif op == "out":
+                cost += extra * l * ca * cb * j
+                cb = j
+            else:  # blend
+                cost += extra * L2 * L1 * ca * cb
+                l = L2
+        if best_cost is None or cost < best_cost:
+            best, best_cost = perm, cost
+    return best if best is not None else ()
+
+
+def _plan_group(kind: str, stacked: bool, paths, shape, in_e, out_e,
+                vec: bool, L2: int, cfg1, cfg2) -> LeafGroup:
+    """Choose contraction order + kernel eligibility from static shapes."""
+    in_ref = None if in_e is None else (_expr_key(in_e), "in")
+    out_ref = None if out_e is None else (_expr_key(out_e), "out")
+    blended = stacked
+    L1 = shape[0] if stacked else 1
+    if vec:
+        n = shape[-1]
+        j = _expr_dims(out_e, cfg1, cfg2)[0] if out_e is not None else n
+        ops_present = tuple(op for op, c in (("out", out_e is not None),
+                                             ("blend", blended)) if c)
+        order = _best_order(ops_present, L1, L2, 1, 1, n, 1, j)
+        return LeafGroup(kind, stacked, tuple(paths), tuple(shape), None,
+                         out_ref, True, order, False)
+
+    a, b = shape[-2], shape[-1]
+    extra = 1
+    for d in shape[(1 if stacked else 0):-2]:
+        extra *= d
+    i = _expr_dims(in_e, cfg1, cfg2)[0] if in_e is not None else a
+    j = _expr_dims(out_e, cfg1, cfg2)[0] if out_e is not None else b
+    ops_present = tuple(op for op, c in (("in", in_e is not None),
+                                         ("out", out_e is not None),
+                                         ("blend", blended)) if c)
+    order = _best_order(ops_present, L1, L2, extra, a, b, i, j)
+    kernel_ok = (blended and in_e is not None and len(shape) in (3, 4)
+                 and min(L1, L2, extra, i, a, b) >= 1)
+    return LeafGroup(kind, stacked, tuple(paths), tuple(shape), in_ref,
+                     out_ref, False, order, kernel_ok)
+
+
+class GrowthPlan:
+    """Static execution plan for growing Θ_small → Θ_large.
+
+    Built once per ``(cfg1, cfg2, parameter-tree signature)`` via
+    :func:`plan_for`; ``apply`` has the legacy ``apply_ligo`` walk's
+    semantics.
+    """
+
+    def __init__(self, cfg1: ModelConfig, cfg2: ModelConfig,
+                 groups: Tuple[LeafGroup, ...],
+                 exprs: Dict[ExprRef, Any]):
+        self.cfg1, self.cfg2 = cfg1, cfg2
+        self.groups = groups
+        self.exprs = exprs
+
+    def _expander_table(self, width) -> Dict[ExprRef, torch.Tensor]:
+        return {ref_: resolve_expander(expr, width, self.cfg1, self.cfg2,
+                                       ref_[1])
+                for ref_, expr in self.exprs.items()}
+
+    # -- group execution ----------------------------------------------------
+    @staticmethod
+    def _expand_out(X: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
+        """(..., b) · Eᵀ → (..., j) as one (prod(...), b)×(b, j) GEMM."""
+        s = X.shape
+        out = X.reshape(-1, s[-1]) @ E.to(X.dtype).T
+        return out.reshape(s[:-1] + (E.shape[0],))
+
+    @staticmethod
+    def _expand_in(X: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
+        """E · (..., a, b) → (..., i, b) as one (i, a)×(a, prod(·)) GEMM."""
+        a = X.shape[-2]
+        Xm = torch.movedim(X, -2, 0)                      # (a, ..., b)
+        s = Xm.shape
+        out = E.to(X.dtype) @ Xm.reshape(a, -1)
+        return torch.movedim(out.reshape((E.shape[0],) + s[1:]), 0, -2)
+
+    @staticmethod
+    def _run_group(g: LeafGroup, X: torch.Tensor, E_in, E_out, w_g):
+        """X: (G, ...) stacked leaves; w_g: (G, L2, L1) blends or None.
+
+        Executes the group's static min-FLOP op sequence; the blend op is
+        skipped when the operator tree carries no depth blends for this kind.
+        """
+        for op in g.order:
+            if op == "in":
+                X = GrowthPlan._expand_in(X, E_in)
+            elif op == "out":
+                X = GrowthPlan._expand_out(X, E_out)
+            elif w_g is not None:
+                X = torch.einsum("gkl,gl...->gk...", w_g.to(X.dtype), X)
+        return X
+
+    @staticmethod
+    def _run_group_fused(X: torch.Tensor, E_in, E_out, w_g):
+        """Blend + left-expand for the *whole group* in one K1 launch (the G
+        leaves and any MoE expert dim E are the kernel's batch); the right
+        expansion is a plain matmul on the kernel's output."""
+        moe = X.dim() == 5                     # (G, L1, E, a, b) expert stack
+        Xg = X if moe else X[:, :, None]       # insert E=1 for plain leaves
+        P = ops.ligo_blend_expand_grouped(
+            w_g, E_in.to(X.dtype).contiguous(), Xg.contiguous())
+        if not moe:
+            P = P[:, :, 0]
+        if E_out is not None:
+            P = GrowthPlan._expand_out(P, E_out)
+        return P
+
+    def apply(self, ligo, small, *, use_kernel: Optional[bool] = None,
+              square: bool = False):
+        """Θ_large = M(Θ_small).
+
+        ``use_kernel`` routes kernel-eligible groups through K1 (the default:
+        yes when the small tree lies on a CUDA device). On CPU tensors the
+        same route runs K1's plain version. ``square=True`` squares every
+        resolved expander and depth blend elementwise after resolution — the
+        AdamW second-moment map.
+        """
+        flat_stacks = {kind: _flatten(stack)
+                       for kind, stack in small["layers"].items()}
+        flat_top = _flatten({k: v for k, v in small.items() if k != "layers"})
+        if use_kernel is None:
+            some = next(iter(flat_top.values()))
+            use_kernel = some.is_cuda
+        width = ligo["width"]
+        depth = ligo.get("depth", {})
+        table = self._expander_table(width)
+        if square:
+            table = {ref_: E * E for ref_, E in table.items()}
+
+        grown_stacks: Dict[str, Dict[str, torch.Tensor]] = {
+            g.kind: {} for g in self.groups if g.kind}
+        grown_top: Dict[str, torch.Tensor] = {}
+
+        for g in self.groups:
+            src = flat_stacks[g.kind] if g.kind else flat_top
+            leaves = [src[p] for p in g.paths]
+            blend_tree = depth.get(g.kind) if (g.stacked and g.kind) else None
+            w_g = (torch.stack([blend_tree[p] for p in g.paths])
+                   if blend_tree is not None else None)
+            if square and w_g is not None:
+                w_g = w_g * w_g
+            E_in = table[g.in_ref] if g.in_ref is not None else None
+            E_out = table[g.out_ref] if g.out_ref is not None else None
+            X = leaves[0][None] if len(leaves) == 1 else torch.stack(leaves)
+            if use_kernel and g.kernel_ok and w_g is not None:
+                out = self._run_group_fused(X, E_in, E_out, w_g)
+            else:
+                out = self._run_group(g, X, E_in, E_out, w_g)
+            dst = grown_stacks[g.kind] if g.kind else grown_top
+            for gi, p in enumerate(g.paths):
+                dst[p] = out[gi]
+
+        out_tree: Dict[str, Any] = {"layers": {
+            kind: _unflatten(grown) for kind, grown in grown_stacks.items()}}
+        out_tree.update(_unflatten(grown_top))
+        return out_tree
+
+
+# ---------------------------------------------------------------------------
+# Plan construction (memoised on config pair + tree signature)
+# ---------------------------------------------------------------------------
+def _tree_signature(small) -> Tuple:
+    layers = tuple(sorted(
+        (kind, tuple(sorted((p, tuple(v.shape))
+                            for p, v in _flatten(stack).items())))
+        for kind, stack in small["layers"].items()))
+    top = tuple(sorted((p, tuple(v.shape)) for p, v in _flatten(
+        {k: v for k, v in small.items() if k != "layers"}).items()))
+    return (layers, top)
+
+
+@functools.lru_cache(maxsize=128)
+def _build_plan(cfg1: ModelConfig, cfg2: ModelConfig, sig) -> GrowthPlan:
+    layers_sig, top_sig = sig
+    S.check_same_family(cfg1, cfg2)
+    c2 = _kind_counts(cfg2)
+    groups = []
+    exprs: Dict[ExprRef, Any] = {}
+
+    def register(expr, role: str) -> Optional[ExprRef]:
+        if expr is None:
+            return None
+        ref_ = (_expr_key(expr), role)
+        exprs.setdefault(ref_, expr)
+        return ref_
+
+    for kind, leaves in layers_sig:
+        lspec = S.layer_spec(kind, cfg1, cfg2)
+        stacked = kind != "shared_attn"
+        L2 = c2.get(kind, 0)
+        buckets: Dict[Tuple, list] = {}
+        for path, shape in leaves:
+            in_e, out_e = lspec[path]
+            vec = len(shape) == (2 if stacked else 1)
+            key = (shape, _expr_key(in_e) if not vec else None,
+                   _expr_key(out_e), vec)
+            buckets.setdefault(key, []).append((path, in_e, out_e))
+        for (shape, _ik, _ok, vec), members in sorted(buckets.items(),
+                                                      key=str):
+            paths = tuple(p for p, _, _ in members)
+            in_e, out_e = members[0][1], members[0][2]
+            g = _plan_group(kind, stacked, paths, shape,
+                            None if vec else in_e, out_e, vec, L2, cfg1, cfg2)
+            if not vec:
+                register(in_e, "in")
+            register(out_e, "out")
+            groups.append(g)
+
+    tspec = S.top_spec()
+    buckets = {}
+    for path, shape in top_sig:
+        in_e, out_e = tspec[path]
+        vec = len(shape) == 1
+        key = (shape, _expr_key(in_e) if not vec else None,
+               _expr_key(out_e), vec)
+        buckets.setdefault(key, []).append((path, in_e, out_e))
+    for (shape, _ik, _ok, vec), members in sorted(buckets.items(), key=str):
+        paths = tuple(p for p, _, _ in members)
+        in_e, out_e = members[0][1], members[0][2]
+        g = _plan_group("", False, paths, shape, None if vec else in_e,
+                        out_e, vec, 0, cfg1, cfg2)
+        if not vec:
+            register(in_e, "in")
+        register(out_e, "out")
+        groups.append(g)
+    return GrowthPlan(cfg1, cfg2, tuple(groups), exprs)
+
+
+def plan_for(cfg1: ModelConfig, cfg2: ModelConfig, small) -> GrowthPlan:
+    """The (memoised) GrowthPlan for growing ``small`` from cfg1 to cfg2."""
+    return _build_plan(cfg1, cfg2, _tree_signature(small))
+
+
+# ---------------------------------------------------------------------------
+# Operator composition: stage-A→B ∘ stage-B→C as a single A→C operator
+# ---------------------------------------------------------------------------
+# Every hop is linear in Θ, the depth blend acts on the layer axis and the
+# width expanders on the matrix axes, so successive hops compose:
+#   P₃ = w_B·(E_B P₂ F_Bᵀ),  P₂ = w_A·(E_A W F_Aᵀ)
+#      = (w_B w_A)·((E_B E_A) W (F_B F_A)ᵀ)
+# The tying registry commutes with this (Γ₂₃(B)·Γ₁₂(A) = Γ₁₃(B·A)), so only
+# the *named* width matrices compose. This exactness holds for the linear map
+# (parameters, first moments), not for the squared second-moment operator.
+def _chain_matmul(B: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """``B @ A`` for two operator factors, computed in float64 and rounded
+    once to the storage dtype, so the composed operator carries no
+    accumulation error of its own."""
+    out = B.to(torch.float64) @ A.to(torch.float64)
+    return out.to(torch.promote_types(B.dtype, A.dtype))
+
+
+def compose_ligo(op_a: Dict, op_b: Dict, cfg1: ModelConfig,
+                 cfg2: ModelConfig, cfg3: ModelConfig) -> Dict:
+    """Compose LiGO operators ``op_a: cfg1→cfg2`` and ``op_b: cfg2→cfg3``
+    into the equivalent single-hop ``cfg1→cfg3`` operator.
+
+    Untied in-expanders (``<name>__in``) compose role-wise, falling back to
+    the tied matrix when a hop has no override.
+    """
+    S.check_growable(cfg1, cfg2)
+    S.check_growable(cfg2, cfg3)
+    wa, wb = op_a["width"], op_b["width"]
+    width: Dict[str, torch.Tensor] = {}
+    for name in sorted(n for n in wb if not n.endswith("__in")):
+        if name not in wa:
+            raise KeyError(f"width expander {name!r} missing from the "
+                           f"first-hop operator")
+        A, B = wa[name], wb[name]
+        if A.shape[0] != B.shape[1]:
+            raise ValueError(f"{name}: hop dims do not chain "
+                             f"({tuple(A.shape)} then {tuple(B.shape)})")
+        width[name] = _chain_matmul(B, A)
+        if f"{name}__in" in wa or f"{name}__in" in wb:
+            Ai = wa.get(f"{name}__in", A)
+            Bi = wb.get(f"{name}__in", B)
+            width[f"{name}__in"] = _chain_matmul(Bi, Ai)
+    depth: Dict[str, Any] = {}
+    da, db = op_a.get("depth", {}), op_b.get("depth", {})
+    c1, c2_, c3 = (_kind_counts(cfg1), _kind_counts(cfg2),
+                   _kind_counts(cfg3))
+    for kind in sorted(set(da) | set(db)):
+        ta, tb = da.get(kind), db.get(kind)
+        if ta is None or tb is None:
+            # one hop carries no blend for this kind — an implicit identity,
+            # only sound when that hop does not change the layer count
+            lo, hi = ((c1, c2_) if ta is None else (c2_, c3))
+            if lo.get(kind, 0) != hi.get(kind, 0):
+                raise ValueError(
+                    f"hop without a depth blend for kind {kind!r} changes "
+                    f"its layer count {lo.get(kind, 0)} -> "
+                    f"{hi.get(kind, 0)} — cannot compose through an "
+                    f"implicit identity")
+            depth[kind] = dict(tb if ta is None else ta)
+            continue
+        if sorted(ta) != sorted(tb):
+            raise ValueError(f"depth leaf sets differ for kind {kind!r}")
+        depth[kind] = {leaf: _chain_matmul(tb[leaf], ta[leaf])
+                       for leaf in ta}
+    return {"width": width, "depth": depth}
+
+
+def compose_chain(ops_, cfgs) -> Dict:
+    """Fold a whole trajectory's operators ``[op₁₂, op₂₃, …]`` over the
+    config chain ``[cfg₁, cfg₂, …, cfg_N]`` into one ``cfg₁→cfg_N``
+    operator (a single-entry chain passes through unchanged)."""
+    if len(ops_) != len(cfgs) - 1:
+        raise ValueError(f"{len(ops_)} operators need {len(ops_) + 1} "
+                         f"configs, got {len(cfgs)}")
+    if not ops_:
+        raise ValueError("empty operator chain")
+    out = ops_[0]
+    for i in range(1, len(ops_)):
+        out = compose_ligo(out, ops_[i], cfgs[0], cfgs[i], cfgs[i + 1])
+    return out

@@ -1,0 +1,8 @@
+"""The port's kernels: hand-written Hopper kernels beside their plain
+PyTorch versions. Importing this package builds and loads nothing; a
+kernel's library is built at its first launch (see ``_build``)."""
+from repro_torch.kernels.ops import (launch_counts, ligo_blend_expand_grouped,
+                                     reset_launch_counts)
+
+__all__ = ["ligo_blend_expand_grouped", "launch_counts",
+           "reset_launch_counts"]

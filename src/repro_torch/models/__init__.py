@@ -1,0 +1,6 @@
+from repro_torch.models.model import (decode_step, embed, forward,
+                                      init_decode_state, init_params, prefill,
+                                      unembed)
+
+__all__ = ["init_params", "forward", "decode_step", "prefill", "unembed",
+           "embed", "init_decode_state"]

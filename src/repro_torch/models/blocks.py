@@ -1,0 +1,104 @@
+"""Residual blocks of the dense family: attention + MLP.
+
+``init_attn(gen, cfg, ...)`` returns one layer's params (or a stack of them
+with ``lead=(L,)``); ``apply_attn(p, x, cfg, positions, mode=...)`` runs one
+layer in three modes:
+
+- ``train``: full-sequence mixing;
+- ``prefill``: the same, and returns the layer's K/V cache contribution in
+  the ring-buffer layout decode continues (token t at slot t % S);
+- ``decode``: a single-token step against the dense cache
+  ``{"k", "v"}: (B, S, KV, dh)``, which it updates **in place** (the JAX
+  package returns a new cache; writing into the old one saves a copy of
+  every layer's cache per token).
+
+The MoE, xLSTM and Mamba2 blocks come with their model families.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
+                                       attention, decode_attention,
+                                       dense_init, init_mlp, init_norm)
+
+
+def _use_bias(cfg) -> bool:
+    return cfg.norm == "layer"
+
+
+def init_attn(gen, cfg, *, dtype=torch.float32, device=None,
+              lead: Tuple[int, ...] = ()):
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    p = {
+        "ln1": init_norm(cfg.norm, D, **kw),
+        "wq": dense_init(gen, D, H * dh, **kw),
+        "wk": dense_init(gen, D, KV * dh, **kw),
+        "wv": dense_init(gen, D, KV * dh, **kw),
+        "wo": dense_init(gen, H * dh, D, 1.0 / math.sqrt(2 * cfg.n_layers),
+                         **kw),
+        "ln2": init_norm(cfg.norm, D, **kw),
+    }
+    if _use_bias(cfg):
+        for name, n in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh),
+                        ("bo", D)):
+            p[name] = torch.zeros(tuple(lead) + (n,), dtype=dtype,
+                                  device=device)
+    if cfg.d_ff > 0:
+        p["mlp"] = init_mlp(gen, D, cfg.d_ff, cfg.act, _use_bias(cfg),
+                            cfg.n_layers, **kw)
+    return p
+
+
+def _qkv(p, h, cfg, positions):
+    B, T, _ = h.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = h @ p["wq"] + (p["bq"] if "bq" in p else 0.0)
+    k = h @ p["wk"] + (p["bk"] if "bk" in p else 0.0)
+    v = h @ p["wv"] + (p["bv"] if "bv" in p else 0.0)
+    q = q.reshape(B, T, H, dh)
+    k = k.reshape(B, T, KV, dh)
+    v = v.reshape(B, T, KV, dh)
+    if cfg.rope == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet")
+    return q, k, v
+
+
+def apply_attn(p, x, cfg, positions, *, mode: str = "train",
+               cache: Optional[dict] = None, cur_len: Optional[int] = None):
+    """Returns (x_out, new_cache_or_None)."""
+    B, T, D = x.shape
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    new_cache = None
+    q, k, v = _qkv(p, h, cfg, positions)
+    if mode == "decode":
+        S = cache["k"].shape[1]
+        ring = bool(cfg.window) and S == cfg.window
+        slot = (cur_len - 1) % S if ring else cur_len - 1
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        o = decode_attention(q, cache["k"], cache["v"], cur_len,
+                             window=cfg.window, ring=ring)
+        new_cache = cache
+    else:
+        o = attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
+                      window=cfg.window)
+        if mode == "prefill":
+            S = cfg.window if (cfg.window and cfg.window < T) else T
+            # ring-buffer layout: token t lives at slot t % S (so decode's
+            # `(cur_len-1) % S` slot assignment continues seamlessly)
+            new_cache = {"k": torch.roll(k[:, -S:], T % S, dims=1),
+                         "v": torch.roll(v[:, -S:], T % S, dims=1)}
+    o = o.reshape(B, T, -1) @ p["wo"] + (p["bo"] if "bo" in p else 0.0)
+    x = x + o
+    if "mlp" in p:
+        h2 = apply_norm(p["ln2"], x, cfg.norm)
+        x = x + apply_mlp(p["mlp"], h2, cfg.act)
+    return x, new_cache

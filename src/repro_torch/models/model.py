@@ -1,0 +1,172 @@
+"""Model API for the dense attention family: init, forward, prefill, decode.
+
+``init_params(cfg, gen, device=...)`` returns the JAX package's parameter
+tree: ``params["layers"]["attn"][leaf]`` stacked over a leading L dim,
+weights ``(in, out)``. ``forward`` loops over that dim in Python where the
+JAX package scans. Decode caches are ``{"k", "v"}: (L, B, S, KV, dh)``;
+``decode_step`` writes each new token into them in place, and the decode
+position ``state["pos"]`` is a Python int (all rows of a batch step in lock
+step).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.layers import apply_norm, embed_init, init_norm
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _dtype(cfg):
+    return DTYPES[cfg.dtype]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if (cfg.modality != "text" or set(cfg.blocks) != {"attn"}
+            or cfg.rope not in ("learned", "rope", "none")):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense attention family with text input "
+            f"is ported (family={cfg.family!r}, rope={cfg.rope!r})")
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters drawn from ``gen``, which must live on ``device``."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    params: Dict[str, Any] = {"embed": {}, "layers": {}}
+    params["embed"]["tok"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                        dtype=dtype, device=dev)
+    if cfg.rope == "learned":
+        params["embed"]["pos"] = embed_init(gen, cfg.max_seq, cfg.d_model,
+                                            dtype=dtype, device=dev)
+    params["layers"]["attn"] = B.init_attn(gen, cfg, dtype=dtype, device=dev,
+                                           lead=(cfg.n_layers,))
+    params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype=dtype,
+                                     device=dev)
+    if not cfg.tie_embeddings:
+        params["head"] = embed_init(gen, cfg.d_model, cfg.vocab_size,
+                                    dtype=dtype, device=dev)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def embed(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+          offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,T,D), positions (1,T))."""
+    emb = params["embed"]
+    tokens = batch["tokens"]
+    x = emb["tok"][tokens]
+    T = tokens.shape[1]
+    positions = torch.arange(T, device=tokens.device)[None] + offset
+    if cfg.rope == "learned":
+        x = x + emb["pos"][positions[0]]
+    return x, positions
+
+
+def unembed(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings and "tok" in params["embed"]:
+        return hidden @ params["embed"]["tok"].T
+    return hidden @ params["head"]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len):
+    stack = params["layers"]["attn"]
+    new = []
+    for i in range(cfg.n_layers):
+        c = _index(caches, i) if caches is not None else None
+        x, nc = B.apply_attn(_index(stack, i), x, cfg, positions, mode=mode,
+                             cache=c, cur_len=cur_len)
+        new.append(nc)
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        return x, caches                      # written in place
+    return x, {kk: torch.stack([c[kk] for c in new]) for kk in ("k", "v")}
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            mode: str = "train", caches=None, cur_len: Optional[int] = None):
+    """Returns (hidden (B,T,D), new_caches)."""
+    _check_ported(cfg)
+    offset = cur_len - 1 if mode == "decode" else 0
+    x, positions = embed(params, cfg, batch, offset=offset)
+    x, new_caches = _fwd_homogeneous(params, x, cfg, positions, mode=mode,
+                                     caches=caches, cur_len=cur_len)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Decode state
+# ---------------------------------------------------------------------------
+def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int, *,
+                      device="cuda"):
+    """Zero-initialised per-layer caches + position counter."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    S = min(cfg.window, seq_len) if cfg.window else seq_len
+    shape = (cfg.n_layers, batch_size, S, cfg.n_kv_heads, cfg.d_head)
+    caches = {kk: torch.zeros(shape, dtype=_dtype(cfg), device=dev)
+              for kk in ("k", "v")}
+    return {"caches": caches, "pos": 0}
+
+
+def decode_step(params, cfg: ModelConfig, state, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Any]:
+    """One-token decode: batch["tokens"]: (B, 1). Returns (logits (B,V),
+    state); the state's caches are updated in place."""
+    cur_len = state["pos"] + 1
+    hidden, caches = forward(params, cfg, batch, mode="decode",
+                             caches=state["caches"], cur_len=cur_len)
+    logits = unembed(params, cfg, hidden[:, -1])
+    return logits, {"caches": caches, "pos": cur_len}
+
+
+def _pad_attn_caches(caches, S_target: int):
+    """Grow attention K/V caches (seq axis = -3) to the decode budget."""
+    def pad(leaf):
+        S = leaf.shape[-3]
+        if S >= S_target:
+            return leaf
+        return F.pad(leaf, (0, 0, 0, 0, 0, S_target - S))
+    return {kk: pad(vv) for kk, vv in caches.items()}
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            max_len: Optional[int] = None):
+    """Full-sequence forward building decode caches. Returns
+    (logits of the last position (B, V), state).
+
+    ``max_len`` reserves cache space for subsequent decode steps (defaults to
+    the prompt length — no room to decode).
+    """
+    T = batch["tokens"].shape[1]
+    hidden, caches = forward(params, cfg, batch, mode="prefill")
+    if max_len is not None and max_len > T:
+        S_target = min(cfg.window, max_len) if cfg.window else max_len
+        caches = _pad_attn_caches(caches, S_target)
+    logits = unembed(params, cfg, hidden[:, -1])
+    return logits, {"caches": caches, "pos": T}

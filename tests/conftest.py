@@ -24,6 +24,12 @@ if _FORCED and ("--xla_force_host_platform_device_count"
         + f" --xla_force_host_platform_device_count={_FORCED}")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the PyTorch port's kernels); "
+        "skips where there is none")
+
+
 def require_host_devices(n: int):
     """Skip the calling test unless the session has >= n devices."""
     import jax

@@ -1,0 +1,59 @@
+"""The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
+imports jax or anything of the JAX package ``repro``, and importing the
+port's modules builds and loads no kernel."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            yield "." * node.level + (node.module or "")
+
+
+def test_scan_covers_the_port():
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    assert "chip_smoke.py" in names
+    assert os.path.join("src", "repro_torch", "launch", "serve.py") in names
+    assert len(names) >= 20
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+        assert not mod.startswith("."), (path, mod)   # absolute imports only
+
+
+def test_importing_the_port_loads_no_jax_and_builds_nothing():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.core, "
+            "repro_torch.bridge, repro_torch.kernels._build as b; "
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules), sorted(sys.modules); "
+            "assert not b._LIBS and not b.BUILD_LOG")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
