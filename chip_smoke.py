@@ -7,25 +7,36 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; it exits non-zero without a card, and when the port's
 sources are not beside it. Phases, each fatal on failure:
 
-1. build the kernel from ``src/repro_torch/csrc`` and print the build
-   seconds and ptxas report;
+1. build the kernels from ``src/repro_torch/csrc`` (one nvcc per source,
+   all at once) and print the build seconds and ptxas report;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and at a ragged float32 shape, and time
-   the kernel, the plain version and one library call computing the same
-   function, beside the least time the card could take (``bound_ms``);
+   shapes the main paths give it and at ragged float32 shapes, and time the
+   kernel, the plain version and one library call computing the same
+   function, beside the least time the card could take (``bound_ms``):
+   K1 (the LiGO blend-expand) and K2 (its backward: dw, dB and dW, each
+   checked on its own; K2 is also run twice and must agree bit for bit);
 3. drive the serving path at full width through its entry point —
    gpt2-base initialised on the card, hot-grown to gpt2-medium, 8 prompts of
    128 tokens prefilled and 31 tokens decoded greedily — with the launch
-   counters set to 0 just before and read just after; check that every
-   kernel of the path launched, that the kernel-grown tree matches a grow
-   through the plain path, and that logits and tokens are sane;
-4. print the kernels' JSON line, the card's name and power limit, and the
+   counters set to 0 just before and read just after; check that K1
+   launched once per eligible group, that the kernel-grown tree matches a
+   grow through the plain path, and that logits and tokens are sane;
+4. drive the training path at full width through its entry point —
+   gpt2-base pretrained 2 AdamW steps, grown to gpt2-medium by 4 LiGO steps
+   (K1 forward and K2 backward on every eligible group of every step), then
+   4 AdamW steps of gpt2-medium, batch 8 × 128 tokens — with the counters
+   set to 0 just before and read just after; check the launch counts, that
+   every loss is finite, and that the LiGO-loss gradient at the starting
+   operator is the same on the kernel route and the plain route; then
+   profile one LiGO step and one train step (``torch.profiler``);
+5. print the kernels' JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Float32 matrix products run in full float32 here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +57,10 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 MAIN_ARGS = ["--arch", "gpt2-base", "--grow-to", "gpt2-medium", "--batch", "8",
              "--prompt-len", "128", "--gen", "32"]
+LIGO_STEPS = 4
+TRAIN_ARGS = ["--arch", "gpt2-medium", "--grow-from", "gpt2-base", "--method",
+              "ligo", "--pretrain-steps", "2", "--ligo-steps", str(LIGO_STEPS),
+              "--steps", "4", "--batch", "8", "--seq", "128"]
 
 
 def _time_ms(torch, fn, reps):
@@ -143,6 +158,90 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
     return row
 
 
+def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
+    from repro_torch.kernels import ligo_expand_bwd, ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((G, L2, L1), generator=gen, device="cuda") / L1 ** 0.5
+    B = (torch.randn((I, A), generator=gen, device="cuda") / A ** 0.5
+         ).to(dtype)
+    W = torch.randn((G, L1, E, A, Bd), generator=gen, device="cuda").to(dtype)
+    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device="cuda").to(dtype)
+
+    def kernel():
+        return ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
+
+    def plain():
+        return ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+
+    def library():   # the einsum formulation in the working dtype (cuBLAS)
+        wd = w.to(dtype)
+        T = torch.einsum("ia,gkeib->gkeab", B, dP)
+        bl = torch.einsum("gkl,gleab->gkeab", wd, W)
+        return (torch.einsum("gkeab,gleab->gkl", T, W),
+                torch.einsum("gkeib,gkeab->ia", dP, bl),
+                torch.einsum("gkl,gkeab->gleab", wd, T))
+
+    got, want, again = kernel(), plain(), kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K2 is not deterministic at {name}: two runs "
+                             f"on the same inputs differ")
+    del again
+    tname = str(dtype).replace("torch.", "")
+    errs, diffs = {}, []
+    for key, a, b in (("dB", got[1], want[1]), ("dW", got[2], want[2])):
+        diff = (a.float() - b.float()).abs().max().item()
+        errs[key] = diff / (b.float().abs().max().item() + 1e-30)
+        diffs.append(diff)
+    # dw is a long sum that cancels: normalise each entry's error by the sum
+    # of the absolute values of its terms, Σ_{e,a,b} |T[g,k,e]| |W[g,l,e]|.
+    with torch.no_grad():
+        T_abs = torch.einsum("ia,gkeib->gkeab", B.float(), dP.float()).abs()
+        terms = torch.einsum("gkeab,gleab->gkl", T_abs, W.float().abs())
+        del T_abs
+    dw_diff = (got[0].float() - want[0].float()).abs()
+    errs["dw"] = (dw_diff / (terms + 1e-30)).max().item()
+    diffs.append(dw_diff.max().item())
+    ok = (all(e <= TOL[tname] for e in errs.values())
+          and all(bool(torch.isfinite(x).all()) for x in got))
+    # The bound counts the fewest operations the function needs: the least
+    # of K2's own fused order (T over all L2 layers, dB against the blended
+    # slabs) and the order that blends dP over k first (three L1-batched
+    # products plus the blend and the dw contraction).
+    fused_flops = (2 * 2 * G * E * L2 * I * A * Bd
+                   + 3 * 2 * G * E * L2 * L1 * A * Bd)
+    flops = min(fused_flops, 3 * 2 * G * E * L1 * I * A * Bd
+                + 2 * 2 * G * E * L2 * L1 * I * Bd)
+    elt = B.element_size()
+    nbytes = (2 * 4 * G * L2 * L1 + elt * (2 * I * A + 2 * G * L1 * E * A * Bd
+                                           + G * L2 * E * I * Bd))
+    t_ops, t_bytes = flops / PEAK_OPS[tname], nbytes / PEAK_BYTES
+    reps = 2 if flops > 1e11 else 10
+    row = {
+        "shape": name, "dtype": tname,
+        "G": G, "L2": L2, "L1": L1, "E": E, "I": I, "A": A, "Bd": Bd,
+        "max_abs_err": max(diffs), "norm_err": errs, "tol": TOL[tname],
+        "ms": _time_ms(torch, kernel, reps),
+        "plain_ms": _time_ms(torch, plain, reps),
+        "library_ms": _time_ms(torch, library, reps),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "gflop": flops / 1e9, "kernel_gflop": fused_flops / 1e9,
+        "mbytes": nbytes / 1e6,
+    }
+    print(f"[k2] {name:>8} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
+          f"A={A} Bd={Bd}: norm err dw {errs['dw']:.2e} dB {errs['dB']:.2e} "
+          f"dW {errs['dW']:.2e} (tol {TOL[tname]:.0e}) | kernel "
+          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}) {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version at {name} "
+                             f"({tname}): normalised errors {errs}")
+    del got, want, terms
+    return row
+
+
 def _check_trees(torch, got, want, tol):
     from repro_torch.core.ligo import _flatten
     fg, fw = _flatten(got), _flatten(want)
@@ -162,6 +261,131 @@ def _check_trees(torch, got, want, tol):
     return worst
 
 
+def _ligo_grad_check(torch, res, tol32, tol16):
+    """The LiGO-loss gradient at the starting operator on the kernel route
+    (K1 forward, K2 backward) and on the plain route, with the pretrained
+    source in float32 and as trained (bf16).
+
+    In float32 the two routes differ only in summation order: they must
+    agree to ``tol32`` per leaf. In bf16 each route rounds at its own
+    places, and the whole 24-layer forward and backward rounds activations
+    and their gradients to bf16 on both: the bf16 gradient of either route
+    lies a few per cent from the float32 one (my chip runs 2-3, PR 12), so
+    the bf16 routes cannot agree to 1e-2. The bf16 kernel route is held to
+    the float32 gradient instead: no farther than twice the plain route's
+    own distance to it, plus ``tol16``.
+
+    Each leaf's error is normalised by its largest entry, floored at 1e-3
+    of the tree's largest gradient: the depth blend of the key bias has a
+    gradient of 0 in exact arithmetic (softmax is shift-invariant for each
+    query) and carries only rounding noise."""
+    from repro_torch.core.grow import ligo_loss
+    from repro_torch.data import batch_for_step
+    from repro_torch.training import to_device, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    small_cfg, cfg = res["small_cfg"], res["cfg"]
+    op = res["grow_info"]["operator_init"]
+    batch = to_device(batch_for_step(small_cfg, 0, 8, 128, seed=1), "cuda")
+    small16 = res["small"]
+    small32 = tree_map(lambda x: x.float(), small16)
+    names = _leaf_names(op)
+
+    def grads(small, use_kernel):
+        def fn(o, b):
+            return ligo_loss(o, small, small_cfg, cfg, b,
+                             use_kernel=use_kernel), {}
+        (loss, _), g = value_and_grad(fn, op, batch)
+        return float(loss), [x.float() for x in tree_leaves(g)]
+
+    (lk16, k16), (lp16, p16) = grads(small16, None), grads(small16, False)
+    (lk32, k32), (lp32, p32) = grads(small32, None), grads(small32, False)
+    torch.cuda.synchronize()
+    top = max(float(b.abs().max()) for b in p32)
+
+    def errs(got, want):
+        return [float((a - b).abs().max())
+                / max(float(b.abs().max()), 1e-3 * top)
+                for a, b in zip(got, want)]
+
+    def worst(e):
+        i = max(range(len(e)), key=e.__getitem__)
+        return f"{e[i]:.2e} ({names[i]})"
+
+    e32, e16 = errs(k32, p32), errs(k16, p16)
+    ek, ep = errs(k16, p32), errs(p16, p32)
+    print(f"[train] LiGO-loss gradient at the start operator, kernel route "
+          f"vs plain route, worst per-leaf normalised error: float32 "
+          f"{worst(e32)} (tol {tol32:.0e}), loss {lk32:.6f} vs {lp32:.6f}; "
+          f"bf16 {worst(e16)}, loss {lk16:.6f} vs {lp16:.6f}", flush=True)
+    print(f"[train] bf16 gradient vs the float32 plain-route gradient: "
+          f"kernel route {worst(ek)}, plain route {worst(ep)}", flush=True)
+    bad = [n for n, a, b in zip(names, ek, ep) if not a <= 2 * b + tol16]
+    if max(e32) > tol32 or bad:
+        raise AssertionError(f"kernel-route LiGO gradient disagrees with the "
+                             f"plain route: float32 {worst(e32)}; bf16 "
+                             f"kernel route off the float32 gradient at "
+                             f"{bad}")
+
+
+def _leaf_names(tree, prefix=""):
+    out = []
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        out += _leaf_names(v, p) if isinstance(v, dict) else [p]
+    return out
+
+
+def _profile_steps(torch, tres):
+    """One LiGO step and one train step of the full-width pair under
+    ``torch.profiler``, after a warm-up call of each: the wall time (host
+    clock, synchronised, profiler on), the device's busy time (the sum of
+    the device time of every kernel and copy, as the profiler's table sums
+    it: one stream, so no overlap) and the ops that take the most of it.
+    The profiler adds host time to every op, so the wall time here is
+    longer than the launcher's unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.grow import ligo_loss
+    from repro_torch.data import batch_for_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import make_train_step, to_device, value_and_grad
+    small_cfg, cfg = tres["small_cfg"], tres["cfg"]
+    sbatch = to_device(batch_for_step(small_cfg, 0, 8, 128, seed=21), "cuda")
+    batch = to_device(batch_for_step(cfg, 0, 8, 128, seed=22), "cuda")
+    step = make_train_step(cfg, TrainConfig(steps=4, warmup_steps=5, lr=1e-3))
+    params, opt = tres["params"], adamw_init(tres["params"])
+
+    def ligo_step():
+        return value_and_grad(
+            lambda op, b: (ligo_loss(op, tres["small"], small_cfg, cfg, b),
+                           {}),
+            tres["grow_info"]["operator_init"], sbatch)
+
+    def train_step():
+        return step(params, opt, batch, 1)
+
+    for name, fn in (("LiGO step", ligo_step), ("train step", train_step)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in ev
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e3
+        print(f"[profile] {name} of {small_cfg.name} -> {cfg.name}: wall "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / wall:.0f} %), profiler on", flush=True)
+        print(ev.table(sort_by="self_device_time_total", row_limit=12,
+                       max_name_column_width=48), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -176,7 +400,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.plan import plan_for
     from repro_torch.kernels import _build, ops
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,10 +410,11 @@ def main() -> int:
           f"allow_tf32=False (f32 matmuls in full f32)", flush=True)
 
     # -- phase 1: build -----------------------------------------------------
-    secs = _build.build("ligo_expand")
-    print("[build] ligo_expand.cu: "
-          + ("current build reused" if secs is None
-             else f"compiled in {secs:.1f} s"), flush=True)
+    secs = _build.build()
+    for name in _build.SOURCES:
+        print(f"[build] {name}.cu: "
+              + (f"compiled in {secs[name]:.1f} s (builds run concurrently)"
+                 if name in secs else "current build reused"), flush=True)
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -203,15 +428,24 @@ def main() -> int:
     rows.append(_check_k1(torch, "ragged", torch.float32,
                           3, 5, 3, 2, 200, 50, 130, seed=99))
     main_rows = rows[:len(shapes)]
+    rows2 = [_check_k2(torch, name, torch.bfloat16, *dims, seed=200 + i)
+             for i, (name, *dims) in enumerate(shapes)]
+    rows2.append(_check_k2(torch, "ragged", torch.float32,
+                           3, 5, 3, 2, 200, 50, 130, seed=98))
+    rows2.append(_check_k2(torch, "pinned", torch.float32,
+                           1, 1, 1, 2, 1, 50, 45, seed=97))
+    main_rows2 = rows2[:len(shapes)]
 
     # -- phase 3: the serving main path at full width ------------------------
     ops.reset_launch_counts()
     res = serve.main(MAIN_ARGS)
     launches = ops.launch_counts()
-    print(f"[main] launches during the main path: {launches}", flush=True)
-    if launches["ligo_blend_expand_grouped"] != len(shapes):
-        raise AssertionError(f"K1 launched {launches} times on the main path, "
-                             f"want {len(shapes)} (one per eligible group)")
+    print(f"[main] launches during the serving path: {launches}", flush=True)
+    if launches != {"ligo_blend_expand_grouped": len(shapes),
+                    "ligo_blend_expand_bwd_fused": 0}:
+        raise AssertionError(f"kernel launches on the serving path: "
+                             f"{launches}, want K1 {len(shapes)} (one per "
+                             f"eligible group) and K2 0")
     with torch.no_grad():
         plan = plan_for(res["small_cfg"], res["cfg"], res["small"])
         plain = plan.apply(res["ligo"], res["small"], use_kernel=False)
@@ -247,26 +481,63 @@ def main() -> int:
           f"kernel path {warm['kernel']} ms, plain path {warm['plain']} ms | "
           f"prefill {res['prefill_ms']:.1f} ms | decode "
           f"{res['decode_tok_s']:.1f} tok/s", flush=True)
+    del res, plain, plan, small, ligo, pl, dl, toks
 
-    # -- phase 4: report ------------------------------------------------------
-    def total(key):
-        return sum(r[key] for r in main_rows)
+    # -- phase 4: the training main path at full width -----------------------
+    ops.reset_launch_counts()
+    tres = train.main(TRAIN_ARGS)
+    tlaunch = ops.launch_counts()
+    print(f"[main] launches during the training path: {tlaunch}", flush=True)
+    want = {"ligo_blend_expand_grouped": len(shapes) * (LIGO_STEPS + 1),
+            "ligo_blend_expand_bwd_fused": len(shapes) * LIGO_STEPS}
+    if tlaunch != want:
+        raise AssertionError(f"kernel launches on the training path: "
+                             f"{tlaunch}, want {want} (K1 once per eligible "
+                             f"group per LiGO step and final grow, K2 once "
+                             f"per eligible group per LiGO step)")
+    losses = (tres["source_losses"] + tres["ligo_losses"]
+              + tres["train_losses"])
+    if len(tres["ligo_losses"]) != LIGO_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses: {losses}")
+    _ligo_grad_check(torch, tres, 1e-4, 1e-2)
+    _profile_steps(torch, tres)
+    print(f"[train] losses: source {tres['source_losses']}, LiGO "
+          f"{tres['ligo_losses']}, gpt2-medium {tres['train_losses']}")
+    print(f"[train] ms per LiGO step {tres['ligo_step_ms']} | ms per train "
+          f"step {tres['train_step_ms']} | {tres['tok_s']:.0f} tokens/s "
+          f"(median step, first left out)", flush=True)
+    print(f"[k2] one LiGO backward: {sum(r['gflop'] for r in main_rows2):.1f} "
+          f"GFLOP needed at least (min-FLOP order), "
+          f"{sum(r['kernel_gflop'] for r in main_rows2):.1f} GFLOP done by K2 "
+          f"(fused order), {sum(r['mbytes'] for r in main_rows2):.1f} MB "
+          f"moved at least", flush=True)
 
-    t_ops = sum(r["gflop"] * 1e9 for r in main_rows) / PEAK_OPS["bfloat16"]
-    t_bytes = sum(r["mbytes"] * 1e6 for r in main_rows) / PEAK_BYTES
-    kernels = [{
-        "name": "ligo_blend_expand_grouped",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/ligo_expand.cu",
-        "replaces": "src/repro/kernels/ligo_expand.py:116",
-        "launches": launches["ligo_blend_expand_grouped"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": total("library_ms"),
-    }]
+    # -- phase 5: report ------------------------------------------------------
+    def entry(name, source, replaces, n, rows_, main_):
+        t_ops = sum(r["gflop"] * 1e9 for r in main_) / PEAK_OPS["bfloat16"]
+        t_bytes = sum(r["mbytes"] * 1e6 for r in main_) / PEAK_BYTES
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(r["max_abs_err"] for r in rows_),
+            "ms": sum(r["ms"] for r in main_),
+            "plain_ms": sum(r["plain_ms"] for r in main_),
+            "bound_ms": sum(r["bound_ms"] for r in main_),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": sum(r["library_ms"] for r in main_),
+        }
+
+    kernels = [
+        entry("ligo_blend_expand_grouped", "src/repro_torch/csrc/ligo_expand.cu",
+              "src/repro/kernels/ligo_expand.py:116",
+              launches["ligo_blend_expand_grouped"]
+              + tlaunch["ligo_blend_expand_grouped"], rows, main_rows),
+        entry("ligo_blend_expand_bwd_fused",
+              "src/repro_torch/csrc/ligo_expand_bwd.cu",
+              "src/repro/kernels/ligo_expand_bwd.py:141",
+              tlaunch["ligo_blend_expand_bwd_fused"], rows2, main_rows2),
+    ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.paper_models import GROWTH_PAIRS, PAPER_MODELS
 
 REGISTRY: Dict[str, ModelConfig] = dict(PAPER_MODELS)
@@ -89,4 +89,5 @@ def half_config(cfg: ModelConfig) -> ModelConfig:
 
 
 __all__ = ["REGISTRY", "PAPER_MODELS", "GROWTH_PAIRS", "ModelConfig",
+           "TrainConfig",
            "get_config", "smoke_config", "grow_target", "half_config"]

@@ -3,8 +3,8 @@
 A field-for-field copy of the JAX package's ``ModelConfig``: configs are
 plain frozen dataclasses, so they hash (the growth-plan cache keys on them),
 serialise and diff the same in both packages. The parity tests hold every
-registry entry equal to the JAX one. ``TrainConfig`` comes with the training
-slice.
+registry entry equal to the JAX one. ``TrainConfig`` is the JAX package's
+driver-level training configuration, field for field.
 """
 from __future__ import annotations
 
@@ -166,3 +166,38 @@ class ModelConfig:
 
     def scaled(self, **overrides) -> "ModelConfig":
         return dataclasses.replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """End-to-end training hyper-parameters (driver-level).
+
+    The fields are the JAX package's. The port's trainer reads the schedule,
+    AdamW, clip, ``microbatches`` and ``remat`` fields; ``seed``,
+    ``ligo_*``, ``checkpoint_every`` and ``keep_checkpoints`` are kept for
+    parity and read by no code of the port yet (the launcher takes the seed
+    and the LiGO budget from its flags, and checkpoints come with a later
+    slice), and ``grad_compression`` belongs to the multi-chip trainer,
+    which is not ported.
+    """
+    seq_len: int = 128
+    global_batch: int = 32
+    steps: int = 1000
+    warmup_steps: int = 100
+    lr: float = 2e-4
+    end_lr_frac: float = 0.1
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.999
+    grad_clip: float = 1.0
+    seed: int = 0
+    # LiGO growth phase
+    ligo_steps: int = 100
+    ligo_lr: float = 1e-3
+    ligo_momentum: float = 0.9
+    # infra
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+    microbatches: int = 1            # gradient accumulation
+    grad_compression: str = "none"   # none | int8_ef
+    remat: str = "block"             # none | block

@@ -1,3 +1,4 @@
+from repro_torch.core.grow import grow, ligo_loss, train_ligo
 from repro_torch.core.ligo import (apply_ligo, gamma_expand, init_ligo_params,
                                   interp_pattern, resolve_expander,
                                   stack_pattern)
@@ -8,4 +9,4 @@ from repro_torch.core.spec import check_growable, family_hop, width_dims
 __all__ = ["apply_ligo", "gamma_expand", "init_ligo_params", "interp_pattern",
            "resolve_expander", "stack_pattern", "GrowthPlan", "LeafGroup",
            "compose_chain", "compose_ligo", "plan_for", "check_growable",
-           "family_hop", "width_dims"]
+           "family_hop", "width_dims", "grow", "ligo_loss", "train_ligo"]

@@ -1,0 +1,125 @@
+"""Classical growth operators as special cases of LiGO (paper Prop. 1,
+App. A), the twin of the JAX package's ``core/operators.py``.
+
+Each constructor returns a LiGO operator tree; ``apply_ligo`` on it is the
+classical operator: StackBERT and Interpolation (depth patterns, with
+unnormalised direct-copy width when the widths differ), Net2Net (selection
+width with count-normalised fan-in) and bert2BERT-FPI (Net2Net width with
+the StackBERT depth pattern). Random selections come from a
+``torch.Generator``, so they differ from the JAX package's draws for the
+same seed; their structure is the same. The LEMON and GQA-merge operators
+are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spec as S
+from repro_torch.core.ligo import _kind_counts, interp_pattern, stack_pattern
+from repro_torch.device import resolve_device
+
+
+def _generator(gen: Optional[torch.Generator], device) -> torch.Generator:
+    return gen if gen is not None else torch.Generator(
+        device=device).manual_seed(0)
+
+
+def _identity_width(cfg1: ModelConfig, cfg2: ModelConfig, device) -> Dict:
+    d1s, d2s = S.width_dims(cfg1), S.width_dims(cfg2)
+    if d1s != d2s:
+        raise ValueError("identity width needs equal dims (depth-only growth)")
+    return {n: torch.eye(d, device=device) for n, d in d1s.items()}
+
+
+def _depth(cfg1: ModelConfig, cfg2: ModelConfig, pattern, device) -> Dict:
+    """Depth blends keyed by source kind and source leaf; on a
+    family-changing hop the target count lives under the mapped kind."""
+    c1, c2 = _kind_counts(cfg1), _kind_counts(cfg2)
+    hop = S.family_hop(cfg1, cfg2)
+    kmap = hop["kind_map"] if hop else {}
+    return {kind: {leaf: pattern(c2[kmap.get(kind, kind)], c1[kind], device)
+                   for leaf in S.layer_spec(kind, cfg1, cfg2)}
+            for kind in c1}
+
+
+def _selection(gen: torch.Generator, d2: int, d1: int, *, block: int = 1,
+               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selection expander ``[I; S]`` and its count-normalised (in-role)
+    version; ``block`` copies whole groups (d_head for head-aligned
+    copying, which function preservation through attention needs)."""
+    if d2 % block or d1 % block:
+        raise ValueError(f"dims {d2}, {d1} are not multiples of {block}")
+    n1, n2 = d1 // block, d2 // block
+    src = torch.randint(0, n1, (n2 - n1,), generator=gen, device=device)
+    units = torch.cat([torch.arange(n1, device=device), src])      # (n2,)
+    B_units = torch.nn.functional.one_hot(units, n1).float()      # (n2, n1)
+    counts = B_units.sum(dim=0)                                   # copies
+    eye = torch.eye(block, device=device)
+    return (torch.kron(B_units, eye),
+            torch.kron(B_units / counts[None, :], eye))
+
+
+def _copy_width(gen, cfg1: ModelConfig, cfg2: ModelConfig, normalized: bool,
+                device) -> Dict:
+    """Selection-copy width expanders (direct copy); with ``normalized``
+    fan-in they become Net2Net/FPI (stored untied as ``<name>__in``)."""
+    d1s, d2s = S.width_dims(cfg1), S.width_dims(cfg2)
+    width = {}
+    for name in sorted(d2s):
+        if name in ("q", "k", "v") and cfg1.d_head != cfg2.d_head:
+            raise ValueError("selection copying needs equal d_head")
+        block = cfg1.d_head if name in ("q", "k", "v") else 1
+        B, B_norm = _selection(gen, d2s[name], d1s[name], block=block,
+                               device=device)
+        width[name] = B
+        width[f"{name}__in"] = B_norm if normalized else B
+    return width
+
+
+def _pattern_operator(cfg1, cfg2, gen, device, pattern) -> Dict:
+    dev = resolve_device(device)
+    if S.width_dims(cfg1) == S.width_dims(cfg2):
+        width = _identity_width(cfg1, cfg2, dev)
+    else:
+        width = _copy_width(_generator(gen, dev), cfg1, cfg2, False, dev)
+    return {"width": width, "depth": _depth(cfg1, cfg2, pattern, dev)}
+
+
+def stackbert_operator(cfg1: ModelConfig, cfg2: ModelConfig,
+                       gen: Optional[torch.Generator] = None, *,
+                       device="cuda") -> Dict:
+    """Depth growth by block duplication (Gong et al. 2019), Eq. 1; a wider
+    target gets unnormalised direct-copy width."""
+    return _pattern_operator(cfg1, cfg2, gen, device, stack_pattern)
+
+
+def interpolation_operator(cfg1: ModelConfig, cfg2: ModelConfig,
+                           gen: Optional[torch.Generator] = None, *,
+                           device="cuda") -> Dict:
+    """Depth growth by layer interleaving (Chang et al. 2017), Eq. 1."""
+    return _pattern_operator(cfg1, cfg2, gen, device, interp_pattern)
+
+
+def net2net_operator(gen: Optional[torch.Generator], cfg1: ModelConfig,
+                     cfg2: ModelConfig, *, depth: Optional[str] = None,
+                     device="cuda") -> Dict:
+    """Width growth by neuron duplication with normalised fan-in (Net2Net,
+    App. A Eq. 11-12); ``depth="stack"`` or ``"interp"`` adds a depth
+    pattern (bert2BERT-style FPI), else each layer keeps its own."""
+    dev = resolve_device(device)
+    width = _copy_width(_generator(gen, dev), cfg1, cfg2, True, dev)
+    if depth is None:
+        def pattern(L2, L1, device):
+            return torch.eye(L1, device=device)
+    else:
+        pattern = stack_pattern if depth == "stack" else interp_pattern
+    return {"width": width, "depth": _depth(cfg1, cfg2, pattern, dev)}
+
+
+def bert2bert_operator(gen: Optional[torch.Generator], cfg1: ModelConfig,
+                       cfg2: ModelConfig, *, device="cuda") -> Dict:
+    """bert2BERT (FPI): Net2Net width + StackBERT depth (Chen et al. 2021)."""
+    return net2net_operator(gen, cfg1, cfg2, depth="stack", device=device)

@@ -8,8 +8,9 @@ fixes, ahead of time:
 2. a grouping of leaves by ``(module family, shape, in/out expander pair)``,
    each group run as one stacked contraction;
 3. a min-FLOP contraction order per group (:func:`_best_order`), and whether
-   the group may run on kernel K1, the fused depth-blend + left-expansion
-   (:func:`repro_torch.kernels.ligo_blend_expand_grouped`).
+   the group may run on kernel K1, the fused depth-blend + left-expansion,
+   with kernel K2 as its backward
+   (:func:`repro_torch.kernels.ops.ligo_blend_expand_grouped_vjp`).
 
 Kernel eligibility. The JAX package gates its fused path on
 ``fused_vmem_bytes``: the resident VMEM state of its *backward* TPU kernel
@@ -18,8 +19,12 @@ Kernel eligibility. The JAX package gates its fused path on
 TPU dataflow and is not ported. K1 on Hopper streams B through shared memory
 in tiles and keeps no state between blocks, so its eligibility does not
 depend on width: a stacked ``(L1, a, b)`` or ``(L1, E, a, b)`` leaf with an
-in-expander and no empty dim qualifies. The gradient kernel K2 comes with the
-training slice and will set its own limits there.
+in-expander and no empty dim qualifies. The fused route is differentiable
+(``ops.ligo_blend_expand_grouped_vjp``): its backward is kernel K2, which
+also keeps no state between blocks (its dB and dw sums are split into
+per-block partials and reduced in a second pass), so it takes every group
+K1 takes, at any width. Both kernels raise on grids beyond CUDA's limits
+(such as more than 65535 (g, k, e) slabs).
 
 ``compose_ligo`` / ``compose_chain`` fold successive hops' operators into one
 ``cfg_A→cfg_C`` operator analytically (width factors as matrix products,
@@ -81,7 +86,7 @@ class LeafGroup:
     out_ref: Optional[ExprRef]
     vec: bool                      # per-layer vector leaf (out-expander only)
     order: Tuple[str, ...]         # op sequence drawn from {in, out, blend}
-    kernel_ok: bool                # may run on kernel K1
+    kernel_ok: bool                # may run on kernels K1 and K2
 
 
 def _best_order(ops_present, L1: int, L2: int, extra: int, a: int, b: int,
@@ -196,10 +201,11 @@ class GrowthPlan:
     def _run_group_fused(X: torch.Tensor, E_in, E_out, w_g):
         """Blend + left-expand for the *whole group* in one K1 launch (the G
         leaves and any MoE expert dim E are the kernel's batch); the right
-        expansion is a plain matmul on the kernel's output."""
+        expansion is a plain matmul on the kernel's output. Differentiable
+        in ``w_g``, ``E_in`` and ``X``: the backward is one K2 launch."""
         moe = X.dim() == 5                     # (G, L1, E, a, b) expert stack
         Xg = X if moe else X[:, :, None]       # insert E=1 for plain leaves
-        P = ops.ligo_blend_expand_grouped(
+        P = ops.ligo_blend_expand_grouped_vjp(
             w_g, E_in.to(X.dtype).contiguous(), Xg.contiguous())
         if not moe:
             P = P[:, :, 0]
@@ -211,9 +217,10 @@ class GrowthPlan:
               square: bool = False):
         """Θ_large = M(Θ_small).
 
-        ``use_kernel`` routes kernel-eligible groups through K1 (the default:
-        yes when the small tree lies on a CUDA device). On CPU tensors the
-        same route runs K1's plain version. ``square=True`` squares every
+        ``use_kernel`` routes kernel-eligible groups through K1, and their
+        gradients through K2 (the default: yes when the small tree lies on a
+        CUDA device). On CPU tensors the same route runs the kernels' plain
+        versions. ``square=True`` squares every
         resolved expander and depth blend elementwise after resolution — the
         AdamW second-moment map.
         """

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ligo_common.cuh"
+
 namespace {
 
 constexpr int kBM = 128;       // output rows (I) per block
@@ -52,46 +54,8 @@ constexpr int kTM = 8;         // rows per thread: ty + 16 * m
 constexpr int kTN = 8;         // cols per thread: tx + 16 * c
 constexpr int kPad = 4;        // keeps the transposed B-tile stores off one bank
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Pass 1: blended[(g*L2 + k)*E + e][r] = sum_l w[g, k, l] * W[g, l, e][r],
-// r over the A*Bd slab. A grid-stride loop over every output element.
-template <typename T>
-__global__ void blend_kernel(const float* __restrict__ w,
-                             const T* __restrict__ W,
-                             float* __restrict__ blended, int L2, int L1,
-                             int E, int64_t slab, int64_t total) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int64_t n = idx / slab;            // (g*L2 + k)*E + e
-    const int64_t r = idx - n * slab;
-    const int64_t e = n % E;
-    const int64_t gk = n / E;                // g*L2 + k
-    const int64_t g = gk / L2;
-    const float* wr = w + gk * L1;
-    const T* src = W + (g * L1 * E + e) * slab + r;
-    const int64_t lstep = (int64_t)E * slab;
-    float acc = 0.f;
-    for (int l = 0; l < L1; ++l) {
-      acc = fmaf(wr[l], to_f32(src[l * lstep]), acc);
-    }
-    blended[idx] = acc;
-  }
-}
-
+// Pass 1 is blend_kernel (ligo_common.cuh): blended[g, k, e] = sum_l
+// w[g, k, l] * W[g, l, e], into the f32 scratch.
 // Pass 2: P[n] (I, Bd) = B (I, A) @ X[n] (A, Bd), X = blended (f32).
 // grid = (ceil(Bd/kBN), ceil(I/kBM), N); block = kThreads.
 template <typename T>
@@ -173,13 +137,8 @@ template <typename T>
 int launch(const float* w, const T* B, const T* W, float* blended, T* P,
            int G, int L2, int L1, int E, int I, int A, int Bd,
            cudaStream_t stream) {
-  const int64_t slab = (int64_t)A * Bd;
-  const int64_t total = (int64_t)G * L2 * E * slab;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132 * 64) blocks = 132 * 64;   // grid-stride covers the rest
-  blend_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      w, W, blended, L2, L1, E, slab, total);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_blend<T, float>(w, W, blended, G, L2, L1, E,
+                                           (int64_t)A * Bd, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Bd + kBN - 1) / kBN, (I + kBM - 1) / kBM, G * L2 * E);
   expand_kernel<T><<<grid, kThreads, 0, stream>>>(B, blended, P, I, A, Bd);

@@ -2,7 +2,8 @@
 PyTorch versions. Importing this package builds and loads nothing; a
 kernel's library is built at its first launch (see ``_build``)."""
 from repro_torch.kernels.ops import (launch_counts, ligo_blend_expand_grouped,
+                                     ligo_blend_expand_grouped_vjp,
                                      reset_launch_counts)
 
-__all__ = ["ligo_blend_expand_grouped", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["ligo_blend_expand_grouped", "ligo_blend_expand_grouped_vjp",
+           "launch_counts", "reset_launch_counts"]

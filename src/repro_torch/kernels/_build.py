@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, into ``_build/`` beside the package (listed in ``.gitignore``);
-the library name carries a hash of its source and of the nvcc command, so an
-edited source never loads a stale build.
+the library name carries a hash of its source, of the shared headers
+(``csrc/*.cuh``) and of the nvcc command, so an edited source never loads a
+stale build. :func:`build` starts one nvcc per missing library, all at once.
 """
 from __future__ import annotations
 
@@ -16,11 +17,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+SOURCES = ("ligo_expand", "ligo_expand_bwd")      # K1, K2
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,31 +43,45 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str = "ligo_expand") -> Optional[float]:
-    """Compile ``csrc/<name>.cu`` unless a current build exists.
+def build(*names: str) -> Dict[str, float]:
+    """Compile ``csrc/<name>.cu`` for each name (default: every kernel)
+    that has no current build, one nvcc process each, run concurrently.
 
-    Returns the seconds the compile took, or None when nothing was built."""
-    lib = _lib_path(name)
-    if lib.exists():
-        return None
+    Returns the wall seconds of each compile that ran (the concurrent
+    builds overlap); raises with nvcc's output if any build fails."""
+    todo = [n for n in (names or SOURCES) if not _lib_path(n).exists()]
+    if not todo:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          capture_output=True, text=True)
-    BUILD_LOG[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed: {name}.cu (nvcc exit "
-                           f"{proc.returncode}):\n{BUILD_LOG[name]}")
-    os.replace(tmp, lib)
-    return time.perf_counter() - t0
+    jobs = {}
+    for name in todo:
+        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp)
+    secs, failed = {}, []
+    for name, (proc, tmp) in jobs.items():
+        BUILD_LOG[name] = proc.communicate()[0]
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
+                          f"{BUILD_LOG[name]}")
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return secs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -70,8 +70,9 @@ def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
         raise ValueError("K1 takes contiguous B and W")
     if w.requires_grad or B.requires_grad or W.requires_grad:
         raise NotImplementedError(
-            "K1 has no backward yet (kernel K2 comes with the training "
-            "slice); call it under torch.no_grad() or on detached tensors")
+            "the raw K1 wrapper has no backward: differentiate through "
+            "ops.ligo_blend_expand_grouped_vjp (K2 is its backward), or pass "
+            "detached tensors")
     lib = _lib()
     w32 = w.to(torch.float32).contiguous()
     blended = torch.empty((G, L2, E, A, Bd), dtype=torch.float32,

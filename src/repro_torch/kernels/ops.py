@@ -5,20 +5,24 @@ PyTorch version in :mod:`repro_torch.kernels.ref`. The choice follows the
 device of the tensors alone: there is no ``try`` and no environment switch,
 and on a CUDA tensor the kernel launches or raises.
 
+:func:`ligo_blend_expand_grouped_vjp` is the differentiable entry point the
+GrowthPlan uses (:mod:`repro_torch.core.plan`), the twin of the JAX
+package's ``custom_vjp``: a ``torch.autograd.Function`` whose forward is
+kernel K1 and whose backward is kernel K2, which emits all three cotangents
+(dw, dB, dW) of one leaf group in one call.
+
 :func:`launch_counts` reads the kernels' plain-integer launch counters (the
 port's stand-in for the JAX package's ``LAUNCH_COUNTS``) and
 :func:`reset_launch_counts` sets them to 0.
-
-Serving needs no gradient, and the backward kernel K2 comes with the
-training slice: until then the CUDA path raises on inputs that require grad.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import ligo_expand, ref
+from repro_torch.kernels import ligo_expand, ligo_expand_bwd, ref
 
 
 def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
@@ -32,10 +36,56 @@ def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
     return ref.ligo_blend_expand_grouped_ref(w, B, W)
 
 
+class _BlendExpandGrouped(torch.autograd.Function):
+    """K1 forward and K2 backward, or both plain versions (``plain``)."""
+
+    @staticmethod
+    def forward(ctx, w, B, W, plain: bool):
+        ctx.save_for_backward(w, B, W)
+        ctx.plain = plain
+        # the raw kernel wrapper refuses tensors that require grad
+        w, B, W = w.detach(), B.detach(), W.detach()
+        if plain:
+            return ref.ligo_blend_expand_grouped_ref(w, B, W)
+        return ligo_expand.ligo_blend_expand_grouped(w, B, W)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dP):
+        w, B, W = (x.detach() for x in ctx.saved_tensors)
+        # dP arrives strided after the plan's slicing and right expansion
+        dP = dP.contiguous()
+        if ctx.plain:
+            dw, dB, dW = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+        else:
+            dw, dB, dW = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
+            dw = dw.to(w.dtype)
+        need = ctx.needs_input_grad
+        return (dw if need[0] else None, dB if need[1] else None,
+                dW if need[2] else None, None)
+
+
+def ligo_blend_expand_grouped_vjp(w: torch.Tensor, B: torch.Tensor,
+                                  W: torch.Tensor, *,
+                                  use_kernel: Optional[bool] = None
+                                  ) -> torch.Tensor:
+    """Differentiable grouped ``P[g,k,e] = B @ (Σ_l w[g,k,l] W[g,l,e])``.
+
+    w: (G, L2, L1); B: (I, A); W: (G, L1, E, A, Bd) → (G, L2, E, I, Bd).
+    ``use_kernel=None`` follows the tensors' device (CUDA: K1 forward, K2
+    backward; CPU: their plain versions); ``False`` asks for the plain
+    versions on any device; ``True`` asks for the kernels, which raise on
+    CPU tensors.
+    """
+    plain = (not W.is_cuda) if use_kernel is None else not use_kernel
+    return _BlendExpandGrouped.apply(w, B, W, plain)
+
+
 def launch_counts() -> Dict[str, int]:
-    return {"ligo_blend_expand_grouped": ligo_expand.LAUNCHES}
+    return {"ligo_blend_expand_grouped": ligo_expand.LAUNCHES,
+            "ligo_blend_expand_bwd_fused": ligo_expand_bwd.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     ligo_expand.LAUNCHES = 0
-
+    ligo_expand_bwd.LAUNCHES = 0

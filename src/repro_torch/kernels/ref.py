@@ -1,11 +1,19 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground truth).
 
 The CPU path runs these; on the card ``chip_smoke.py`` and the card-only
-tests hold each hand-written kernel against them on the same inputs.
+tests hold each hand-written kernel against them on the same inputs. They
+accumulate in float32 (float64 for float64 operands, as gradcheck feeds
+them) and return each result in its operand's dtype, as the JAX oracles do.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
 
 
 def ligo_blend_expand_grouped_ref(w: torch.Tensor, B: torch.Tensor,
@@ -16,6 +24,30 @@ def ligo_blend_expand_grouped_ref(w: torch.Tensor, B: torch.Tensor,
     Blends in the small space first, accumulates in float32, and returns the
     result in B's dtype — the plain version of kernel K1.
     """
-    f32 = torch.float32
-    blended = torch.einsum("gkl,gleab->gkeab", w.to(f32), W.to(f32))
-    return torch.einsum("ia,gkeab->gkeib", B.to(f32), blended).to(B.dtype)
+    acc = _acc(B.dtype)
+    blended = torch.einsum("gkl,gleab->gkeab", w.to(acc), W.to(acc))
+    return torch.einsum("ia,gkeab->gkeib", B.to(acc), blended).to(B.dtype)
+
+
+def ligo_blend_expand_bwd_ref(w: torch.Tensor, B: torch.Tensor,
+                              W: torch.Tensor, dP: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Einsum oracle for the backward of the grouped blend-expand — the
+    plain version of kernel K2, without widened intermediates:
+
+    - T[g,k,e] = Bᵀ dP[g,k,e]                  (small-space (A, Bd) stack)
+    - dW[g,l,e] = Σ_k w[g,k,l] T[g,k,e]
+    - dB = Σ_{g,k,e} dP[g,k,e] · blendedᵀ      (blended = w·W, small space)
+    - dw[g,k,l] = Σ_e ⟨T[g,k,e], W[g,l,e]⟩
+
+    Returns (dw, dB, dW) in the dtypes of (w, B, W).
+    """
+    acc = _acc(B.dtype)
+    w_, B_, W_, dP_ = (x.to(acc) for x in (w, B, W, dP))
+    T = torch.einsum("ia,gkeib->gkeab", B_, dP_)
+    dW = torch.einsum("gkl,gkeab->gleab", w_, T).to(W.dtype)
+    blended = torch.einsum("gkl,gleab->gkeab", w_, W_)
+    dB = torch.einsum("gkeib,gkeab->ia", dP_, blended).to(B.dtype)
+    dw = torch.einsum("gkeab,gleab->gkl", T, W_).to(w.dtype)
+    return dw, dB, dW

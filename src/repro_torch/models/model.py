@@ -3,7 +3,9 @@
 ``init_params(cfg, gen, device=...)`` returns the JAX package's parameter
 tree: ``params["layers"]["attn"][leaf]`` stacked over a leading L dim,
 weights ``(in, out)``. ``forward`` loops over that dim in Python where the
-JAX package scans. Decode caches are ``{"k", "v"}: (L, B, S, KV, dh)``;
+JAX package scans; ``remat=True`` checkpoints each layer in training (the
+JAX package's ``jax.checkpoint``). Decode caches are
+``{"k", "v"}: (L, B, S, KV, dh)``;
 ``decode_step`` writes each new token into them in place, and the decode
 position ``state["pos"]`` is a Python int (all rows of a batch step in lock
 step).
@@ -14,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -92,10 +95,21 @@ def unembed(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len):
+def _train_layer(p, x, cfg, positions):
+    return B.apply_attn(p, x, cfg, positions, mode="train")[0]
+
+
+def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
+                     remat):
     stack = params["layers"]["attn"]
     new = []
     for i in range(cfg.n_layers):
+        if mode == "train" and remat:
+            # the twin of the JAX package's _maybe_remat: keep only the
+            # layer's input; recompute its activations in the backward pass
+            x = checkpoint(_train_layer, _index(stack, i), x, cfg, positions,
+                           use_reentrant=False)
+            continue
         c = _index(caches, i) if caches is not None else None
         x, nc = B.apply_attn(_index(stack, i), x, cfg, positions, mode=mode,
                              cache=c, cur_len=cur_len)
@@ -108,13 +122,18 @@ def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            mode: str = "train", caches=None, cur_len: Optional[int] = None):
-    """Returns (hidden (B,T,D), new_caches)."""
+            mode: str = "train", caches=None, cur_len: Optional[int] = None,
+            remat: bool = False):
+    """Returns (hidden (B,T,D), new_caches).
+
+    ``remat`` (train mode only) recomputes each layer's activations in the
+    backward pass instead of keeping them, one layer at a time."""
     _check_ported(cfg)
     offset = cur_len - 1 if mode == "decode" else 0
     x, positions = embed(params, cfg, batch, offset=offset)
     x, new_caches = _fwd_homogeneous(params, x, cfg, positions, mode=mode,
-                                     caches=caches, cur_len=cur_len)
+                                     caches=caches, cur_len=cur_len,
+                                     remat=remat)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, new_caches
 

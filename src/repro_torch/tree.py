@@ -1,0 +1,43 @@
+"""Nested-dict trees of tensors: the port's stand-in for ``jax.tree``.
+
+Parameter trees, LiGO operators and optimizer moments are nested dicts whose
+leaves are tensors. Keys may hold ``/`` (the depth blends are keyed by leaf
+paths such as ``"mlp/w1"``), so these helpers walk the dicts themselves
+instead of flattening to path strings. Leaves come in insertion order.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, List
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf over trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """A tree with the structure of ``like`` and the given leaves, in
+    :func:`tree_leaves` order."""
+    it: Iterator[Any] = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
+def same_structure(a: Any, b: Any) -> bool:
+    if isinstance(a, dict) != isinstance(b, dict):
+        return False
+    if not isinstance(a, dict):
+        return True
+    return a.keys() == b.keys() and all(same_structure(a[k], b[k])
+                                        for k in a)

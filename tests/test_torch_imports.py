@@ -34,7 +34,10 @@ def _imported_modules(path):
 def test_scan_covers_the_port():
     names = {os.path.relpath(p, REPO) for p in _sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("src", "repro_torch", "launch", "serve.py") in names
+    for mod in (("launch", "serve.py"), ("launch", "train.py"),
+                ("core", "grow.py"), ("training", "trainer.py"),
+                ("optim", "adamw.py"), ("kernels", "ligo_expand_bwd.py")):
+        assert os.path.join("src", "repro_torch", *mod) in names
     assert len(names) >= 20
 
 
@@ -49,7 +52,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = ("import sys, repro_torch.launch.serve, repro_torch.core, "
-            "repro_torch.bridge, repro_torch.kernels._build as b; "
+            "repro_torch.launch.train, repro_torch.training, "
+            "repro_torch.optim, repro_torch.bridge, "
+            "repro_torch.kernels._build as b; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules), sorted(sys.modules); "
             "assert not b._LIBS and not b.BUILD_LOG")
