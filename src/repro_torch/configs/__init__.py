@@ -1,17 +1,27 @@
-"""Config registry: the paper's models and the reductions derived from them.
+"""Config registry: the paper's models, the assigned dense architectures,
+and the reductions derived from them.
 
-The port's registry holds the paper models (``configs/paper_models.py``);
-the JAX package's assigned architectures (MoE, SSM, hybrid, VLM, audio)
-join it with the slices that port their model families.
+The port's registry holds the paper models (``configs/paper_models.py``)
+and the JAX package's assigned architectures of the dense family
+(llama3-8b, phi4-mini-3.8b, starcoder2-7b, deepseek-coder-33b), each a copy
+of the JAX package's config. The other assigned architectures (MoE, SSM,
+hybrid, VLM, audio) join it with the slices that port their model families.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.configs import (deepseek_coder_33b, llama3_8b,
+                                 phi4_mini_3_8b, starcoder2_7b)
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.paper_models import GROWTH_PAIRS, PAPER_MODELS
 
-REGISTRY: Dict[str, ModelConfig] = dict(PAPER_MODELS)
+ASSIGNED: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (llama3_8b, phi4_mini_3_8b, starcoder2_7b, deepseek_coder_33b)
+}
+
+REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -88,6 +98,6 @@ def half_config(cfg: ModelConfig) -> ModelConfig:
     )
 
 
-__all__ = ["REGISTRY", "PAPER_MODELS", "GROWTH_PAIRS", "ModelConfig",
-           "TrainConfig",
-           "get_config", "smoke_config", "grow_target", "half_config"]
+__all__ = ["REGISTRY", "ASSIGNED", "PAPER_MODELS", "GROWTH_PAIRS",
+           "ModelConfig", "TrainConfig", "get_config", "smoke_config",
+           "grow_target", "half_config"]

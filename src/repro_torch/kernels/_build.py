@@ -22,7 +22,7 @@ from typing import Dict
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("ligo_expand", "ligo_expand_bwd")      # K1, K2
+SOURCES = ("ligo_expand", "ligo_expand_bwd", "flash_attention")  # K1-K3
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

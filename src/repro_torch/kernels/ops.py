@@ -11,6 +11,10 @@ package's ``custom_vjp``: a ``torch.autograd.Function`` whose forward is
 kernel K1 and whose backward is kernel K2, which emits all three cotangents
 (dw, dB, dW) of one leaf group in one call.
 
+:func:`flash_attention` is kernel K3 (forward only: it serves the attention
+of every forward that records no autograd graph, see
+:func:`repro_torch.models.layers.full_attention`).
+
 :func:`launch_counts` reads the kernels' plain-integer launch counters (the
 port's stand-in for the JAX package's ``LAUNCH_COUNTS``) and
 :func:`reset_launch_counts` sets them to 0.
@@ -22,7 +26,8 @@ from typing import Dict, Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import ligo_expand, ligo_expand_bwd, ref
+from repro_torch.kernels import (flash_attention as _flash,
+                                 ligo_expand, ligo_expand_bwd, ref)
 
 
 def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
@@ -81,11 +86,28 @@ def ligo_blend_expand_grouped_vjp(w: torch.Tensor, B: torch.Tensor,
     return _BlendExpandGrouped.apply(w, B, W, plain)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """(B, H, T, dh) × (B, KV, S, dh)² → (B, H, T, dh); GQA by index.
+
+    ``use_kernel=None`` follows the tensors' device (CUDA: kernel K3; CPU:
+    its plain version); ``False`` asks for the plain version on any device;
+    ``True`` asks for the kernel, which raises on CPU tensors.
+    """
+    plain = (not q.is_cuda) if use_kernel is None else not use_kernel
+    if plain:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
 def launch_counts() -> Dict[str, int]:
     return {"ligo_blend_expand_grouped": ligo_expand.LAUNCHES,
-            "ligo_blend_expand_bwd_fused": ligo_expand_bwd.LAUNCHES}
+            "ligo_blend_expand_bwd_fused": ligo_expand_bwd.LAUNCHES,
+            "flash_attention": _flash.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     ligo_expand.LAUNCHES = 0
     ligo_expand_bwd.LAUNCHES = 0
+    _flash.LAUNCHES = 0

@@ -7,6 +7,7 @@ them) and return each result in its operand's dtype, as the JAX oracles do.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -51,3 +52,31 @@ def ligo_blend_expand_bwd_ref(w: torch.Tensor, B: torch.Tensor,
     dB = torch.einsum("gkeib,gkeab->ia", dP_, blended).to(B.dtype)
     dw = torch.einsum("gkeab,gleab->gkl", T, W_).to(w.dtype)
     return dw, dB, dW
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
+    """Full-matrix attention with a float32 softmax — the plain version of
+    kernel K3.
+
+    q: (B, H, T, dh); k, v: (B, KV, S, dh) with H % KV == 0 (query head h
+    reads kv head h // (H // KV)). Causal alignment puts the last q row on
+    the last k row (offset S - T); ``window`` keeps keys
+    ``kpos > qpos - window``. Returns (B, H, T, dh) in q's dtype.
+    """
+    T, dh = q.shape[2], q.shape[3]
+    S, G = k.shape[2], q.shape[1] // k.shape[1]
+    acc = _acc(q.dtype)
+    kk = torch.repeat_interleave(k.to(acc), G, dim=1)
+    vv = torch.repeat_interleave(v.to(acc), G, dim=1)
+    s = torch.einsum("bhtd,bhsd->bhts", q.to(acc), kk) / math.sqrt(dh)
+    qpos = torch.arange(T, device=q.device)[:, None] + (S - T)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", p, vv).to(q.dtype)

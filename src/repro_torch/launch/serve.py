@@ -10,8 +10,14 @@ comma-separated chain such as ``2x,4x``) grows it once at startup through
 the port's GrowthPlan: the LiGO operator comes from ``init_ligo_params``
 (seeded ``--seed + 1 + hop``), a chain of hops is composed into one operator
 by ``compose_chain``, and every kernel-eligible leaf group runs on kernel K1.
-The run reports hot-grow ms, prefill ms, decode tok/s and the K1 launches
-of the grow.
+Prefill runs under ``torch.no_grad()``, so on the card each layer's attention
+is kernel K3. Without ``--grow-to`` the model is served as initialised, e.g.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+        --batch 4 --prompt-len 2048 --gen 32
+
+The run reports hot-grow ms, prefill ms, decode tok/s and the K1 and K3
+launches.
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when there is no
 CUDA device and no ``--device cpu``. The live engine, checkpoints, meshes,
@@ -109,6 +115,9 @@ def _serve(args) -> Dict[str, Any]:
     if cfg.encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
     res: Dict[str, Any] = {"device": str(dev)}
+    if dev.type == "cuda":
+        _build.build()
+    launches0 = ops.launch_counts()
     with torch.no_grad():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         params = init_params(cfg, gen, device=dev)
@@ -145,17 +154,21 @@ def _serve(args) -> Dict[str, Any]:
         t_decode = time.perf_counter() - t0
     tps = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
     generated = torch.cat(out, dim=1)
+    counts = ops.launch_counts()
+    launches = {k: counts[k] - launches0[k] for k in counts}
     print(f"[serve] arch={cfg.name} batch={args.batch} "
           f"prompt={args.prompt_len} gen={args.gen} device={dev}")
     print(f"[serve] prefill {t_prefill * 1e3:.1f} ms | decode "
-          f"{t_decode * 1e3:.1f} ms | {tps:.1f} tok/s")
+          f"{t_decode * 1e3:.1f} ms | {tps:.1f} tok/s | kernel launches: K1 "
+          f"{launches['ligo_blend_expand_grouped']}, K3 "
+          f"{launches['flash_attention']}")
     print(f"[serve] sample continuation ids: "
           f"{generated[0, :16].cpu().tolist()}")
     res.update(prompts=prompts, prefill_logits=logits,
                decode_logits=(torch.stack(step_logits) if step_logits
                               else None),
                tokens=generated, prefill_ms=t_prefill * 1e3,
-               decode_ms=t_decode * 1e3, decode_tok_s=tps)
+               decode_ms=t_decode * 1e3, decode_tok_s=tps, launches=launches)
     return res
 
 

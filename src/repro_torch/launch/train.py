@@ -156,7 +156,8 @@ def _train(args) -> Dict[str, Any]:
               f"step left out) | {res['tok_s']:.0f} tokens/s", flush=True)
     print(f"[train] kernel launches: K1 "
           f"{launches['ligo_blend_expand_grouped']}, K2 "
-          f"{launches['ligo_blend_expand_bwd_fused']}", flush=True)
+          f"{launches['ligo_blend_expand_bwd_fused']}, K3 "
+          f"{launches['flash_attention']}", flush=True)
     return res
 
 

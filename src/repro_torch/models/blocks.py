@@ -4,7 +4,9 @@
 with ``lead=(L,)``); ``apply_attn(p, x, cfg, positions, mode=...)`` runs one
 layer in three modes:
 
-- ``train``: full-sequence mixing;
+- ``train``: full-sequence mixing (kernel K3 on the card where autograd
+  records nothing, as in an eval step; the chunked attention otherwise, see
+  ``layers.full_attention``);
 - ``prefill``: the same, and returns the layer's K/V cache contribution in
   the ring-buffer layout decode continues (token t at slot t % S);
 - ``decode``: a single-token step against the dense cache
@@ -22,8 +24,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
-                                       attention, decode_attention,
-                                       dense_init, init_mlp, init_norm)
+                                       decode_attention, dense_init,
+                                       full_attention, init_mlp, init_norm)
 
 
 def _use_bias(cfg) -> bool:
@@ -72,8 +74,10 @@ def _qkv(p, h, cfg, positions):
 
 
 def apply_attn(p, x, cfg, positions, *, mode: str = "train",
-               cache: Optional[dict] = None, cur_len: Optional[int] = None):
-    """Returns (x_out, new_cache_or_None)."""
+               cache: Optional[dict] = None, cur_len: Optional[int] = None,
+               use_kernel: Optional[bool] = None):
+    """Returns (x_out, new_cache_or_None). ``use_kernel`` picks the train
+    and prefill attention route (``layers.full_attention``)."""
     B, T, D = x.shape
     h = apply_norm(p["ln1"], x, cfg.norm)
     new_cache = None
@@ -88,8 +92,9 @@ def apply_attn(p, x, cfg, positions, *, mode: str = "train",
                              window=cfg.window, ring=ring)
         new_cache = cache
     else:
-        o = attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
-                      window=cfg.window)
+        o = full_attention(q, k, v,
+                           causal=cfg.causal and not cfg.encoder_only,
+                           window=cfg.window, use_kernel=use_kernel)
         if mode == "prefill":
             S = cfg.window if (cfg.window and cfg.window < T) else T
             # ring-buffer layout: token t lives at slot t % S (so decode's

@@ -5,7 +5,8 @@ All weights use the ``y = x @ W`` convention, i.e. ``W`` has shape
 carry over leaf for leaf. Attention is the same chunked online-softmax
 (flash-style) computation with the block loop unrolled in Python: causal
 blocks that are entirely masked are skipped, and the full ``T×S`` score
-matrix never exists.
+matrix never exists. :func:`full_attention` routes the train and prefill
+attention to kernel K3 where autograd records nothing.
 
 Inits take a ``torch.Generator`` and a ``lead`` shape: a stack of L layers is
 drawn in one call with ``lead=(L,)``.
@@ -13,10 +14,12 @@ drawn in one call with ``lead=(L,)``.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
@@ -173,6 +176,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out_blocks.append(acc / torch.clamp(l_t, min=1e-30))
     out = torch.cat(out_blocks, dim=1)[:, :T]
     return out.reshape(B, T, H, dh).to(q.dtype)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int = 0,
+                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """The attention of the train and prefill modes.
+
+    q: (B, T, H, dh); k, v: (B, T, KV, dh) → (B, T, H, dh) in q.dtype.
+    ``use_kernel=None`` routes by mode: kernel K3 (``ops.flash_attention``,
+    through transposed views, no copy) when the tensors are on CUDA and
+    autograd records nothing (grad disabled, or none of q, k, v requires
+    grad); the chunked :func:`attention` otherwise, which autograd
+    differentiates (K3 has no backward). ``False`` asks for the chunked
+    attention on any device, ``True`` for K3, which raises on CPU tensors
+    and on tensors autograd records.
+    """
+    if use_kernel is None:
+        records = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)
+        use_kernel = q.is_cuda and not records
+    if not use_kernel:
+        return attention(q, k, v, causal=causal, window=window)
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window,
+                            use_kernel=True)
+    return o.transpose(1, 2)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -100,7 +100,7 @@ def _train_layer(p, x, cfg, positions):
 
 
 def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
-                     remat):
+                     remat, use_kernel):
     stack = params["layers"]["attn"]
     new = []
     for i in range(cfg.n_layers):
@@ -112,7 +112,7 @@ def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
             continue
         c = _index(caches, i) if caches is not None else None
         x, nc = B.apply_attn(_index(stack, i), x, cfg, positions, mode=mode,
-                             cache=c, cur_len=cur_len)
+                             cache=c, cur_len=cur_len, use_kernel=use_kernel)
         new.append(nc)
     if mode == "train":
         return x, None
@@ -123,17 +123,20 @@ def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             mode: str = "train", caches=None, cur_len: Optional[int] = None,
-            remat: bool = False):
+            remat: bool = False, use_kernel: Optional[bool] = None):
     """Returns (hidden (B,T,D), new_caches).
 
     ``remat`` (train mode only) recomputes each layer's activations in the
-    backward pass instead of keeping them, one layer at a time."""
+    backward pass instead of keeping them, one layer at a time.
+    ``use_kernel`` picks the train and prefill attention route: ``None``
+    takes kernel K3 on CUDA where autograd records nothing, ``False`` the
+    chunked attention (``layers.full_attention``)."""
     _check_ported(cfg)
     offset = cur_len - 1 if mode == "decode" else 0
     x, positions = embed(params, cfg, batch, offset=offset)
     x, new_caches = _fwd_homogeneous(params, x, cfg, positions, mode=mode,
                                      caches=caches, cur_len=cur_len,
-                                     remat=remat)
+                                     remat=remat, use_kernel=use_kernel)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, new_caches
 
@@ -175,15 +178,17 @@ def _pad_attn_caches(caches, S_target: int):
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, use_kernel: Optional[bool] = None):
     """Full-sequence forward building decode caches. Returns
     (logits of the last position (B, V), state).
 
     ``max_len`` reserves cache space for subsequent decode steps (defaults to
-    the prompt length — no room to decode).
+    the prompt length — no room to decode). ``use_kernel`` as in
+    :func:`forward` (``False``: the plain attention route on the card).
     """
     T = batch["tokens"].shape[1]
-    hidden, caches = forward(params, cfg, batch, mode="prefill")
+    hidden, caches = forward(params, cfg, batch, mode="prefill",
+                             use_kernel=use_kernel)
     if max_len is not None and max_len > T:
         S_target = min(cfg.window, max_len) if cfg.window else max_len
         caches = _pad_attn_caches(caches, S_target)

@@ -15,8 +15,16 @@ from repro_torch.data import synthetic as tsyn               # noqa: E402
 NAMES = sorted(tc.REGISTRY)
 
 
+DENSE = {n for n, c in jc.ASSIGNED.items() if c.family == "dense"}
+
+
 def test_registry_is_the_paper_models():
-    assert set(tc.REGISTRY) == set(jc.PAPER_MODELS)
+    """The paper models and the JAX registry's dense-family architectures
+    (the other families join with their slices)."""
+    assert DENSE == {"llama3-8b", "phi4-mini-3.8b", "starcoder2-7b",
+                     "deepseek-coder-33b"}
+    assert set(tc.ASSIGNED) == DENSE
+    assert set(tc.REGISTRY) == set(jc.PAPER_MODELS) | DENSE
     assert sorted(tc.GROWTH_PAIRS) == sorted(jc.GROWTH_PAIRS)
     for key, (a, b) in tc.GROWTH_PAIRS.items():
         ja, jb = jc.GROWTH_PAIRS[key]

@@ -1,0 +1,164 @@
+"""Kernel K3's plain version and its route on the CPU, port against JAX.
+
+- The port's ``flash_attention_ref`` and the op's CPU route against the JAX
+  Pallas kernel (interpret mode, as ``tests/test_kernels.py`` runs it) and
+  the JAX oracle, at the JAX ``FLASH_CASES`` shapes, and against the oracle
+  alone at a ragged shape (the JAX kernel needs T and S to divide its tiles).
+- The plain version against the port's chunked model attention after the
+  ``(B, T, H, dh) <-> (B, H, T, dh)`` transpose (the twin of
+  ``test_flash_matches_model_attention_layout``).
+- The route: on the CPU nothing launches K3, and asking for the kernel with
+  CPU tensors raises.
+
+Tolerance: the JAX kernel test's, elementwise ``rtol = atol`` = 2e-5 in
+float32 and 2e-2 in bfloat16 (the output is rounded to bf16 on both sides).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops                        # noqa: E402
+from repro.kernels import ref as jref                        # noqa: E402
+from repro_torch.kernels import flash_attention as tflash    # noqa: E402
+from repro_torch.kernels import ops, ref                     # noqa: E402
+from repro_torch.models import layers as tl                  # noqa: E402
+from repro_torch.models import model as tm                   # noqa: E402
+from torch_parity import TINY2                               # noqa: E402
+
+# (B, H, KV, T, S, dh, causal, window) — the JAX test's FLASH_CASES
+FLASH_CASES = [
+    (2, 4, 4, 256, 256, 64, True, 0),
+    (1, 8, 2, 128, 256, 64, True, 0),        # GQA + longer KV
+    (2, 4, 2, 256, 256, 32, False, 0),       # bidirectional
+    (1, 4, 4, 256, 256, 64, True, 128),      # sliding window
+    (1, 2, 1, 128, 128, 128, True, 0),       # dh = 128
+]
+RAGGED_CASES = [
+    (2, 6, 2, 200, 328, 64, True, 0),
+    (2, 6, 2, 200, 328, 64, True, 100),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(case, seed):
+    B, H, KV, T, S, dh = case[:6]
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, H, T, dh).astype(np.float32),
+            rng.randn(B, KV, S, dh).astype(np.float32),
+            rng.randn(B, KV, S, dh).astype(np.float32))
+
+
+def _assert_close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _port(case, arrays, dtype):
+    """The plain version and the op's CPU route, which must be the same."""
+    causal, window = case[6:]
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    got = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    ops.reset_launch_counts()
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal,
+                                           window=window), got)
+    assert ops.launch_counts()["flash_attention"] == 0
+    return got
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_plain_flash_matches_jax_kernel_and_oracle(case, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(case, seed=0)
+    causal, window = case[6:]
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    got = _port(case, arrays, tdt)
+    _assert_close(got, jops.flash_attention(jq, jk, jv, causal=causal,
+                                            window=window), tol)
+    _assert_close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                                window=window), tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_plain_flash_matches_jax_oracle_ragged(case, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(case, seed=1)
+    causal, window = case[6:]
+    got = _port(case, arrays, tdt)
+    _assert_close(got, jref.flash_attention_ref(
+        *(jnp.asarray(a, jdt) for a in arrays), causal=causal, window=window),
+        tol)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+def test_plain_flash_matches_model_attention_layout(causal, window):
+    """Plain K3 (B,H,T,dh) vs the chunked model attention (B,T,H,dh)."""
+    rng = np.random.RandomState(4)
+    B, T, H, KV, dh = 2, 128, 4, 2, 32
+    q, k, v = (torch.from_numpy(rng.randn(B, T, n, dh).astype(np.float32))
+               for n in (H, KV, KV))
+    out_model = tl.attention(q, k, v, causal=causal, window=window,
+                             chunk_q=64, chunk_k=64)
+    out_flash = ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window)
+    _assert_close(out_flash.transpose(1, 2), out_model.numpy(), 2e-5)
+
+
+def test_cpu_route_never_launches_k3():
+    params = tm.init_params(TINY2, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks = torch.from_numpy(
+        np.random.RandomState(5).randint(0, TINY2.vocab_size, (2, 9)))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        auto, _ = tm.prefill(params, TINY2, {"tokens": toks})
+        plain, _ = tm.prefill(params, TINY2, {"tokens": toks},
+                              use_kernel=False)
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert torch.equal(auto, plain)
+
+
+def test_asking_for_k3_on_cpu_tensors_raises():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(FLASH_CASES[1], seed=2))
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, v, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.full_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True, use_kernel=True)
+    params = tm.init_params(TINY2, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        tm.prefill(params, TINY2, {"tokens": torch.zeros((1, 4), dtype=int)},
+                   use_kernel=True)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+def test_tensor_core_kernel_takes_bf16_aligned_rows_at_dh_64_and_128():
+    """The wrapper's choice between K3's two CUDA kernels (pure shape and
+    stride logic, so it runs here)."""
+    def qkv(dtype, dh, T=16):
+        q = torch.zeros((2, T, 4, dh), dtype=dtype).transpose(1, 2)
+        kv = torch.zeros((2, T, 2, dh), dtype=dtype).transpose(1, 2)
+        return q, kv, kv
+
+    assert tflash.uses_tensor_cores(*qkv(torch.bfloat16, 64))
+    assert tflash.uses_tensor_cores(*qkv(torch.bfloat16, 128))
+    assert not tflash.uses_tensor_cores(*qkv(torch.float32, 128))
+    assert not tflash.uses_tensor_cores(*qkv(torch.bfloat16, 48))
+    q, k, v = qkv(torch.bfloat16, 64)
+    # rows off a 16-byte boundary take the FMA kernel
+    shifted = torch.zeros(2 * 16 * 2 * 64 + 1, dtype=torch.bfloat16)[1:]
+    shifted = shifted.view(2, 16, 2, 64).transpose(1, 2)
+    assert not tflash.uses_tensor_cores(q, shifted, v)
+    odd = torch.zeros((2, 4, 16, 68), dtype=torch.bfloat16)[..., :64]
+    assert not tflash.uses_tensor_cores(odd, k, v)

@@ -7,18 +7,24 @@ Run on the card with:
 
 Shapes are those of ``chip_smoke.py``'s kernel phase: the six K1 groups of
 the gpt2-base -> gpt2-medium hot-grow in bf16 (K2, the backward, runs on the
-same groups in the LiGO phase), and a ragged f32 shape.
+same groups in the LiGO phase), and a ragged f32 shape; for K3, the
+gpt2-medium and llama3-8b prefills, a sliding window, bert-large's
+bidirectional shape, ragged and f32 shapes, and a bf16 dh the tensor-core
+kernel does not take.
 Tolerance (scale-normalised): 1e-2 for bf16, whose output is rounded once
 from an f32 sum on both sides; 1e-5 for f32 with TF32 off, where only the
 summation order differs. K2's ``dw`` is a long sum that cancels: its error
 is normalised entry by entry by the sum of the absolute values of its terms.
+K3 takes the JAX kernel test's elementwise tolerance,
+``|kernel - plain| <= tol + tol |plain|`` with tol 2e-2 (bf16), 2e-5 (f32).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (ligo_expand, ligo_expand_bwd,  # noqa: E402
-                                 ops, ref)
+from repro_torch.kernels import (flash_attention,  # noqa: E402
+                                 ligo_expand, ligo_expand_bwd, ops, ref)
+from repro_torch.models import layers  # noqa: E402
 
 # name, dtype, (G, L2, L1, E, I, A, Bd)
 K1_SHAPES = [
@@ -31,6 +37,19 @@ K1_SHAPES = [
     ("ragged", "float32", (3, 5, 3, 2, 200, 50, 130)),
 ]
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+
+# name, dtype, (B, H, KV, T, S, dh, causal, window)
+K3_SHAPES = [
+    ("gpt2-medium", "bfloat16", (8, 16, 16, 128, 128, 64, True, 0)),
+    ("llama3-8b", "bfloat16", (4, 32, 8, 2048, 2048, 128, True, 0)),
+    ("window", "bfloat16", (1, 32, 8, 4096, 4096, 128, True, 1024)),
+    ("bidir", "bfloat16", (8, 16, 16, 512, 512, 64, False, 0)),
+    ("ragged", "float32", (2, 6, 2, 200, 328, 64, True, 0)),
+    ("ragged-window", "float32", (2, 6, 2, 200, 328, 64, True, 100)),
+    ("gpt2-medium", "float32", (8, 16, 16, 128, 128, 64, True, 0)),
+    ("dh48-fma", "bfloat16", (2, 4, 2, 77, 77, 48, True, 0)),
+]
+K3_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 
 @pytest.fixture
@@ -56,7 +75,8 @@ def test_k1_kernel_matches_plain(cuda, name, dtype, dims):
     ops.reset_launch_counts()
     got = ops.ligo_blend_expand_grouped(w, B, W)
     assert ops.launch_counts() == {"ligo_blend_expand_grouped": 1,
-                                   "ligo_blend_expand_bwd_fused": 0}
+                                   "ligo_blend_expand_bwd_fused": 0,
+                                   "flash_attention": 0}
     want = ref.ligo_blend_expand_grouped_ref(w, B, W)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == want.shape
@@ -119,8 +139,57 @@ def test_vjp_backward_on_the_card_matches_plain_route(cuda):
         (P[:, :, 0] @ proj).square().sum().backward()
         n = 1 if use_kernel is None else 0
         assert ops.launch_counts() == {"ligo_blend_expand_grouped": n,
-                                       "ligo_blend_expand_bwd_fused": n}
+                                       "ligo_blend_expand_bwd_fused": n,
+                                       "flash_attention": 0}
         grads.append([x.grad for x in xs])
     torch.cuda.synchronize()
     for g, r in zip(*grads):
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-5
+
+
+def _qkv(cuda, dtype, B, H, KV, T, S, dh, seed):
+    """q, k, v made in the model's (B, T, heads, dh) layout and handed over
+    as (B, heads, T, dh) views, as ``layers.full_attention`` does."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, T, H, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, KV, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, KV, dh), generator=gen, device=cuda).to(dtype)
+    return tuple(x.transpose(1, 2) for x in (q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,dims", K3_SHAPES,
+                         ids=[f"{n}-{d}" for n, d, _ in K3_SHAPES])
+def test_k3_kernel_matches_plain(cuda, name, dtype, dims):
+    B, H, KV, T, S, dh, causal, window = dims
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda, dt, B, H, KV, T, S, dh, seed=3)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == want.shape
+    tol = K3_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol + tol * want.float().abs()).all()), \
+        float(diff.max())
+
+
+@pytest.mark.gpu
+def test_k3_refuses_recorded_autograd_and_the_route_follows_it(cuda):
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 4, 2, 64, 64, 64, seed=4)
+    qg = q.detach().requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        flash_attention.flash_attention(qg, k, v)
+    qm, km, vm = (x.transpose(1, 2) for x in (qg, k, v))
+    ops.reset_launch_counts()
+    recorded = layers.full_attention(qm, km, vm, causal=True)
+    assert recorded.requires_grad
+    assert ops.launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        free = layers.full_attention(qm, km, vm, causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.cuda.synchronize()
+    assert float((free.float() - recorded.detach().float()).abs().max()) \
+        <= 2e-2

@@ -78,7 +78,8 @@ def test_plan_gradients_match_jax(small, operator):
     fused = _torch_plan_grads(top, tp, use_kernel=True)
     plain = _torch_plan_grads(top, tp, use_kernel=False)
     assert ops.launch_counts() == {"ligo_blend_expand_grouped": 0,
-                                   "ligo_blend_expand_bwd_fused": 0}
+                                   "ligo_blend_expand_bwd_fused": 0,
+                                   "flash_attention": 0}
     assert_close(fused, want, rel=1e-5)
     assert_close(plain, want, rel=1e-5)
 

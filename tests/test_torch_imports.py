@@ -36,7 +36,8 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in names
     for mod in (("launch", "serve.py"), ("launch", "train.py"),
                 ("core", "grow.py"), ("training", "trainer.py"),
-                ("optim", "adamw.py"), ("kernels", "ligo_expand_bwd.py")):
+                ("optim", "adamw.py"), ("kernels", "ligo_expand_bwd.py"),
+                ("kernels", "flash_attention.py")):
         assert os.path.join("src", "repro_torch", *mod) in names
     assert len(names) >= 20
 

@@ -71,7 +71,8 @@ def test_ops_dispatches_cpu_tensors_to_the_plain_version():
     got = ops.ligo_blend_expand_grouped(w, B, W)
     assert torch.equal(got, ref.ligo_blend_expand_grouped_ref(w, B, W))
     assert ops.launch_counts() == {"ligo_blend_expand_grouped": 0,
-                                   "ligo_blend_expand_bwd_fused": 0}
+                                   "ligo_blend_expand_bwd_fused": 0,
+                                   "flash_attention": 0}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -83,7 +84,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         ligo_expand_bwd.ligo_blend_expand_bwd(
             w, B, W, torch.zeros((1, 2, 1, 4, 4)))
     assert ops.launch_counts() == {"ligo_blend_expand_grouped": 0,
-                                   "ligo_blend_expand_bwd_fused": 0}
+                                   "ligo_blend_expand_bwd_fused": 0,
+                                   "flash_attention": 0}
 
 
 def _cotangent(G, E, L1, L2, I, A, Bd, seed=0):
@@ -158,6 +160,7 @@ def test_vjp_plain_route_gradients_and_launches():
     P.sum().backward()
     assert w.grad is not None and B.grad is None and W.grad is None
     assert ops.launch_counts() == {"ligo_blend_expand_grouped": 0,
-                                   "ligo_blend_expand_bwd_fused": 0}
+                                   "ligo_blend_expand_bwd_fused": 0,
+                                   "flash_attention": 0}
     with pytest.raises(ValueError, match="CUDA"):
         ops.ligo_blend_expand_grouped_vjp(w, B, W, use_kernel=True)

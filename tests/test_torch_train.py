@@ -227,7 +227,8 @@ def test_train_cpu_smoke(capsys, method):
     out = capsys.readouterr().out
     assert "source loss" in out and "tokens/s" in out
     assert res["launches"] == {"ligo_blend_expand_grouped": 0,
-                               "ligo_blend_expand_bwd_fused": 0}
+                               "ligo_blend_expand_bwd_fused": 0,
+                               "flash_attention": 0}
     losses = res["source_losses"] + res["ligo_losses"] + res["train_losses"]
     assert len(losses) == 2 + (3 if method == "ligo" else 0) + 3
     assert all(np.isfinite(losses))
