@@ -14,7 +14,9 @@ sources are not beside it. Phases, each fatal on failure:
    kernel, the plain version and one library call computing the same
    function, beside the least time the card could take (``bound_ms``):
    K1 (the LiGO blend-expand), K2 (its backward: dw, dB and dW, each
-   checked on its own; K2 is also run twice and must agree bit for bit) and
+   checked on its own; K2 is also run twice and must agree bit for bit; the
+   bf16 main-path shapes and an aligned ragged bf16 shape must take its
+   tensor-core GEMM, an unaligned bf16 shape its FMA GEMM) and
    K3 (flash attention: the gpt2-medium and llama3-8b prefills, a sliding
    window, bert-large's bidirectional shape, ragged and float32 shapes);
 3. drive the serving path at full width through its entry point —
@@ -36,7 +38,9 @@ sources are not beside it. Phases, each fatal on failure:
    set to 0 just before and read just after; check the launch counts (K3
    none: every forward there records autograd), that every loss is finite, and that the LiGO-loss gradient at the starting
    operator is the same on the kernel route and the plain route; then
-   profile one LiGO step and one train step (``torch.profiler``);
+   profile one LiGO step (K2's three products of every group must show as
+   tensor-core GEMM launches, none as FMA GEMM launches) and one train step
+   (``torch.profiler``);
 5. print the kernels' JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
@@ -206,6 +210,13 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
                 torch.einsum("gkeib,gkeab->ia", dP, bl),
                 torch.einsum("gkl,gkeab->gleab", wd, T))
 
+    def library_minflop():   # K2's own order as einsums in the working dtype
+        Q = torch.einsum("gkl,gkeib->gleib", w.to(dtype), dP)
+        U = torch.einsum("ia,gleab->gleib", B, W)
+        return (torch.einsum("gkeib,gleib->gkl", dP, U),
+                torch.einsum("gleib,gleab->ia", Q, W),
+                torch.einsum("ia,gleib->gleab", B, Q))
+
     got, want, again = kernel(), plain(), kernel()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -230,13 +241,14 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
     ok = (all(e <= TOL[tname] for e in errs.values())
           and all(bool(torch.isfinite(x).all()) for x in got))
     # The bound counts the fewest operations the function needs: the least
-    # of K2's own fused order (T over all L2 layers, dB against the blended
-    # slabs) and the order that blends dP over k first (three L1-batched
+    # of the fused order (T over all L2 layers, dB against the blended slabs)
+    # and K2's own order, which blends dP over k first (three L1-batched
     # products plus the blend and the dw contraction).
     fused_flops = (2 * 2 * G * E * L2 * I * A * Bd
                    + 3 * 2 * G * E * L2 * L1 * A * Bd)
     flops = min(fused_flops, 3 * 2 * G * E * L1 * I * A * Bd
                 + 2 * 2 * G * E * L2 * L1 * I * Bd)
+    tc = ligo_expand_bwd.tensor_core_route(dtype, I, A, Bd)
     elt = B.element_size()
     nbytes = (2 * 4 * G * L2 * L1 + elt * (2 * I * A + 2 * G * L1 * E * A * Bd
                                            + G * L2 * E * I * Bd))
@@ -249,17 +261,19 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
         "ms": _time_ms(torch, kernel, reps),
         "plain_ms": _time_ms(torch, plain, reps),
         "library_ms": _time_ms(torch, library, reps),
+        "library_minflop_ms": _time_ms(torch, library_minflop, reps),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "gflop": flops / 1e9, "kernel_gflop": fused_flops / 1e9,
-        "mbytes": nbytes / 1e6,
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "tensor_cores": tc,
     }
-    print(f"[k2] {name:>8} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
-          f"A={A} Bd={Bd}: norm err dw {errs['dw']:.2e} dB {errs['dB']:.2e} "
-          f"dW {errs['dW']:.2e} (tol {TOL[tname]:.0e}) | kernel "
-          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
-          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-          f"({row['bound_by']}) {'OK' if ok else 'FAIL'}", flush=True)
+    print(f"[k2] {name:>14} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
+          f"A={A} Bd={Bd} ({'wgmma' if tc else 'fma'}): norm err dw "
+          f"{errs['dw']:.2e} dB {errs['dB']:.2e} dW {errs['dW']:.2e} (tol "
+          f"{TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
+          f"library min-FLOP order {row['library_minflop_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}) "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version at {name} "
                              f"({tname}): normalised errors {errs}")
@@ -542,6 +556,13 @@ def _profile(torch, label, fn):
           f"({100 * busy / wall:.0f} %), profiler on", flush=True)
     print(ev.table(sort_by="self_device_time_total", row_limit=12,
                    max_name_column_width=48), flush=True)
+    # K2's launches by kernel, full names: the table above cuts names short
+    for e in sorted((e for e in ev if e.device_type == DeviceType.CUDA
+                     and "k2_" in e.key),
+                    key=lambda e: -e.self_device_time_total):
+        print(f"[profile] {label}: {e.self_device_time_total / 1e3:8.3f} ms "
+              f"in {e.count:3d} launches of {e.key}", flush=True)
+    return ev
 
 
 def _profile_steps(torch, tres):
@@ -566,8 +587,21 @@ def _profile_steps(torch, tres):
     def train_step():
         return step(params, opt, batch, 1)
 
-    for name, fn in (("LiGO step", ligo_step), ("train step", train_step)):
-        _profile(torch, f"{name} of {small_cfg.name} -> {cfg.name}", fn)
+    ev = _profile(torch, f"LiGO step of {small_cfg.name} -> {cfg.name}",
+                  ligo_step)
+    # the bf16 LiGO backward runs products 2-4 of every group on the
+    # tensor-core GEMM, and none on the FMA GEMM
+    n_wgmma = sum(e.count for e in ev if "k2_wgmma_gemm_kernel" in e.key)
+    n_fma = sum(e.count for e in ev if "k2_fma_gemm_kernel" in e.key)
+    want = 3 * tres["k2_groups"]
+    print(f"[profile] LiGO step: {n_wgmma} wgmma GEMM launches (want {want}), "
+          f"{n_fma} FMA GEMM launches (want 0)", flush=True)
+    if (n_wgmma, n_fma) != (want, 0):
+        raise AssertionError(f"the LiGO step's K2 GEMMs: {n_wgmma} on the "
+                             f"tensor cores, {n_fma} on the FMA pipes; want "
+                             f"{want} and 0")
+    _profile(torch, f"train step of {small_cfg.name} -> {cfg.name}",
+             train_step)
 
 
 def main() -> int:
@@ -619,7 +653,16 @@ def main() -> int:
                            3, 5, 3, 2, 200, 50, 130, seed=98))
     rows2.append(_check_k2(torch, "pinned", torch.float32,
                            1, 1, 1, 2, 1, 50, 45, seed=97))
+    rows2.append(_check_k2(torch, "aligned ragged", torch.bfloat16,
+                           2, 5, 3, 2, 200, 136, 72, seed=96))
+    rows2.append(_check_k2(torch, "unaligned", torch.bfloat16,
+                           2, 5, 3, 2, 200, 50, 130, seed=95))
     main_rows2 = rows2[:len(shapes)]
+    routes = [r["tensor_cores"] for r in main_rows2 + rows2[-2:]]
+    if routes != [True] * len(shapes) + [True, False]:
+        raise AssertionError(f"K2 routes {routes}: the bf16 main-path and "
+                             f"aligned shapes must take the tensor cores, the "
+                             f"unaligned one the FMA GEMM")
 
     k3_rows = [_check_k3(torch, name, dtype, *dims, seed=300 + i)
                for i, (name, dtype, dims) in enumerate(K3_SHAPES)]
@@ -724,17 +767,22 @@ def main() -> int:
             math.isfinite(x) for x in losses):
         raise AssertionError(f"training losses: {losses}")
     _ligo_grad_check(torch, tres, 1e-4, 1e-2)
+    tres["k2_groups"] = len(shapes)
     _profile_steps(torch, tres)
     print(f"[train] losses: source {tres['source_losses']}, LiGO "
           f"{tres['ligo_losses']}, gpt2-medium {tres['train_losses']}")
     print(f"[train] ms per LiGO step {tres['ligo_step_ms']} | ms per train "
           f"step {tres['train_step_ms']} | {tres['tok_s']:.0f} tokens/s "
           f"(median step, first left out)", flush=True)
-    print(f"[k2] one LiGO backward: {sum(r['gflop'] for r in main_rows2):.1f} "
-          f"GFLOP needed at least (min-FLOP order), "
-          f"{sum(r['kernel_gflop'] for r in main_rows2):.1f} GFLOP done by K2 "
-          f"(fused order), {sum(r['mbytes'] for r in main_rows2):.1f} MB "
-          f"moved at least", flush=True)
+    k2 = {key: sum(r[key] for r in main_rows2)
+          for key in ("ms", "library_ms", "library_minflop_ms", "bound_ms",
+                      "gflop", "mbytes")}
+    print(f"[k2] one LiGO backward (6 groups, bf16, phase 2): kernel "
+          f"{k2['ms']:.3f} ms, library {k2['library_ms']:.3f} ms, library in "
+          f"the min-FLOP order {k2['library_minflop_ms']:.3f} ms, bound "
+          f"{k2['bound_ms']:.3f} ms | {k2['gflop']:.1f} GFLOP (min-FLOP "
+          f"order, K2's own: {k2['gflop'] / k2['ms']:.1f} TFLOP/s), "
+          f"{k2['mbytes']:.1f} MB moved at least", flush=True)
 
     # -- phase 5: report ------------------------------------------------------
     def entry(name, source, replaces, n, rows_, main_):

@@ -1,7 +1,8 @@
-// Device helpers shared by the LiGO kernels K1 (ligo_expand.cu) and K2
-// (ligo_expand_bwd.cu): f32 <-> storage-type conversion and the layer-axis
-// blend pass. Each kernel source includes this header and compiles on its
-// own; kernels/_build.py hashes it into both libraries' names.
+// Device helpers of the LiGO kernels K1 (ligo_expand.cu) and K2
+// (ligo_expand_bwd.cu): f32 <-> storage-type conversion (both) and the
+// layer-axis blend pass (K1; K2 blends dP with its own kernel, which reads
+// each element once). Each kernel source includes this header and compiles
+// on its own; kernels/_build.py hashes it into both libraries' names.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,8 +28,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // Blend over the layer axis, in f32:
 //   out[(g*Lo + o)*E + e][r] = sum_i w[g, o, i] * X[(g*Li + i)*E + e][r]
 // w is (G, Lo, Li) f32; r runs over one (A, Bd) slab. K1 blends the source
-// stack W with w (Lo = L2, Li = L1); K2 also blends T with w transposed
-// (Lo = L1, Li = L2) to form dW. A grid-stride loop over every output
+// stack W with w (Lo = L2, Li = L1). A grid-stride loop over every output
 // element; each output is one in-order sum, so the result is deterministic.
 template <typename TX, typename TO>
 __global__ void blend_kernel(const float* __restrict__ w,

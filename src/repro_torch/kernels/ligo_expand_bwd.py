@@ -2,12 +2,15 @@
 
 Given ``P[g, k, e] = B @ (Σ_l w[g, k, l] · W[g, l, e])`` and its cotangent
 ``dP``, returns ``(dw, dB, dW)`` — the hand-written CUDA kernel in
-``csrc/ligo_expand_bwd.cu`` (a blend pass, a batched ``T = Bᵀ dP`` GEMM, a
-``dB`` GEMM split over the contraction where the tile grid is small, a blend
-of ``T`` for ``dW`` and a chunked reduction for ``dw``; every sum in one fixed
-order, no float atomics; the source says why and what bounds it). It
-replaces the Pallas kernel ``repro/kernels/ligo_expand_bwd.py::
-ligo_blend_expand_bwd_fused``. The plain version is
+``csrc/ligo_expand_bwd.cu``, in the order that needs the fewest operations:
+a blend ``Q = wᵀ·dP`` over the target layers, then ``dW = BᵀQ``,
+``dB = Σ Q Wᵀ`` (split over its contraction where the tile grid is small)
+and ``U = B W``, and ``dw = Σ ⟨dP, U⟩`` by chunks; every sum in one fixed
+order, no float atomics; the source says why and what bounds it. The three
+products run on a TMA + ``wgmma`` tensor-core GEMM for bf16 at widths that
+are multiples of 8 (:func:`tensor_core_route`), on an f32 FMA GEMM
+otherwise. It replaces the Pallas kernel ``repro/kernels/
+ligo_expand_bwd.py::ligo_blend_expand_bwd_fused``. The plain version is
 :func:`repro_torch.kernels.ref.ligo_blend_expand_bwd_ref`.
 
 ``LAUNCHES`` counts the calls of this wrapper that launched the kernel: a
@@ -27,16 +30,16 @@ LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 _SMS = 132                 # H100 SXM; the dB split aims at two blocks per SM
-_TILE = 128                # output tile edge of the GEMM kernel
-DW_CHUNK = 8192            # elements of the E·A·Bd axis per dw-partial block
+_TILE = 128                # output tile edge of the GEMM kernels
+_DW_SMEM = 48 * 1024       # bytes of U a dw-partial block stages
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ligo_expand_bwd")
     fn = lib.ligo_blend_expand_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ligo_bwd_error_string.argtypes = [ctypes.c_int]
         lib.ligo_bwd_error_string.restype = ctypes.c_char_p
@@ -44,11 +47,31 @@ def _lib() -> ctypes.CDLL:
 
 
 def db_splits(I: int, A: int, n: int) -> int:
-    """Contiguous parts of the ``n = G·L2·E`` contraction that the dB GEMM
+    """Contiguous parts of the ``n = G·L1·E`` contraction that the dB GEMM
     runs as separate blocks: enough for ~2 blocks per SM when the (I, A)
     tile grid alone is smaller, never more than ``n``."""
     tiles = -(-I // _TILE) * -(-A // _TILE)
     return max(1, min(n, -(-2 * _SMS // tiles)))
+
+
+def tensor_core_route(dtype: torch.dtype, I: int, A: int, Bd: int) -> bool:
+    """Whether products 2-4 run on the tensor-core GEMM (else the FMA one):
+    bf16, and I, A and Bd multiples of 8 — TMA's 16-byte rule for row
+    strides. Its rule for base addresses is :func:`tma_aligned`'s."""
+    return (dtype == torch.bfloat16 and I % 8 == 0 and A % 8 == 0
+            and Bd % 8 == 0)
+
+
+def tma_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it on a 16-byte boundary (TMA's rule for base
+    addresses) where ``x`` is a view that starts off one."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def dw_chunk(L1: int) -> int:
+    """Elements of the E·I·Bd axis per dw-partial block: the U rows of all
+    L1 source layers over the chunk fill at most 48 KB of shared memory."""
+    return max(32, min(1024, _DW_SMEM // (4 * L1) // 32 * 32))
 
 
 def ligo_blend_expand_bwd(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
@@ -84,33 +107,41 @@ def ligo_blend_expand_bwd(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
     if min(G, L2, L1, E, I, A, Bd) < 1:
         raise ValueError(f"K2 takes no empty dim: w {tuple(w.shape)}, "
                          f"B {tuple(B.shape)}, W {tuple(W.shape)}")
-    n_chunks = -(-(E * A * Bd) // DW_CHUNK)
-    if (G * L2 * E > _MAX_GRID_YZ or n_chunks > _MAX_GRID_YZ
+    if (G * L1 * E > _MAX_GRID_YZ or G > _MAX_GRID_YZ
+            or 4 * L1 * dw_chunk(L1) > _DW_SMEM
             or -(-max(I, A) // _TILE) > _MAX_GRID_YZ):
-        raise ValueError(f"K2 grid too large for G·L2·E={G * L2 * E}, "
-                         f"I={I}, A={A}, E·A·Bd={E * A * Bd}")
+        raise ValueError(f"K2 grid too large for G·L1·E={G * L1 * E}, "
+                         f"L1={L1}, I={I}, A={A}")
     if not (B.is_contiguous() and W.is_contiguous() and dP.is_contiguous()):
         raise ValueError("K2 takes contiguous B, W and dP")
     lib = _lib()
     dev, f32 = W.device, torch.float32
     w32 = w.to(f32).contiguous()
-    wT = w32.transpose(1, 2).contiguous()
-    splits = db_splits(I, A, G * L2 * E)
-    blended = torch.empty((G, L2, E, A, Bd), dtype=f32, device=dev)
-    T = torch.empty((G, L2, E, A, Bd), dtype=f32, device=dev)
-    dBpart = torch.empty((splits, I, A), dtype=f32, device=dev)
-    dwpart = torch.empty((n_chunks, G * L2, L1), dtype=f32, device=dev)
+    splits = db_splits(I, A, G * L1 * E)
+    chunk = dw_chunk(L1)
+    n_chunks = -(-(E * I * Bd) // chunk)
+    route = tensor_core_route(B.dtype, I, A, Bd)
+    if route:  # TMA reads B and W straight from the caller
+        B, W = tma_aligned(B), tma_aligned(W)
+    Q = torch.empty((G, L1, E, I, Bd), dtype=B.dtype, device=dev)
+    U = torch.empty((G, L1, E, I, Bd), dtype=f32, device=dev)
+    # the K-major operands of the tensor-core GEMM: Bᵀ, Qᵀ and Wᵀ
+    Bt, Qt, Wt = (torch.empty(s if route else (0,), dtype=B.dtype, device=dev)
+                  for s in ((A, I), (G, L1, E, Bd, I), (G, L1, E, Bd, A)))
+    dBpart = torch.empty((splits if splits > 1 else 0, I, A), dtype=f32,
+                         device=dev)
+    dwpart = torch.empty((G, L2, L1, n_chunks), dtype=f32, device=dev)
     dw = torch.empty((G, L2, L1), dtype=f32, device=dev)
     dB = torch.empty((I, A), dtype=B.dtype, device=dev)
     dW = torch.empty((G, L1, E, A, Bd), dtype=W.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ligo_blend_expand_bwd(
-            w32.data_ptr(), wT.data_ptr(), B.data_ptr(), W.data_ptr(),
-            dP.data_ptr(), blended.data_ptr(), T.data_ptr(),
-            dBpart.data_ptr(), dwpart.data_ptr(), dw.data_ptr(),
-            dB.data_ptr(), dW.data_ptr(), G, L2, L1, E, I, A, Bd, splits,
-            DW_CHUNK, _DTYPES[B.dtype], stream)
+            w32.data_ptr(), B.data_ptr(), W.data_ptr(), dP.data_ptr(),
+            Q.data_ptr(), U.data_ptr(), Bt.data_ptr(), Qt.data_ptr(),
+            Wt.data_ptr(), dBpart.data_ptr(), dwpart.data_ptr(),
+            dw.data_ptr(), dB.data_ptr(), dW.data_ptr(), G, L2, L1, E, I, A,
+            Bd, splits, chunk, int(route), _DTYPES[B.dtype], stream)
     if err != 0:
         msg = lib.ligo_bwd_error_string(err).decode()
         raise RuntimeError(f"K2 launch failed: CUDA error {err} ({msg})")

@@ -7,7 +7,9 @@ Run on the card with:
 
 Shapes are those of ``chip_smoke.py``'s kernel phase: the six K1 groups of
 the gpt2-base -> gpt2-medium hot-grow in bf16 (K2, the backward, runs on the
-same groups in the LiGO phase), and a ragged f32 shape; for K3, the
+same groups in the LiGO phase), and a ragged f32 shape; K2 also at an
+aligned ragged bf16 shape (its tensor-core GEMM) and an unaligned one (its
+FMA GEMM), and twice, to agree bit for bit; for K3, the
 gpt2-medium and llama3-8b prefills, a sliding window, bert-large's
 bidirectional shape, ragged and f32 shapes, and a bf16 dh the tensor-core
 kernel does not take.
@@ -37,6 +39,12 @@ K1_SHAPES = [
     ("ragged", "float32", (3, 5, 3, 2, 200, 50, 130)),
 ]
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# K2 also at an aligned ragged bf16 shape (tensor-core GEMM, TMA's zero fill
+# at every edge) and an unaligned one (FMA GEMM)
+K2_SHAPES = K1_SHAPES + [
+    ("aligned-ragged", "bfloat16", (2, 5, 3, 2, 200, 136, 72)),
+    ("unaligned", "bfloat16", (2, 5, 3, 2, 200, 50, 130)),
+]
 
 # name, dtype, (B, H, KV, T, S, dh, causal, window)
 K3_SHAPES = [
@@ -96,8 +104,8 @@ def test_k1_kernel_refuses_grad_and_mixed_dtypes(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,dtype,dims", K1_SHAPES,
-                         ids=[f"{n}-{d}" for n, d, _ in K1_SHAPES])
+@pytest.mark.parametrize("name,dtype,dims", K2_SHAPES,
+                         ids=[f"{n}-{d}" for n, d, _ in K2_SHAPES])
 def test_k2_kernel_matches_plain(cuda, name, dtype, dims):
     G, L2, L1, E, I, A, Bd = dims
     dt = getattr(torch, dtype)
@@ -110,7 +118,9 @@ def test_k2_kernel_matches_plain(cuda, name, dtype, dims):
     got = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
     assert ops.launch_counts()["ligo_blend_expand_bwd_fused"] == 1
     want = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+    again = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert [g.dtype for g in got] == [torch.float32, dt, dt]
     for g, r in zip(got[1:], want[1:]):
         err = (g.float() - r.float()).abs().max() / r.float().abs().max()
@@ -119,6 +129,46 @@ def test_k2_kernel_matches_plain(cuda, name, dtype, dims):
     terms = torch.einsum("gkeab,gleab->gkl", T, W.float().abs())
     err = ((got[0] - want[0].float()).abs() / terms).max()
     assert float(err) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_k2_tensor_map_failure_raises(cuda, monkeypatch):
+    """A tensor map TMA cannot take (here B's 100-byte rows, A = 50 forced
+    onto the tensor-core route) makes the wrapper raise: no fallback to the
+    FMA GEMM or to the plain version, and no launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bf = torch.bfloat16
+    B = torch.randn((64, 50), generator=gen, device=cuda).to(bf)
+    w = torch.randn((1, 2, 2), generator=gen, device=cuda)
+    W = torch.randn((1, 2, 1, 50, 64), generator=gen, device=cuda).to(bf)
+    dP = torch.randn((1, 2, 1, 64, 64), generator=gen, device=cuda).to(bf)
+    assert not ligo_expand_bwd.tensor_core_route(bf, 64, 50, 64)
+    monkeypatch.setattr(ligo_expand_bwd, "tensor_core_route",
+                        lambda *args: True)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
+    assert ops.launch_counts()["ligo_blend_expand_bwd_fused"] == 0
+
+
+@pytest.mark.gpu
+def test_k2_misaligned_operands_match_aligned(cuda):
+    """B and W given as views 2 bytes off a 16-byte boundary still take the
+    tensor-core route (the wrapper copies them onto one) and give the same
+    bits as the same values on aligned storage."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    bf = torch.bfloat16
+    flat_B = torch.randn(64 * 64 + 1, generator=gen, device=cuda).to(bf)
+    flat_W = torch.randn(2 * 64 * 64 + 1, generator=gen, device=cuda).to(bf)
+    B, W = flat_B[1:].view(64, 64), flat_W[1:].view(1, 2, 1, 64, 64)
+    assert B.data_ptr() % 16 == 2 and W.data_ptr() % 16 == 2
+    w = torch.randn((1, 2, 2), generator=gen, device=cuda)
+    dP = torch.randn((1, 2, 1, 64, 64), generator=gen, device=cuda).to(bf)
+    assert ligo_expand_bwd.tensor_core_route(bf, 64, 64, 64)
+    got = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
+    want = ligo_expand_bwd.ligo_blend_expand_bwd(w, B.clone(), W.clone(), dP)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.gpu

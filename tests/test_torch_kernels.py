@@ -164,3 +164,122 @@ def test_vjp_plain_route_gradients_and_launches():
                                    "flash_attention": 0}
     with pytest.raises(ValueError, match="CUDA"):
         ops.ligo_blend_expand_grouped_vjp(w, B, W, use_kernel=True)
+
+
+def _k2_schedule(w, B, W, dP, q_dtype=torch.float32):
+    """K2's launch sequence in plain torch, float32 accumulation: the dP
+    blend Q (stored in ``q_dtype``), the three products as ``X · Yᵀ`` over
+    the K-major (transposed) operands the tensor-core GEMM reads — dB in the
+    wrapper's contiguous split parts, reduced in order — and dw by the
+    wrapper's chunks of the E·I·Bd axis, reduced in order."""
+    G, L2, L1 = w.shape
+    I, A = B.shape
+    E, Bd = W.shape[2], W.shape[4]
+    Z = G * L1 * E
+    f = torch.float32
+    Q = torch.einsum("gkl,gkeib->gleib", w.to(f), dP.to(f)).to(q_dtype).to(f)
+    Qz, Wz = Q.reshape(Z, I, Bd), W.to(f).reshape(Z, A, Bd)
+    Bt, Qt, Wt = B.to(f).T, Qz.transpose(1, 2), Wz.transpose(1, 2)
+    dW = Bt @ Qt.transpose(1, 2)                        # X = Bᵀ, Y = Qᵀ
+    S = ligo_expand_bwd.db_splits(I, A, Z)
+    parts = [sum((Qz[r] @ Wz[r].T for r in range(s * Z // S,
+                                                  (s + 1) * Z // S)),
+                 torch.zeros(I, A)) for s in range(S)]
+    dB = sum(parts[1:], parts[0])
+    U = B.to(f) @ Wt.transpose(1, 2)                    # X = B, Y = Wᵀ
+    n = E * I * Bd
+    chunk = ligo_expand_bwd.dw_chunk(L1)
+    dPf = dP.to(f).reshape(G, L2, n)
+    Uf = U.reshape(G, L1, n)
+    dw_parts = [torch.einsum("gkj,glj->gkl", dPf[..., j:j + chunk],
+                             Uf[..., j:j + chunk]) for j in range(0, n, chunk)]
+    dw = sum(dw_parts[1:], dw_parts[0])
+    return (dw, dB.to(B.dtype),
+            dW.reshape(G, L1, E, A, Bd).to(W.dtype))
+
+
+# small ragged shapes with G, E > 1, a leaf with more layers, the pinned one
+SCHEDULE_SHAPES = SHAPES + [(2, 3, 4, 6, 72, 40, 56)]
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k2_schedule_matches_plain_and_jax_kernel(shape):
+    """The min-FLOP schedule K2 launches (Q blend; dW = BᵀQ, dB = Σ Q Wᵀ and
+    U = B W through transposed operands; dw by chunks) against K2's plain
+    version and the JAX fused kernel in interpret mode, in float32."""
+    w, B, W = _inputs(*shape)
+    dP = _cotangent(*shape)
+    got = _k2_schedule(*(torch.from_numpy(a) for a in (w, B, W, dP)))
+    plain = ref.ligo_blend_expand_bwd_ref(*(torch.from_numpy(a)
+                                            for a in (w, B, W, dP)))
+    args = [jnp.asarray(a) for a in (w, B, W, dP)]
+    scale = _dw_term_scale(w, B, W, dP)
+    for want in ([x.numpy() for x in plain], jax_k2(*args, interpret=True)):
+        assert [tuple(g.shape) for g in got] == [np.shape(a) for a in want]
+        dw_err = np.abs(got[0].numpy() - np.asarray(want[0])) / scale
+        assert dw_err.max() <= 1e-5, dw_err.max()
+        assert_trees_close_normalized([g.numpy() for g in got[1:]],
+                                      [np.asarray(a) for a in want[1:]],
+                                      rel=1e-5, names=["dB", "dW"])
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k2_schedule_bf16_q_rounding(shape):
+    """The one rounding the schedule adds in bf16: Q stored in bf16 before
+    the products. With bf16 operands, dB and dW rounded to bf16 as the
+    kernel writes them, the schedule stays within the card's bf16 tolerance
+    (1e-2 normalised; dw by Σ|terms|) of the float32 plain version."""
+    bf = torch.bfloat16
+    w, B, W = _inputs(*shape, seed=5)
+    dP = _cotangent(*shape, seed=5)
+    B, W, dP = (torch.from_numpy(a).to(bf) for a in (B, W, dP))
+    w = torch.from_numpy(w)
+    got = _k2_schedule(w, B, W, dP, q_dtype=bf)
+    assert [g.dtype for g in got] == [torch.float32, bf, bf]
+    want = ref.ligo_blend_expand_bwd_ref(w, B.float(), W.float(), dP.float())
+    scale = _dw_term_scale(*(x.float().numpy() for x in (w, B, W, dP)))
+    assert (np.abs(got[0].numpy() - want[0].numpy()) / scale).max() <= 1e-2
+    for g, r in zip(got[1:], want[1:]):
+        err = (g.float() - r).abs().max() / r.abs().max()
+        assert float(err) <= 1e-2, float(err)
+
+
+@pytest.mark.parametrize("dtype,dims,want", [
+    (torch.bfloat16, (4096, 3072, 768), True),
+    (torch.bfloat16, (200, 136, 72), True),
+    (torch.float32, (4096, 3072, 768), False),
+    (torch.bfloat16, (200, 50, 130), False),
+    (torch.bfloat16, (1, 50, 45), False),
+    (torch.bfloat16, (1024, 768, 772), False),
+    (torch.bfloat16, (1024, 768, 768), True),
+])
+def test_k2_tensor_core_route(dtype, dims, want):
+    """bf16 with I, A, Bd multiples of 8 takes the tensor-core GEMM; f32 or
+    an unaligned width the FMA one."""
+    assert ligo_expand_bwd.tensor_core_route(dtype, *dims) is want
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_k2_tma_aligned(offset):
+    """A view off a 16-byte boundary comes back as an aligned copy of the
+    same values; an aligned one comes back as itself."""
+    flat = torch.arange(64 * 64 + 8, dtype=torch.bfloat16)
+    x = flat[offset:offset + 64 * 64].view(64, 64)
+    y = ligo_expand_bwd.tma_aligned(x)
+    assert y.data_ptr() % 16 == 0 and torch.equal(x, y)
+    assert (y is x) == (x.data_ptr() % 16 == 0)
+
+
+def test_k2_launch_geometry():
+    """The dB split fills ~2 blocks per SM on small tile grids and never
+    exceeds the contraction's entries; the dw chunk keeps the staged U rows
+    within 48 KB."""
+    assert ligo_expand_bwd.db_splits(1024, 768, 12) == 6     # 48 tiles
+    assert ligo_expand_bwd.db_splits(4096, 3072, 12) == 1    # 768 tiles
+    assert ligo_expand_bwd.db_splits(200, 50, 3) == 3
+    for L1 in (1, 3, 12, 24, 100, 384):
+        chunk = ligo_expand_bwd.dw_chunk(L1)
+        assert chunk % 32 == 0 and 4 * L1 * chunk <= 48 * 1024
+    assert ligo_expand_bwd.dw_chunk(12) == 1024
