@@ -13,10 +13,11 @@ sources are not beside it. Phases, each fatal on failure:
    shapes the main paths give it and at ragged float32 shapes, and time the
    kernel, the plain version and one library call computing the same
    function, beside the least time the card could take (``bound_ms``):
-   K1 (the LiGO blend-expand), K2 (its backward: dw, dB and dW, each
-   checked on its own; K2 is also run twice and must agree bit for bit; the
-   bf16 main-path shapes and an aligned ragged bf16 shape must take its
-   tensor-core GEMM, an unaligned bf16 shape its FMA GEMM) and
+   K1 (the LiGO blend-expand) and K2 (its backward: dw, dB and dW, each
+   checked on its own), each also run twice, to agree bit for bit; on the
+   GEMM core they share, the bf16 main-path shapes and an aligned ragged
+   bf16 shape must take the tensor-core GEMM, an unaligned bf16 shape and
+   the float32 ones the FMA GEMM; and
    K3 (flash attention: the gpt2-medium and llama3-8b prefills, a sliding
    window, bert-large's bidirectional shape, ragged and float32 shapes);
 3. drive the serving path at full width through its entry point —
@@ -26,7 +27,9 @@ sources are not beside it. Phases, each fatal on failure:
    launched once per eligible group and K3 once per layer of the prefill,
    that the kernel-grown tree matches a grow through the plain path, that
    the prefill logits through K3 match a prefill through the plain
-   attention, and that logits and tokens are sane;
+   attention, and that logits and tokens are sane; then profile one warm
+   hot-grow on the kernel route (K1's six GEMMs must show as tensor-core
+   GEMM launches, none as FMA GEMM launches);
 3b. drive the serving path of llama3-8b at full width (32 layers, d 4096,
    GQA 32/8, random weights from the seed, no grow): 4 prompts of 2048
    tokens prefilled through K3 and 31 tokens decoded greedily, with the same
@@ -38,8 +41,9 @@ sources are not beside it. Phases, each fatal on failure:
    set to 0 just before and read just after; check the launch counts (K3
    none: every forward there records autograd), that every loss is finite, and that the LiGO-loss gradient at the starting
    operator is the same on the kernel route and the plain route; then
-   profile one LiGO step (K2's three products of every group must show as
-   tensor-core GEMM launches, none as FMA GEMM launches) and one train step
+   profile one LiGO step (K1's product and K2's three products of every
+   group must show as tensor-core GEMM launches, none as FMA GEMM launches)
+   and one train step
    (``torch.profiler``);
 5. print the kernels' JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
@@ -50,6 +54,7 @@ Float32 matrix products run in full float32 here
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +85,25 @@ K3_SHAPES = [
     ("ragged", "float32", (2, 6, 2, 200, 328, 64, True, 0)),
     ("ragged window", "float32", (2, 6, 2, 200, 328, 64, True, 100)),
     ("gpt2-medium f32", "float32", (8, 16, 16, 128, 128, 64, True, 0)),
+]
+
+# K1's and K2's shapes besides the main path's six groups (gpt2-base ->
+# gpt2-medium, read from the GrowthPlan, seeds 100 + i for K1 and 200 + i
+# for K2): name, dtype, (G, L2, L1, E, I, A, Bd), seed. "pinned" (I * Bd
+# odd) takes the scalar paths of both kernels' blends; "aligned ragged"
+# takes the tensor-core GEMM with TMA's zero fill at every edge; "unaligned"
+# is bf16 on the FMA GEMM.
+K1_EXTRA_SHAPES = [
+    ("ragged", "float32", (3, 5, 3, 2, 200, 50, 130), 99),
+    ("pinned", "float32", (1, 1, 1, 2, 1, 50, 45), 92),
+    ("aligned ragged", "bfloat16", (2, 5, 3, 2, 200, 136, 72), 94),
+    ("unaligned", "bfloat16", (2, 5, 3, 2, 200, 50, 130), 93),
+]
+K2_EXTRA_SHAPES = [
+    ("ragged", "float32", (3, 5, 3, 2, 200, 50, 130), 98),
+    ("pinned", "float32", (1, 1, 1, 2, 1, 50, 45), 97),
+    ("aligned ragged", "bfloat16", (2, 5, 3, 2, 200, 136, 72), 96),
+    ("unaligned", "bfloat16", (2, 5, 3, 2, 200, 50, 130), 95),
 ]
 
 MAIN_ARGS = ["--arch", "gpt2-base", "--grow-to", "gpt2-medium", "--batch", "8",
@@ -128,14 +152,24 @@ def _k1_shapes(torch, cfg1, cfg2):
     return shapes
 
 
-def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
-    from repro_torch.kernels import ligo_expand, ref
+def _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed, cotangent):
+    """w, B, W (and dP where ``cotangent``) of a K1 or K2 check, on the card
+    from ``seed``: blend rows and expander rows of norm ~1, so the output is
+    of unit scale."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    # unit-scale output: blend rows and expander rows of norm ~1
     w = torch.randn((G, L2, L1), generator=gen, device="cuda") / L1 ** 0.5
     B = (torch.randn((I, A), generator=gen, device="cuda") / A ** 0.5
          ).to(dtype)
     W = torch.randn((G, L1, E, A, Bd), generator=gen, device="cuda").to(dtype)
+    if not cotangent:
+        return w, B, W
+    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device="cuda").to(dtype)
+    return w, B, W, dP
+
+
+def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
+    from repro_torch.kernels import ligo_expand, ref
+    w, B, W = _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed, False)
 
     def kernel():
         return ligo_expand.ligo_blend_expand_grouped(w, B, W)
@@ -147,17 +181,28 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
         bl = torch.einsum("gkl,gleab->gkeab", w.to(dtype), W)
         return torch.matmul(B, bl)
 
-    got, want = kernel(), plain()
+    def library_minflop():   # K1's own order: one batched matmul, the blend
+        return torch.einsum("gkl,gleib->gkeib", w.to(dtype),
+                            torch.matmul(B, W))
+
+    got, want, again = kernel(), plain(), kernel()
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"K1 is not deterministic at {name}: two runs "
+                             f"on the same inputs differ")
+    del again
     diff = (got.float() - want.float()).abs().max().item()
     norm = diff / (want.float().abs().max().item() + 1e-30)
     tname = str(dtype).replace("torch.", "")
     ok = norm <= TOL[tname] and bool(torch.isfinite(got).all())
     # The bound counts the fewest operations the function needs: the least
-    # of blend-then-expand (the kernel's fused order, L2 expansions) and
-    # expand-then-blend (L1 expansions, then the blend in the large space).
+    # of blend-then-expand (the fused order, L2 expansions) and
+    # expand-then-blend (K1's order: L1 expansions, then the blend in the
+    # large space).
     fused_flops = 2 * G * E * L2 * (L1 * A * Bd + I * A * Bd)
-    flops = min(fused_flops, 2 * G * E * (L1 * I * A * Bd + L2 * L1 * I * Bd))
+    k1_flops = 2 * G * E * (L1 * I * A * Bd + L2 * L1 * I * Bd)
+    flops = min(fused_flops, k1_flops)
+    tc = ligo_expand.tensor_core_route(dtype, I, A, Bd)
     elt = got.element_size()
     nbytes = (4 * G * L2 * L1 + elt * (I * A + G * L1 * E * A * Bd
                                        + G * L2 * E * I * Bd))
@@ -170,16 +215,19 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
         "ms": _time_ms(torch, kernel, reps),
         "plain_ms": _time_ms(torch, plain, reps),
         "library_ms": _time_ms(torch, library, reps),
+        "library_minflop_ms": _time_ms(torch, library_minflop, reps),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "gflop": flops / 1e9, "kernel_gflop": fused_flops / 1e9,
-        "mbytes": nbytes / 1e6,
+        "gflop": flops / 1e9, "kernel_gflop": k1_flops / 1e9,
+        "mbytes": nbytes / 1e6, "tensor_cores": tc,
     }
-    print(f"[k1] {name:>8} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
-          f"A={A} Bd={Bd}: norm err {norm:.2e} (tol {TOL[tname]:.0e}) | "
-          f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-          f"library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
-          f"ms ({row['bound_by']}) {'OK' if ok else 'FAIL'}", flush=True)
+    print(f"[k1] {name:>14} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
+          f"A={A} Bd={Bd} ({'wgmma' if tc else 'fma'}): norm err {norm:.2e} "
+          f"(tol {TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
+          f"library in K1's order {row['library_minflop_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}) "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version at {name} "
                              f"({tname}): normalised error {norm:.3e}")
@@ -189,12 +237,8 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
 
 def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
     from repro_torch.kernels import ligo_expand_bwd, ref
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    w = torch.randn((G, L2, L1), generator=gen, device="cuda") / L1 ** 0.5
-    B = (torch.randn((I, A), generator=gen, device="cuda") / A ** 0.5
-         ).to(dtype)
-    W = torch.randn((G, L1, E, A, Bd), generator=gen, device="cuda").to(dtype)
-    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device="cuda").to(dtype)
+    w, B, W, dP = _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed,
+                               True)
 
     def kernel():
         return ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
@@ -556,13 +600,33 @@ def _profile(torch, label, fn):
           f"({100 * busy / wall:.0f} %), profiler on", flush=True)
     print(ev.table(sort_by="self_device_time_total", row_limit=12,
                    max_name_column_width=48), flush=True)
-    # K2's launches by kernel, full names: the table above cuts names short
+    # K1's and K2's launches by kernel, full names: the table above cuts
+    # names short
     for e in sorted((e for e in ev if e.device_type == DeviceType.CUDA
-                     and "k2_" in e.key),
+                     and re.search(r"\b(k1_|k2_|ligo_)", e.key)),
                     key=lambda e: -e.self_device_time_total):
         print(f"[profile] {label}: {e.self_device_time_total / 1e3:8.3f} ms "
               f"in {e.count:3d} launches of {e.key}", flush=True)
     return ev
+
+
+def _check_gemm_launches(label, ev, want):
+    """The profile's launches of the shared GEMM kernels, as {(core, tag):
+    n} (core "wgmma" or "fma"; tag the product, ``csrc/ligo_gemm.cuh``: 0-2
+    K2's dW, dB and U, 3 K1's U), must be ``want``."""
+    from torch.autograd import DeviceType
+    got = {}
+    for e in ev:
+        m = re.search(r"ligo_(wgmma|fma)_gemm_kernel<(\d+),", e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            key = (m.group(1), int(m.group(2)))
+            got[key] = got.get(key, 0) + e.count
+    print(f"[profile] {label}: GEMM launches by (core, product tag) {got}, "
+          f"want {want}", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: GEMM launches {got}, want {want} "
+                             f"(every bf16 product on the tensor cores, none "
+                             f"on the FMA pipes)")
 
 
 def _profile_steps(torch, tres):
@@ -589,17 +653,11 @@ def _profile_steps(torch, tres):
 
     ev = _profile(torch, f"LiGO step of {small_cfg.name} -> {cfg.name}",
                   ligo_step)
-    # the bf16 LiGO backward runs products 2-4 of every group on the
-    # tensor-core GEMM, and none on the FMA GEMM
-    n_wgmma = sum(e.count for e in ev if "k2_wgmma_gemm_kernel" in e.key)
-    n_fma = sum(e.count for e in ev if "k2_fma_gemm_kernel" in e.key)
-    want = 3 * tres["k2_groups"]
-    print(f"[profile] LiGO step: {n_wgmma} wgmma GEMM launches (want {want}), "
-          f"{n_fma} FMA GEMM launches (want 0)", flush=True)
-    if (n_wgmma, n_fma) != (want, 0):
-        raise AssertionError(f"the LiGO step's K2 GEMMs: {n_wgmma} on the "
-                             f"tensor cores, {n_fma} on the FMA pipes; want "
-                             f"{want} and 0")
+    # the bf16 LiGO step runs K1's product (tag 3) and K2's three (tags 0-2)
+    # of every group on the tensor-core GEMM, and none on the FMA GEMM
+    n = tres["k2_groups"]
+    _check_gemm_launches("LiGO step", ev, {("wgmma", t): n
+                                           for t in range(4)})
     _profile(torch, f"train step of {small_cfg.name} -> {cfg.name}",
              train_step)
 
@@ -644,19 +702,18 @@ def main() -> int:
     shapes = _k1_shapes(torch, cfg1, cfg2)
     rows = [_check_k1(torch, name, torch.bfloat16, *dims, seed=100 + i)
             for i, (name, *dims) in enumerate(shapes)]
-    rows.append(_check_k1(torch, "ragged", torch.float32,
-                          3, 5, 3, 2, 200, 50, 130, seed=99))
+    rows += [_check_k1(torch, name, getattr(torch, dt), *dims, seed=seed)
+             for name, dt, dims, seed in K1_EXTRA_SHAPES]
     main_rows = rows[:len(shapes)]
+    routes = [r["tensor_cores"] for r in rows]
+    if routes != [True] * len(shapes) + [False, False, True, False]:
+        raise AssertionError(f"K1 routes {routes}: the bf16 main-path and "
+                             f"aligned shapes must take the tensor cores, the "
+                             f"float32 and unaligned ones the FMA GEMM")
     rows2 = [_check_k2(torch, name, torch.bfloat16, *dims, seed=200 + i)
              for i, (name, *dims) in enumerate(shapes)]
-    rows2.append(_check_k2(torch, "ragged", torch.float32,
-                           3, 5, 3, 2, 200, 50, 130, seed=98))
-    rows2.append(_check_k2(torch, "pinned", torch.float32,
-                           1, 1, 1, 2, 1, 50, 45, seed=97))
-    rows2.append(_check_k2(torch, "aligned ragged", torch.bfloat16,
-                           2, 5, 3, 2, 200, 136, 72, seed=96))
-    rows2.append(_check_k2(torch, "unaligned", torch.bfloat16,
-                           2, 5, 3, 2, 200, 50, 130, seed=95))
+    rows2 += [_check_k2(torch, name, getattr(torch, dt), *dims, seed=seed)
+              for name, dt, dims, seed in K2_EXTRA_SHAPES]
     main_rows2 = rows2[:len(shapes)]
     routes = [r["tensor_cores"] for r in main_rows2 + rows2[-2:]]
     if routes != [True] * len(shapes) + [True, False]:
@@ -695,13 +752,22 @@ def main() -> int:
             plan.apply(ligo, small, use_kernel=(route == "kernel"))
             torch.cuda.synchronize()
             warm[route].append((time.perf_counter() - t0) * 1e3)
-    del plain, plan, small, ligo
+        # K1's GEMMs of one warm hot-grow: all six on the tensor cores
+        ev = _profile(torch, "warm hot-grow, kernel route",
+                      lambda: plan.apply(ligo, small, use_kernel=True))
+        _check_gemm_launches("hot-grow", ev, {("wgmma", 3): len(shapes)})
+    del plain, plan, small, ligo, ev
     warm_pf = _prefill_check(torch, res, 2e-2, 1e-4, 1e-2)
-    print(f"[k1] one hot-grow: {sum(r['gflop'] for r in main_rows):.1f} GFLOP "
-          f"needed at least (min-FLOP order), "
-          f"{sum(r['kernel_gflop'] for r in main_rows):.1f} GFLOP done by K1 "
-          f"(fused order), {sum(r['mbytes'] for r in main_rows):.1f} MB moved "
-          f"at least", flush=True)
+    k1 = {key: sum(r[key] for r in main_rows)
+          for key in ("ms", "library_ms", "library_minflop_ms", "bound_ms",
+                      "gflop", "kernel_gflop", "mbytes")}
+    print(f"[k1] one hot-grow (6 groups, bf16, phase 2): kernel "
+          f"{k1['ms']:.3f} ms, library {k1['library_ms']:.3f} ms, library in "
+          f"K1's order {k1['library_minflop_ms']:.3f} ms, bound "
+          f"{k1['bound_ms']:.3f} ms | {k1['gflop']:.1f} GFLOP needed at least, "
+          f"{k1['kernel_gflop']:.1f} GFLOP done by K1 (its own min-FLOP "
+          f"order: {k1['kernel_gflop'] / k1['ms']:.1f} TFLOP/s), "
+          f"{k1['mbytes']:.1f} MB moved at least", flush=True)
     print(f"[main] hot-grow {res['hot_grow_ms']:.1f} ms (first call) | warm "
           f"kernel path {warm['kernel']} ms, plain path {warm['plain']} ms | "
           f"prefill {res['prefill_ms']:.1f} ms (first call), warm K3 route "

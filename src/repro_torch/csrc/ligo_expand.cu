@@ -10,138 +10,172 @@
 // kernel keeps B whole in VMEM and carries the blended (A, TB) slab in
 // scratch across its sequential i grid axis. Hopper blocks run in parallel and
 // in no order, and 227 KB of shared memory cannot hold B at A = 3072, so this
-// port splits the work into two launches on the caller's stream:
+// port runs the function as launches on the caller's stream, in the order
+// that needs the fewest operations: expand the L1 source layers, then blend
+// in the large space.
 //
-//   1. blend:  blended[g, k, e] = sum_l w[g, k, l] * W[g, l, e], in f32, in
-//      the small (A, Bd) space. Memory-bound and cheap (L1 reads per output).
-//   2. expand: a batched tiled GEMM, P[n] = B @ blended[n] for the
-//      n = (g, k, e) batch, with 128x128 output tiles per 256-thread block,
-//      16-deep A slices staged through shared memory, an 8x8 f32 register
-//      tile per thread, and the ragged I, A and Bd edges masked in-kernel.
-//      The wrapper allocates `blended` (the scratch) and P.
+//   1. U[g, l, e] = B W[g, l, e], an f32 (I, Bd) stack, one batched GEMM over
+//      the Z = G*L1*E source slabs, on the GEMM cores of ligo_gemm.cuh (the
+//      ones K2 uses): bf16 at widths that are multiples of 8 on the TMA +
+//      wgmma GEMM, from X = B (K-major as it is) and Y = W^T (from
+//      ligo_transpose_kernel); f32, or an unaligned width, on the FMA GEMM
+//      on W's own strides. It is the launch K2 makes for its product U, with
+//      the same arguments, so the two should agree bit for bit (expected, not
+//      checked on the card).
+//   2. k1_blend_kernel: P[g, k, e] = sum_l w[g, k, l] U[g, l, e] in f32, each
+//      thread V consecutive elements of one (g, e) and the sums of up to
+//      kBlendK target layers k in registers, so U is read once; the sum over
+//      l runs in order, so the result is deterministic; P is rounded to its
+//      dtype once.
 //
-// What bounds it. On the serving path (gpt2-base -> gpt2-medium hot-grow) the
-// kernel runs 6 times per grow (wq, wk, wv, wo, mlp/w1, mlp/w2). The function
-// needs ~353 GFLOP per grow in its cheapest order (expand the L1 = 12 source
-// layers, then blend in the large space), 234 GFLOP of it mlp/w2 (I=4096,
-// A=3072, Bd=768): that is compute, a floor of ~0.36 ms at the H100 SXM's
-// 989 TFLOP/s dense bf16, against ~0.66 GB of traffic, 0.45 GB of it output
-// (~0.20 ms at 3.35 TB/s). This first version runs the expand GEMM on the
-// f32 FMA pipes (67 TFLOP/s peak), not the tensor cores, so that bf16 and f32
-// results both hold to the plain version's f32 arithmetic; a wgmma pipeline
-// is later work.
+// Why this order, always. Expanding first costs 2 G E (L1 I A Bd + L2 L1 I Bd)
+// operations, blending first 2 G E L2 (L1 A Bd + I A Bd). On the LiGO paths
+// (gpt2-base -> gpt2-medium: L2 = 24, L1 = 12, I >= A) expanding first needs
+// about half: 353 GFLOP a grow against 700. The two come close only where
+// L2 is about L1 (or I much smaller than A), which no LiGO hop of the repo
+// has. In bf16 the order adds no rounding that the function's own
+// definition lacks: the bf16 products are exact in f32, U and the blend stay
+// in f32, and P is rounded once. In f32 only the order of the sums changes.
 //
-// The fused order used here blends first and then expands L2 = 24 times
-// (~700 GFLOP per grow), so the kernel does ~2x the FLOPs the function needs
-// by design.
+// What bounds it. A grow runs the kernel 6 times (wq, wk, wv, wo, mlp/w1,
+// mlp/w2; 234 of the 353 GFLOP in mlp/w2: I 4096, A 3072, Bd 768): compute,
+// a floor of ~0.36 ms at the H100 SXM's 989 TFLOP/s dense bf16, against
+// ~0.66 GB that the function must move. This design moves more: the f32 U
+// stack is written by the GEMM and read by the blend (~0.9 GB a grow with
+// the P writes), and W^T is a transposed copy of W; a blend folded into the
+// GEMM's epilogue would remove the U round trip.
 //
 // Plain C interface (built with nvcc into a shared library, loaded by ctypes):
-// the launcher returns cudaGetLastError() and never synchronises.
+// the launcher returns cudaGetLastError() (or a tensor-map encode failure)
+// and never synchronises.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
 
-#include "ligo_common.cuh"
+#include "ligo_gemm.cuh"
 
 namespace {
 
-constexpr int kBM = 128;       // output rows (I) per block
-constexpr int kBN = 128;       // output cols (Bd) per block
-constexpr int kBK = 16;        // A slice staged per shared-memory round
-constexpr int kThreads = 256;  // 16 x 16 threads, each an 8 x 8 output tile
-constexpr int kTM = 8;         // rows per thread: ty + 16 * m
-constexpr int kTN = 8;         // cols per thread: tx + 16 * c
-constexpr int kPad = 4;        // keeps the transposed B-tile stores off one bank
+constexpr int kBlendK = 24;    // target layers k a thread sums at once
+constexpr size_t kBlendSmem = 48 * 1024;  // staged w a blend block may hold
 
-// Pass 1 is blend_kernel (ligo_common.cuh): blended[g, k, e] = sum_l
-// w[g, k, l] * W[g, l, e], into the f32 scratch.
-// Pass 2: P[n] (I, Bd) = B (I, A) @ X[n] (A, Bd), X = blended (f32).
-// grid = (ceil(Bd/kBN), ceil(I/kBM), N); block = kThreads.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-expand_kernel(const T* __restrict__ B, const float* __restrict__ X,
-              T* __restrict__ P, int I, int A, int Bd) {
-  __shared__ float Bs[kBK][kBM + kPad];   // B tile, transposed: Bs[a][i]
-  __shared__ float Xs[kBK][kBN];          // blended tile: Xs[a][b]
-
-  const int64_t n = blockIdx.z;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  const float* Xn = X + n * (int64_t)A * Bd;
-  T* Pn = P + n * (int64_t)I * Bd;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) acc[m][c] = 0.f;
+// P[g, k, e][r] = sum_l w[g, k, l] U[g, l, e][r], r over the I*Bd slab.
+// grid = (ceil(slab / (V * kThreads)), G * E): a block serves one (g, e).
+// It stages w[g] transposed in shared memory, wT[l * Lp + k] = w[g, k, l]
+// with k padded with zeros to Lp, a multiple of kBlendK, so a thread reads
+// the kBlendK weights of one l as float4 broadcasts. Each thread owns V
+// consecutive r and keeps kBlendK x V f32 sums in registers. Two blocks an
+// SM keep enough loads of U in flight: held to 128 registers (a few bytes
+// spill) the blend moves 2.3 TB/s at the LiGO shapes, against 1.8 TB/s at
+// its free 139 registers and one block an SM (H100 80GB HBM3, 700 W).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+k1_blend_kernel(const float* __restrict__ w, const float* __restrict__ U,
+                T* __restrict__ P, int L2, int L1, int E, int64_t slab) {
+  extern __shared__ float4 wT4[];
+  float* wT = reinterpret_cast<float*>(wT4);
+  const int Lp = (L2 + kBlendK - 1) / kBlendK * kBlendK;
+  const int64_t n = blockIdx.y;              // g*E + e
+  const int64_t g = n / E;
+  const int64_t e = n - g * E;
+  const float* wg = w + g * L2 * L1;
+  for (int i = threadIdx.x; i < L1 * Lp; i += kThreads) {
+    const int l = i / Lp;
+    const int k = i - l * Lp;
+    wT[i] = k < L2 ? wg[k * L1 + l] : 0.f;
   }
-
-  for (int a0 = 0; a0 < A; a0 += kBK) {
-    // B tile: kBM rows x kBK cols, read along A (row-major B), zero-masked.
+  __syncthreads();
+  const int64_t r = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * V;
+  if (r >= slab) return;
+  const int64_t step = (int64_t)E * slab;    // layer to layer, in U and in P
+  const float* src = U + (g * L1 * E + e) * slab + r;
+  T* dst = P + (g * L2 * E + e) * slab + r;
+  for (int k0 = 0; k0 < L2; k0 += kBlendK) {
+    float acc[kBlendK][V];
 #pragma unroll
-    for (int j = 0; j < kBM * kBK / kThreads; ++j) {
-      const int t = tid + j * kThreads;
-      const int i = t / kBK;
-      const int a = t % kBK;
-      const int gi = row0 + i;
-      const int ga = a0 + a;
-      Bs[a][i] = (gi < I && ga < A) ? to_f32(B[(int64_t)gi * A + ga]) : 0.f;
+    for (int kk = 0; kk < kBlendK; ++kk) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[kk][v] = 0.f;
     }
-    // blended tile: kBK rows x kBN cols, read along Bd, zero-masked.
+#pragma unroll 2
+    for (int l = 0; l < L1; ++l) {
+      float x[V];
+      load_v<V>(src + l * step, x);
+      const float4* wl = wT4 + (l * Lp + k0) / 4;
 #pragma unroll
-    for (int j = 0; j < kBK * kBN / kThreads; ++j) {
-      const int t = tid + j * kThreads;
-      const int a = t / kBN;
-      const int b = t % kBN;
-      const int ga = a0 + a;
-      const int gb = col0 + b;
-      Xs[a][b] = (ga < A && gb < Bd) ? Xn[(int64_t)ga * Bd + gb] : 0.f;
-    }
-    __syncthreads();
-
+      for (int j = 0; j < kBlendK / 4; ++j) {
+        const float4 wv = wl[j];
 #pragma unroll
-    for (int a = 0; a < kBK; ++a) {
-      float rb[kTM];
-      float rx[kTN];
-#pragma unroll
-      for (int m = 0; m < kTM; ++m) rb[m] = Bs[a][ty + 16 * m];
-#pragma unroll
-      for (int c = 0; c < kTN; ++c) rx[c] = Xs[a][tx + 16 * c];
-#pragma unroll
-      for (int m = 0; m < kTM; ++m) {
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) acc[m][c] = fmaf(rb[m], rx[c], acc[m][c]);
+        for (int v = 0; v < V; ++v) {
+          acc[4 * j][v] = fmaf(wv.x, x[v], acc[4 * j][v]);
+          acc[4 * j + 1][v] = fmaf(wv.y, x[v], acc[4 * j + 1][v]);
+          acc[4 * j + 2][v] = fmaf(wv.z, x[v], acc[4 * j + 2][v]);
+          acc[4 * j + 3][v] = fmaf(wv.w, x[v], acc[4 * j + 3][v]);
+        }
       }
     }
-    __syncthreads();
-  }
-
 #pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int gi = row0 + ty + 16 * m;
-    if (gi >= I) continue;
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) {
-      const int gb = col0 + tx + 16 * c;
-      if (gb < Bd) Pn[(int64_t)gi * Bd + gb] = from_f32<T>(acc[m][c]);
+    for (int kk = 0; kk < kBlendK; ++kk) {
+      if (k0 + kk < L2) store_v<V>(dst + (k0 + kk) * step, acc[kk]);
     }
   }
 }
 
 template <typename T>
-int launch(const float* w, const T* B, const T* W, float* blended, T* P,
-           int G, int L2, int L1, int E, int I, int A, int Bd,
-           cudaStream_t stream) {
-  cudaError_t err = launch_blend<T, float>(w, W, blended, G, L2, L1, E,
-                                           (int64_t)A * Bd, stream);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Bd + kBN - 1) / kBN, (I + kBM - 1) / kBM, G * L2 * E);
-  expand_kernel<T><<<grid, kThreads, 0, stream>>>(B, blended, P, I, A, Bd);
+int launch(const float* w, const T* B, const T* W, __nv_bfloat16* Wt,
+           float* U, T* P, int G, int L2, int L1, int E, int I, int A,
+           int Bd, int route, cudaStream_t stream) {
+  const int Z = G * L1 * E;                  // (g, l, e) batch
+  const int64_t slab = (int64_t)I * Bd;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if (route != 0 && (route != 1 || !kBf16)) {
+    return (int)cudaErrorNotSupported;
+  }
+  // the blend stages w[g] transposed, its k padded to Lp; refused before
+  // anything launches where it would not fit
+  const int Lp = (L2 + kBlendK - 1) / kBlendK * kBlendK;
+  const size_t smem = (size_t)L1 * Lp * sizeof(float);
+  if (smem > kBlendSmem) return (int)cudaErrorInvalidValue;
+
+  // 1. U[z] (I x Bd) = B (I x A) W[z] (A x Bd), f32: K2's product U
+  if constexpr (kBf16) {
+    if (route == 1) {
+      // both maps before the first launch: a map TMA cannot take returns
+      // its error with nothing launched
+      CUtensorMap mx, my;
+      int e = make_map(&mx, B, A, I, 1);     // X = B
+      if (e != 0) return e;
+      e = make_map(&my, Wt, A, Bd, Z);       // Y = W^T
+      if (e != 0) return e;
+      const cudaError_t err = transpose(W, Wt, Z, A, Bd, stream);
+      if (err != cudaSuccess) return (int)err;
+      TcArgs gu;
+      gu.M = I; gu.N = Bd; gu.K = A; gu.R = 1; gu.S = 1;
+      gu.xz = 0; gu.xr = 0; gu.yz = 1; gu.yr = 0;
+      gu.ldc = Bd; gu.sCz = slab;
+      e = tc_gemm<kProdK1U>(mx, my, U, gu, Z, stream);
+      if (e != 0) return e;
+    }
+  }
+  if (route == 0) {
+    GemmArgs gu;
+    gu.M = I; gu.N = Bd; gu.K = A; gu.R = 1; gu.S = 1;
+    gu.sAm = A; gu.sAk = 1; gu.sAz = 0; gu.sAr = 0;
+    gu.sBk = Bd; gu.sBn = 1; gu.sBz = (int64_t)A * Bd; gu.sBr = 0;
+    gu.ldc = Bd; gu.sCz = slab;
+    const cudaError_t err = fma_gemm<kProdK1U>(B, W, U, gu, Z, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  // 2. P = w . U over the layer axis l; 4-wide where the rows allow it
+  if (aligned4(U) && aligned4(P) && slab % 4 == 0) {
+    const dim3 grid((unsigned)((slab / 4 + kThreads - 1) / kThreads), G * E);
+    k1_blend_kernel<T, 4><<<grid, kThreads, smem, stream>>>(w, U, P, L2, L1,
+                                                            E, slab);
+  } else {
+    const dim3 grid((unsigned)((slab + kThreads - 1) / kThreads), G * E);
+    k1_blend_kernel<T, 1><<<grid, kThreads, smem, stream>>>(w, U, P, L2, L1,
+                                                            E, slab);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -149,27 +183,34 @@ int launch(const float* w, const T* B, const T* W, float* blended, T* P,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (for B, W and P). Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (for B, W and P). w is (G, L2, L1) f32.
+// route: 0 runs U = B W on the FMA GEMM, 1 on the tensor-core GEMM (bf16
+// only; the caller has checked that I, A and Bd are multiples of 8 and put B
+// and W on 16-byte boundaries). Scratch, allocated by the caller: on route 1
+// Wt (G, L1, E, Bd, A) bf16; U (G, L1, E, I, Bd) f32. Returns 0, a
+// cudaError_t (cudaErrorInvalidValue, with nothing launched, where the
+// blend's staged w, L1 * ceil(L2 / 24) * 24 * 4 bytes, exceeds 48 KB), or a
+// value >= kErrTensorMap - 1 for a failed tensor-map encode.
 int ligo_blend_expand_grouped(const void* w, const void* B, const void* W,
-                              void* blended, void* P, int G, int L2, int L1,
-                              int E, int I, int A, int Bd, int dtype,
-                              void* stream) {
+                              void* Wt, void* U, void* P, int G, int L2,
+                              int L1, int E, int I, int A, int Bd, int route,
+                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return launch<__nv_bfloat16>(
         static_cast<const float*>(w), static_cast<const __nv_bfloat16*>(B),
-        static_cast<const __nv_bfloat16*>(W), static_cast<float*>(blended),
-        static_cast<__nv_bfloat16*>(P), G, L2, L1, E, I, A, Bd, s);
+        static_cast<const __nv_bfloat16*>(W),
+        static_cast<__nv_bfloat16*>(Wt), static_cast<float*>(U),
+        static_cast<__nv_bfloat16*>(P), G, L2, L1, E, I, A, Bd, route, s);
   }
   return launch<float>(static_cast<const float*>(w),
                        static_cast<const float*>(B),
                        static_cast<const float*>(W),
-                       static_cast<float*>(blended), static_cast<float*>(P), G,
-                       L2, L1, E, I, A, Bd, s);
+                       static_cast<__nv_bfloat16*>(Wt),
+                       static_cast<float*>(U), static_cast<float*>(P), G, L2,
+                       L1, E, I, A, Bd, route, s);
 }
 
-const char* ligo_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* ligo_cuda_error_string(int err) { return error_text(err); }
 
 }  // extern "C"

@@ -9,8 +9,9 @@ and ``U = B W``, and ``dw = Σ ⟨dP, U⟩`` by chunks; every sum in one fixed
 order, no float atomics; the source says why and what bounds it. The three
 products run on a TMA + ``wgmma`` tensor-core GEMM for bf16 at widths that
 are multiples of 8 (:func:`tensor_core_route`), on an f32 FMA GEMM
-otherwise. It replaces the Pallas kernel ``repro/kernels/
-ligo_expand_bwd.py::ligo_blend_expand_bwd_fused``. The plain version is
+otherwise: the GEMM core it shares with K1 (``csrc/ligo_gemm.cuh``). It
+replaces the Pallas kernel ``repro/kernels/ligo_expand_bwd.py::
+ligo_blend_expand_bwd_fused``. The plain version is
 :func:`repro_torch.kernels.ref.ligo_blend_expand_bwd_ref`.
 
 ``LAUNCHES`` counts the calls of this wrapper that launched the kernel: a
@@ -24,13 +25,11 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _gemm
+from repro_torch.kernels._gemm import tensor_core_route, tma_aligned
 
 LAUNCHES = 0
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535
 _SMS = 132                 # H100 SXM; the dB split aims at two blocks per SM
-_TILE = 128                # output tile edge of the GEMM kernels
 _DW_SMEM = 48 * 1024       # bytes of U a dw-partial block stages
 
 
@@ -50,22 +49,8 @@ def db_splits(I: int, A: int, n: int) -> int:
     """Contiguous parts of the ``n = G·L1·E`` contraction that the dB GEMM
     runs as separate blocks: enough for ~2 blocks per SM when the (I, A)
     tile grid alone is smaller, never more than ``n``."""
-    tiles = -(-I // _TILE) * -(-A // _TILE)
+    tiles = -(-I // _gemm.TILE) * -(-A // _gemm.TILE)
     return max(1, min(n, -(-2 * _SMS // tiles)))
-
-
-def tensor_core_route(dtype: torch.dtype, I: int, A: int, Bd: int) -> bool:
-    """Whether products 2-4 run on the tensor-core GEMM (else the FMA one):
-    bf16, and I, A and Bd multiples of 8 — TMA's 16-byte rule for row
-    strides. Its rule for base addresses is :func:`tma_aligned`'s."""
-    return (dtype == torch.bfloat16 and I % 8 == 0 and A % 8 == 0
-            and Bd % 8 == 0)
-
-
-def tma_aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x``, or a copy of it on a 16-byte boundary (TMA's rule for base
-    addresses) where ``x`` is a view that starts off one."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def dw_chunk(L1: int) -> int:
@@ -89,8 +74,10 @@ def ligo_blend_expand_bwd(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
             and dP.device == W.device):
         raise ValueError(f"K2 needs w, B, W, dP on one CUDA device; got "
                          f"{w.device}, {B.device}, {W.device}, {dP.device}")
-    if B.dtype not in _DTYPES or W.dtype != B.dtype or dP.dtype != B.dtype:
-        raise TypeError(f"K2 takes B, W and dP in one of {list(_DTYPES)}; got "
+    if (B.dtype not in _gemm.DTYPES or W.dtype != B.dtype
+            or dP.dtype != B.dtype):
+        raise TypeError(f"K2 takes B, W and dP in one of "
+                        f"{list(_gemm.DTYPES)}; got "
                         f"B {B.dtype}, W {W.dtype}, dP {dP.dtype}")
     if w.dim() != 3 or B.dim() != 2 or W.dim() != 5 or dP.dim() != 5:
         raise ValueError(f"K2 shapes: w (G,L2,L1), B (I,A), W (G,L1,E,A,Bd), "
@@ -107,9 +94,9 @@ def ligo_blend_expand_bwd(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
     if min(G, L2, L1, E, I, A, Bd) < 1:
         raise ValueError(f"K2 takes no empty dim: w {tuple(w.shape)}, "
                          f"B {tuple(B.shape)}, W {tuple(W.shape)}")
-    if (G * L1 * E > _MAX_GRID_YZ or G > _MAX_GRID_YZ
+    if (G * L1 * E > _gemm.MAX_GRID_YZ or G > _gemm.MAX_GRID_YZ
             or 4 * L1 * dw_chunk(L1) > _DW_SMEM
-            or -(-max(I, A) // _TILE) > _MAX_GRID_YZ):
+            or -(-max(I, A) // _gemm.TILE) > _gemm.MAX_GRID_YZ):
         raise ValueError(f"K2 grid too large for G·L1·E={G * L1 * E}, "
                          f"L1={L1}, I={I}, A={A}")
     if not (B.is_contiguous() and W.is_contiguous() and dP.is_contiguous()):
@@ -141,7 +128,7 @@ def ligo_blend_expand_bwd(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
             Q.data_ptr(), U.data_ptr(), Bt.data_ptr(), Qt.data_ptr(),
             Wt.data_ptr(), dBpart.data_ptr(), dwpart.data_ptr(),
             dw.data_ptr(), dB.data_ptr(), dW.data_ptr(), G, L2, L1, E, I, A,
-            Bd, splits, chunk, int(route), _DTYPES[B.dtype], stream)
+            Bd, splits, chunk, int(route), _gemm.DTYPES[B.dtype], stream)
     if err != 0:
         msg = lib.ligo_bwd_error_string(err).decode()
         raise RuntimeError(f"K2 launch failed: CUDA error {err} ({msg})")

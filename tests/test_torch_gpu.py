@@ -7,9 +7,10 @@ Run on the card with:
 
 Shapes are those of ``chip_smoke.py``'s kernel phase: the six K1 groups of
 the gpt2-base -> gpt2-medium hot-grow in bf16 (K2, the backward, runs on the
-same groups in the LiGO phase), and a ragged f32 shape; K2 also at an
-aligned ragged bf16 shape (its tensor-core GEMM) and an unaligned one (its
-FMA GEMM), and twice, to agree bit for bit; for K3, the
+same groups in the LiGO phase), a ragged f32 shape, a pinned f32 shape
+(I * Bd odd: the blends' scalar paths), an aligned ragged bf16
+shape (the tensor-core GEMM K1 and K2 share) and an unaligned one (their
+FMA GEMM); K1 and K2 each run twice there, to agree bit for bit; for K3, the
 gpt2-medium and llama3-8b prefills, a sliding window, bert-large's
 bidirectional shape, ragged and f32 shapes, and a bf16 dh the tensor-core
 kernel does not take.
@@ -29,7 +30,7 @@ from repro_torch.kernels import (flash_attention,  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
 # name, dtype, (G, L2, L1, E, I, A, Bd)
-K1_SHAPES = [
+LIGO_SHAPES = [
     ("wq", "bfloat16", (1, 24, 12, 1, 1024, 768, 768)),
     ("wk", "bfloat16", (1, 24, 12, 1, 1024, 768, 768)),
     ("wv", "bfloat16", (1, 24, 12, 1, 1024, 768, 768)),
@@ -37,14 +38,14 @@ K1_SHAPES = [
     ("mlp/w1", "bfloat16", (1, 24, 12, 1, 1024, 768, 3072)),
     ("mlp/w2", "bfloat16", (1, 24, 12, 1, 4096, 3072, 768)),
     ("ragged", "float32", (3, 5, 3, 2, 200, 50, 130)),
-]
-TOL = {"bfloat16": 1e-2, "float32": 1e-5}
-# K2 also at an aligned ragged bf16 shape (tensor-core GEMM, TMA's zero fill
-# at every edge) and an unaligned one (FMA GEMM)
-K2_SHAPES = K1_SHAPES + [
+    # I * Bd odd: the scalar paths of K1's and K2's blends
+    ("pinned", "float32", (1, 1, 1, 2, 1, 50, 45)),
+    # the tensor-core GEMM with TMA's zero fill at every edge, and an
+    # unaligned bf16 shape on the FMA GEMM
     ("aligned-ragged", "bfloat16", (2, 5, 3, 2, 200, 136, 72)),
     ("unaligned", "bfloat16", (2, 5, 3, 2, 200, 50, 130)),
 ]
+TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 # name, dtype, (B, H, KV, T, S, dh, causal, window)
 K3_SHAPES = [
@@ -71,8 +72,8 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,dtype,dims", K1_SHAPES,
-                         ids=[f"{n}-{d}" for n, d, _ in K1_SHAPES])
+@pytest.mark.parametrize("name,dtype,dims", LIGO_SHAPES,
+                         ids=[f"{n}-{d}" for n, d, _ in LIGO_SHAPES])
 def test_k1_kernel_matches_plain(cuda, name, dtype, dims):
     G, L2, L1, E, I, A, Bd = dims
     dt = getattr(torch, dtype)
@@ -80,16 +81,71 @@ def test_k1_kernel_matches_plain(cuda, name, dtype, dims):
     w = torch.randn((G, L2, L1), generator=gen, device=cuda) / L1 ** 0.5
     B = (torch.randn((I, A), generator=gen, device=cuda) / A ** 0.5).to(dt)
     W = torch.randn((G, L1, E, A, Bd), generator=gen, device=cuda).to(dt)
+    assert ligo_expand.tensor_core_route(dt, I, A, Bd) is (
+        dtype == "bfloat16" and name != "unaligned")
     ops.reset_launch_counts()
     got = ops.ligo_blend_expand_grouped(w, B, W)
     assert ops.launch_counts() == {"ligo_blend_expand_grouped": 1,
                                    "ligo_blend_expand_bwd_fused": 0,
                                    "flash_attention": 0}
     want = ref.ligo_blend_expand_grouped_ref(w, B, W)
+    again = ligo_expand.ligo_blend_expand_grouped(w, B, W)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     assert got.dtype == dt and got.shape == want.shape
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert float(err) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_k1_tensor_map_failure_raises(cuda, monkeypatch):
+    """A tensor map TMA cannot take (B's 100-byte rows, A = 50 forced onto
+    the tensor-core route) makes K1's wrapper raise: no fallback to the FMA
+    GEMM or to the plain version, and no launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    bf = torch.bfloat16
+    B = torch.randn((64, 50), generator=gen, device=cuda).to(bf)
+    w = torch.randn((1, 2, 2), generator=gen, device=cuda)
+    W = torch.randn((1, 2, 1, 50, 64), generator=gen, device=cuda).to(bf)
+    assert not ligo_expand.tensor_core_route(bf, 64, 50, 64)
+    monkeypatch.setattr(ligo_expand, "tensor_core_route", lambda *args: True)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        ligo_expand.ligo_blend_expand_grouped(w, B, W)
+    assert ops.launch_counts()["ligo_blend_expand_grouped"] == 0
+
+
+@pytest.mark.gpu
+def test_k1_misaligned_operands_match_aligned(cuda):
+    """B and W given as views 2 bytes off a 16-byte boundary still take the
+    tensor-core route (the wrapper copies them onto one) and give the same
+    bits as the same values on aligned storage."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    bf = torch.bfloat16
+    flat_B = torch.randn(64 * 64 + 1, generator=gen, device=cuda).to(bf)
+    flat_W = torch.randn(2 * 64 * 64 + 1, generator=gen, device=cuda).to(bf)
+    B, W = flat_B[1:].view(64, 64), flat_W[1:].view(1, 2, 1, 64, 64)
+    assert B.data_ptr() % 16 == 2 and W.data_ptr() % 16 == 2
+    w = torch.randn((1, 3, 2), generator=gen, device=cuda)
+    assert ligo_expand.tensor_core_route(bf, 64, 64, 64)
+    got = ligo_expand.ligo_blend_expand_grouped(w, B, W)
+    want = ligo_expand.ligo_blend_expand_grouped(w, B.clone(), W.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_k1_blend_shared_memory_limit_raises(cuda):
+    """The blend stages w[g] in 48 KB of shared memory: at L1 = 600 (57.6 KB
+    of staged w) the launcher refuses before anything launches, and the
+    wrapper raises with the error text."""
+    w = torch.randn((1, 24, 600), device=cuda)
+    B = torch.randn((8, 8), device=cuda)
+    W = torch.randn((1, 600, 1, 8, 8), device=cuda)
+    before = ligo_expand.LAUNCHES
+    with pytest.raises(RuntimeError, match="K1 launch failed"):
+        ligo_expand.ligo_blend_expand_grouped(w, B, W)
+    assert ligo_expand.LAUNCHES == before
 
 
 @pytest.mark.gpu
@@ -104,8 +160,8 @@ def test_k1_kernel_refuses_grad_and_mixed_dtypes(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,dtype,dims", K2_SHAPES,
-                         ids=[f"{n}-{d}" for n, d, _ in K2_SHAPES])
+@pytest.mark.parametrize("name,dtype,dims", LIGO_SHAPES,
+                         ids=[f"{n}-{d}" for n, d, _ in LIGO_SHAPES])
 def test_k2_kernel_matches_plain(cuda, name, dtype, dims):
     G, L2, L1, E, I, A, Bd = dims
     dt = getattr(torch, dtype)

@@ -1,6 +1,8 @@
-"""Kernels K1 and K2: their plain versions against the JAX package's Pallas
-kernels (in interpret mode) and einsum oracles, the CPU dispatch in ``ops``,
-and the differentiable ``ligo_blend_expand_grouped_vjp`` (gradcheck).
+"""Kernels K1 and K2: their plain versions and the launch schedules of the
+hand-written kernels against the JAX package's Pallas kernels (in interpret
+mode) and einsum oracles, the routes of the GEMM core they share, the CPU
+dispatch in ``ops``, and the differentiable ``ligo_blend_expand_grouped_vjp``
+(gradcheck).
 
 Tolerance: f32 throughout, ≤ 1e-5 scale-normalised (the
 ``assert_trees_close_normalized`` rule): only the summation order differs.
@@ -244,6 +246,87 @@ def test_k2_schedule_bf16_q_rounding(shape):
     for g, r in zip(got[1:], want[1:]):
         err = (g.float() - r).abs().max() / r.abs().max()
         assert float(err) <= 1e-2, float(err)
+
+
+def _k1_schedule(w, B, W):
+    """K1's launch sequence in plain torch, float32 accumulation: the
+    product U = B · (Wᵀ)ᵀ of every (g, l, e) slab over the K-major operand
+    Wᵀ that the tensor-core GEMM reads, in float32; the blend
+    P[g, k, e] = Σ_l w[g, k, l] U[g, l, e] over l in order, in float32; one
+    cast to B's dtype at the end."""
+    G, L2, L1 = w.shape
+    I, A = B.shape
+    E, Bd = W.shape[2], W.shape[4]
+    f = torch.float32
+    Wt = W.to(f).reshape(G * L1 * E, A, Bd).transpose(1, 2)   # (Z, Bd, A)
+    U = (B.to(f) @ Wt.transpose(1, 2)).reshape(G, L1, E, I, Bd)
+    P = torch.zeros((G, L2, E, I, Bd))
+    for l in range(L1):
+        P = P + w.to(f)[:, :, l, None, None, None] * U[:, l, None]
+    return P.to(B.dtype)
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_schedule_matches_plain_and_jax_kernel(shape):
+    """The expand-then-blend schedule K1 launches (U = B W over the L1
+    source layers, then the blend over l) against K1's plain version (which
+    blends first) and the JAX Pallas kernel in interpret mode, in float32:
+    only the order of the sums differs."""
+    w, B, W = _inputs(*shape)
+    got = _k1_schedule(*(torch.from_numpy(a) for a in (w, B, W)))
+    plain = ref.ligo_blend_expand_grouped_ref(
+        *(torch.from_numpy(a) for a in (w, B, W)))
+    want = jax_k1(jnp.asarray(w), jnp.asarray(B), jnp.asarray(W),
+                  interpret=True)
+    for r in (plain.numpy(), np.asarray(want)):
+        assert tuple(got.shape) == r.shape
+        assert_trees_close_normalized([got.numpy()], [r], rel=1e-5)
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_schedule_bf16_rounds_once(shape):
+    """In bf16 the schedule adds no rounding that the function's definition
+    lacks: the products of bf16 operands are exact in float32, U and the
+    blend stay in float32, and P is rounded once. So each entry of its bf16
+    result lies within half a bf16 ulp of the float32 plain version (the
+    error of rounding that result to bf16 once), plus a margin of 1e-5 of
+    the largest |P| for the float32 sums taken in another order, and the
+    whole is within the card's bf16 tolerance (1e-2 normalised)."""
+    bf = torch.bfloat16
+    w, B, W = _inputs(*shape, seed=6)
+    w = torch.from_numpy(w)
+    B, W = (torch.from_numpy(a).to(bf) for a in (B, W))
+    got = _k1_schedule(w, B, W)
+    assert got.dtype == bf
+    want = ref.ligo_blend_expand_grouped_ref(w, B.float(), W.float())
+    top = float(want.abs().max())
+    err = (got.float() - want).abs()
+    assert float(err.max()) / top <= 1e-2
+    _, exp = torch.frexp(want)           # |want| in [2^(exp-1), 2^exp)
+    half_ulp = torch.where(want == 0, torch.zeros(()),
+                           torch.ldexp(torch.ones_like(want), exp - 9))
+    once = (want.to(bf).float() - want).abs()
+    assert bool((once <= half_ulp).all())
+    excess = float((err - half_ulp).max()) / top
+    assert excess <= 1e-5, (excess, float(once.max()) / top)
+
+
+@pytest.mark.parametrize("dtype,dims,want", [
+    (torch.bfloat16, (1024, 768, 768), True),       # K1: wq, wk, wv, wo
+    (torch.bfloat16, (1024, 768, 3072), True),      # K1: mlp/w1
+    (torch.bfloat16, (4096, 3072, 768), True),      # K1: mlp/w2
+    (torch.float32, (200, 50, 130), False),         # K1: ragged f32
+    (torch.bfloat16, (200, 136, 72), True),         # K1: aligned ragged
+    (torch.bfloat16, (200, 50, 130), False),        # K1: unaligned
+])
+def test_k1_tensor_core_route(dtype, dims, want):
+    """K1 takes the route K2 would take at the same widths: one shared rule
+    for the GEMM core, held at K1's shapes on the card."""
+    assert ligo_expand.tensor_core_route is ligo_expand_bwd.tensor_core_route
+    assert ligo_expand.tma_aligned is ligo_expand_bwd.tma_aligned
+    assert ligo_expand.tensor_core_route(dtype, *dims) is want
 
 
 @pytest.mark.parametrize("dtype,dims,want", [
