@@ -19,7 +19,10 @@ sources are not beside it. Phases, each fatal on failure:
    bf16 shape must take the tensor-core GEMM, an unaligned bf16 shape and
    the float32 ones the FMA GEMM; and
    K3 (flash attention: the gpt2-medium and llama3-8b prefills, a sliding
-   window, bert-large's bidirectional shape, ragged and float32 shapes);
+   window, bert-large's bidirectional shape, ragged bf16 and float32 shapes
+   and unaligned bf16 rows; routes checked: bf16 at dh 64 and 128 with
+   aligned rows on the TMA + wgmma kernel, whose V^T pass and kernel are
+   also timed apart under the profiler, the rest on the FMA kernel);
 3. drive the serving path at full width through its entry point —
    gpt2-base initialised on the card, hot-grown to gpt2-medium, 8 prompts of
    128 tokens prefilled and 31 tokens decoded greedily — with the launch
@@ -33,7 +36,9 @@ sources are not beside it. Phases, each fatal on failure:
 3b. drive the serving path of llama3-8b at full width (32 layers, d 4096,
    GQA 32/8, random weights from the seed, no grow): 4 prompts of 2048
    tokens prefilled through K3 and 31 tokens decoded greedily, with the same
-   launch, logit and token checks;
+   launch, logit and token checks; then profile one warm prefill (every
+   layer's attention must show as a launch of the tensor-core kernel and of
+   its V^T pass, none of the FMA kernel);
 4. drive the training path at full width through its entry point —
    gpt2-base pretrained 2 AdamW steps, grown to gpt2-medium by 4 LiGO steps
    (K1 forward and K2 backward on every eligible group of every step), then
@@ -76,7 +81,13 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # (tests/test_kernels.py::test_flash_attention), elementwise
 # |kernel - plain| <= tol + tol |plain|.
 K3_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-# name, dtype, (B, H, KV, T, S, dh, causal, window)
+# name, dtype, (B, H, KV, T, S, dh, causal, window[, pad]): q, k and v are
+# made in the model's (B, T, heads, dh) layout, with `pad` more elements in
+# each row of the storage (default 0). bf16 at dh 64 and 128 with 16-byte
+# aligned rows takes the tensor cores (flash_fwd_wgmma), the rest the FMA
+# kernel. "bf16 ragged" puts T off the 128-row tile and T != S; "bf16 ragged
+# window" puts S off a multiple of 8 (the V^T pad and TMA's zero fill past
+# S); "bf16 unaligned rows" has 136-byte rows, so the FMA kernel.
 K3_SHAPES = [
     ("gpt2-medium prefill", "bfloat16", (8, 16, 16, 128, 128, 64, True, 0)),
     ("llama3-8b prefill", "bfloat16", (4, 32, 8, 2048, 2048, 128, True, 0)),
@@ -85,6 +96,9 @@ K3_SHAPES = [
     ("ragged", "float32", (2, 6, 2, 200, 328, 64, True, 0)),
     ("ragged window", "float32", (2, 6, 2, 200, 328, 64, True, 100)),
     ("gpt2-medium f32", "float32", (8, 16, 16, 128, 128, 64, True, 0)),
+    ("bf16 ragged", "bfloat16", (2, 6, 2, 200, 328, 128, True, 0)),
+    ("bf16 ragged window", "bfloat16", (2, 6, 2, 77, 333, 64, True, 100)),
+    ("bf16 unaligned rows", "bfloat16", (2, 6, 2, 200, 328, 64, True, 0, 4)),
 ]
 
 # K1's and K2's shapes besides the main path's six groups (gpt2-base ->
@@ -333,19 +347,43 @@ def _visible_pairs(T, S, causal, window):
     return sum(max(0, h - l) for h, l in zip(hi, lo))
 
 
-def _check_k3(torch, name, dtype, B, H, KV, T, S, dh, causal, window, seed):
+def _k3_device_ms(torch, fn, reps=3):
+    """Device ms per call of K3's two launches on the tensor-core route, from
+    ``torch.profiler``: {"transpose": the V^T pass, "kernel":
+    flash_fwd_wgmma}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {"transpose": 0.0, "kernel": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "k3_vt_transpose_kernel" in e.key:
+            ms["transpose"] += e.self_device_time_total / 1e3 / reps
+        elif "flash_fwd_wgmma" in e.key:
+            ms["kernel"] += e.self_device_time_total / 1e3 / reps
+    return ms
+
+
+def _check_k3(torch, name, dtype, B, H, KV, T, S, dh, causal, window, pad=0,
+              *, seed):
     """K3 against its plain version on the model's layout: q, k and v are
-    made as (B, T, heads, dh), as the model holds them, and handed in as
-    transposed views, as ``layers.full_attention`` does."""
+    made as (B, T, heads, dh), as the model holds them (``pad`` more
+    elements a row), and handed in as transposed views, as
+    ``layers.full_attention`` does."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, T, H, dh), generator=gen, device="cuda").to(dt)
-    k = torch.randn((B, S, KV, dh), generator=gen, device="cuda").to(dt)
-    v = torch.randn((B, S, KV, dh), generator=gen, device="cuda").to(dt)
-    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    q, k, v = (torch.randn((B, n, heads, dh + pad), generator=gen,
+                           device="cuda").to(dt)[..., :dh].transpose(1, 2)
+               for n, heads in ((T, H), (S, KV), (S, KV)))
     qpos = torch.arange(T, device="cuda")[:, None] + (S - T)
     kpos = torch.arange(S, device="cuda")[None, :]
     mask = torch.ones((T, S), dtype=torch.bool, device="cuda")
@@ -382,25 +420,31 @@ def _check_k3(torch, name, dtype, B, H, KV, T, S, dh, causal, window, seed):
     flops = 4 * B * H * dh * pairs
     nbytes = got.element_size() * (2 * B * H * T * dh + 2 * B * KV * S * dh)
     t_ops, t_bytes = flops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
-    reps = 3 if flops > 5e10 else 20
+    tc = flash_attention.uses_tensor_cores(q, k, v)
     row = {
         "shape": name, "dtype": dtype, "B": B, "H": H, "KV": KV, "T": T,
-        "S": S, "dh": dh, "causal": causal, "window": window,
-        "tensor_cores": flash_attention.uses_tensor_cores(q, k, v),
+        "S": S, "dh": dh, "causal": causal, "window": window, "pad": pad,
+        "tensor_cores": tc,
         "max_abs_err": max_abs, "max_norm_err": norm, "tol": tol,
-        "ms": _time_ms(torch, kernel, reps),
-        "plain_ms": _time_ms(torch, plain, reps),
-        "library_ms": _time_ms(torch, library, reps),
+        "ms": _time_ms(torch, kernel, 20),
+        "plain_ms": _time_ms(torch, plain, 3 if flops > 5e10 else 20),
+        "library_ms": _time_ms(torch, library, 20),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
     }
+    # the tensor-core route's two launches, each on its own
+    split = _k3_device_ms(torch, kernel) if tc else {}
+    row.update({f"{key}_ms": val for key, val in split.items()})
+    parts = (f" (V^T pass {split['transpose']:.4f}, kernel "
+             f"{split['kernel']:.4f} ms on the device)" if tc else "")
     print(f"[k3] {name:>20} {dtype:>8} B={B} H={H} KV={KV} T={T} S={S} "
-          f"dh={dh} causal={causal} window={window} "
-          f"({'mma.sync' if row['tensor_cores'] else 'fma'}): max abs err "
+          f"dh={dh} causal={causal} window={window} pad={pad} "
+          f"({'wgmma' if tc else 'fma'}): max abs err "
           f"{max_abs:.2e}, norm {norm:.2e} (tol {tol:.0e} + {tol:.0e}|plain|)"
-          f" | kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-          f"library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+          f" | kernel {row['ms']:.4f} ms{parts}, {row['gflop'] / row['ms']:.1f}"
+          f" TFLOP/s, plain {row['plain_ms']:.3f} ms, library "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
           f"ms ({row['bound_by']}; {row['gflop']:.2f} GFLOP) "
           f"{'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -600,10 +644,10 @@ def _profile(torch, label, fn):
           f"({100 * busy / wall:.0f} %), profiler on", flush=True)
     print(ev.table(sort_by="self_device_time_total", row_limit=12,
                    max_name_column_width=48), flush=True)
-    # K1's and K2's launches by kernel, full names: the table above cuts
-    # names short
+    # K1's, K2's and K3's launches by kernel, full names: the table above
+    # cuts names short
     for e in sorted((e for e in ev if e.device_type == DeviceType.CUDA
-                     and re.search(r"\b(k1_|k2_|ligo_)", e.key)),
+                     and re.search(r"\b(k1_|k2_|k3_|ligo_|flash_)", e.key)),
                     key=lambda e: -e.self_device_time_total):
         print(f"[profile] {label}: {e.self_device_time_total / 1e3:8.3f} ms "
               f"in {e.count:3d} launches of {e.key}", flush=True)
@@ -627,6 +671,25 @@ def _check_gemm_launches(label, ev, want):
         raise AssertionError(f"{label}: GEMM launches {got}, want {want} "
                              f"(every bf16 product on the tensor cores, none "
                              f"on the FMA pipes)")
+
+
+def _check_k3_launches(label, ev, n):
+    """The profile's K3 launches by kernel: ``n`` of the tensor-core kernel
+    and of its V^T pass, none of the FMA kernel."""
+    from torch.autograd import DeviceType
+    got = {"flash_fwd_wgmma": 0, "k3_vt_transpose_kernel": 0,
+           "flash_fwd_simt": 0}
+    for e in ev:
+        for name in got:
+            if e.device_type == DeviceType.CUDA and name in e.key:
+                got[name] += e.count
+    want = {"flash_fwd_wgmma": n, "k3_vt_transpose_kernel": n,
+            "flash_fwd_simt": 0}
+    print(f"[profile] {label}: K3 launches by kernel {got}, want {want}",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: K3 launches {got}, want {want} "
+                             f"(every layer on the tensor-core kernel)")
 
 
 def _profile_steps(torch, tres):
@@ -723,6 +786,13 @@ def main() -> int:
 
     k3_rows = [_check_k3(torch, name, dtype, *dims, seed=300 + i)
                for i, (name, dtype, dims) in enumerate(K3_SHAPES)]
+    routes = [r["tensor_cores"] for r in k3_rows]
+    want_routes = [r["dtype"] == "bfloat16" and r["dh"] in (64, 128)
+                   and r["pad"] == 0 for r in k3_rows]
+    if routes != want_routes:
+        raise AssertionError(f"K3 routes {routes}, want {want_routes}: bf16 "
+                             f"at dh 64 and 128 with aligned rows takes the "
+                             f"tensor cores, the rest the FMA kernel")
 
     # -- phase 3: the serving main path at full width ------------------------
     ops.reset_launch_counts()
@@ -807,10 +877,11 @@ def main() -> int:
           f"K3-route prefill | decode {lres['decode_tok_s']:.1f} tok/s | "
           f"phase {time.perf_counter() - t_llama:.1f} s", flush=True)
     with torch.no_grad():
-        _profile(torch, "llama3-8b prefill, K3 route",
-                 lambda: prefill(lres["params"], lres["cfg"],
-                                 {"tokens": lres["prompts"]}))
-    del lres
+        ev = _profile(torch, "llama3-8b prefill, K3 route",
+                      lambda: prefill(lres["params"], lres["cfg"],
+                                      {"tokens": lres["prompts"]}))
+    _check_k3_launches("llama3-8b prefill", ev, lres["cfg"].n_layers)
+    del lres, ev
     torch.cuda.empty_cache()
 
     # -- phase 4: the training main path at full width -----------------------

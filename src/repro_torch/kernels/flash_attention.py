@@ -2,12 +2,13 @@
 bidirectional; GQA without a KV repeat).
 
 q (B, H, T, dh); k, v (B, KV, S, dh) → o (B, H, T, dh) — the hand-written
-CUDA kernel in ``csrc/flash_attention.cu`` (one block per tile of query rows
-of one (b, h), m, l and the accumulator in registers, kv tiles outside the
-causal range or the window never visited; tensor cores through ``mma.sync``
-for bf16 at dh 64 and 128, f32 FMA otherwise; the source says why and what
-bounds it). It replaces the Pallas kernel ``repro/kernels/
-flash_attention.py::flash_attention``. The plain version is
+CUDA kernel in ``csrc/flash_attention.cu`` (one block per 128 query rows of
+one (b, h), m, l and the accumulator in registers, kv tiles outside the
+causal range or the window never visited; for bf16 at dh 64 and 128 the
+tensor cores through a TMA ring and ``wgmma``, after a pass that writes
+Vᵀ; f32 FMA otherwise; the source says why and what bounds it). It
+replaces the Pallas kernel ``repro/kernels/flash_attention.py::
+flash_attention``. The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
 The kernel reads q, k and v through their strides (the last dim must be
@@ -31,13 +32,14 @@ LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 128
 _MAX_GRID_YZ = 65535
+_TC_ROWS = 128   # query rows per block of the tensor-core kernel
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -49,11 +51,14 @@ def _lib() -> ctypes.CDLL:
 def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                       ) -> bool:
     """Whether the call runs the tensor-core kernel: bf16, dh 64 or 128, and
-    rows the kernel can read and write 16 bytes at a time (the output buffer
-    is the wrapper's own and always qualifies)."""
+    bases and row strides on 16-byte boundaries (TMA's rule for the tensor
+    maps over q and k, and the Vᵀ pass's for v; the output buffer is the
+    wrapper's own and always qualifies). A broadcast (stride 0) dim is no
+    layout a tensor map describes: it takes the FMA kernel. S takes any
+    value: the Vᵀ scratch is padded to a multiple of 8 keys."""
     def aligned(x):
         return (x.data_ptr() % 16 == 0
-                and all(s % 8 == 0 for s in x.stride()[:-1]))
+                and all(s > 0 and s % 8 == 0 for s in x.stride()[:-1]))
     return (q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
             and all(aligned(x) for x in (q, k, v)))
 
@@ -92,8 +97,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"the last k row); got T={T}, S={S}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if H > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
-        raise ValueError(f"K3 grid too large for H={H}, B={B}")
+    tc = uses_tensor_cores(q, k, v)
+    # grids: FMA (T/32, H, B); tensor cores (H, T/128, B), Vᵀ (S/64, dh/64,
+    # B·KV)
+    if max(H, B) > _MAX_GRID_YZ or (tc and max(-(-T // _TC_ROWS), B * KV)
+                                    > _MAX_GRID_YZ):
+        raise ValueError(f"K3 grid too large for H={H}, B={B}, KV={KV}, "
+                         f"T={T}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("K3 reads rows through strides: the last dim of q, "
                          "k and v must be contiguous")
@@ -105,14 +115,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     out = torch.empty((B, T, H, dh), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    # Vᵀ, the K-major operand of O += P V, keys padded to a multiple of 8
+    vt = torch.empty((B, KV, dh, -(-S // 8) * 8) if tc else (0,),
+                     dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), vt.data_ptr(),
+            out.data_ptr(),
             B, H, KV, T, S, dh, int(causal), int(window),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], _DTYPES[q.dtype],
-            int(uses_tensor_cores(q, k, v)), stream)
+            *out.stride()[:3], _DTYPES[q.dtype], int(tc), stream)
     if err != 0:
         msg = lib.flash_error_string(err).decode()
         raise RuntimeError(f"K3 launch failed: CUDA error {err} ({msg})")

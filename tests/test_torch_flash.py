@@ -7,12 +7,20 @@
 - The plain version against the port's chunked model attention after the
   ``(B, T, H, dh) <-> (B, H, T, dh)`` transpose (the twin of
   ``test_flash_matches_model_attention_layout``).
+- The tensor-core kernel's schedule (128-row blocks of two 64-row
+  warpgroups, 128-key tiles with TMA's zero fill past S, kv tiles outside
+  the causal range or window skipped, masks only on tiles that straddle an
+  edge, the exp2-domain online softmax with base 0 for a row that has seen
+  no key, P rounded to bf16 in bf16) in plain torch, against the JAX oracle
+  at the shapes above and at the card check's ragged bf16 shapes.
 - The route: on the CPU nothing launches K3, and asking for the kernel with
   CPU tensors raises.
 
 Tolerance: the JAX kernel test's, elementwise ``rtol = atol`` = 2e-5 in
 float32 and 2e-2 in bfloat16 (the output is rounded to bf16 on both sides).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +46,14 @@ FLASH_CASES = [
 RAGGED_CASES = [
     (2, 6, 2, 200, 328, 64, True, 0),
     (2, 6, 2, 200, 328, 64, True, 100),
+]
+# the ragged bf16 shapes of the card check (T off the 128-row block, S off
+# a multiple of 8) and ragged bidirectional ones, with and without a window
+KERNEL_CASES = [
+    (2, 6, 2, 200, 328, 128, True, 0),
+    (2, 6, 2, 77, 333, 64, True, 100),
+    (1, 4, 2, 77, 133, 64, False, 0),
+    (1, 4, 2, 130, 130, 64, False, 40),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -96,6 +112,75 @@ def test_plain_flash_matches_jax_oracle_ragged(case, dtype):
         tol)
 
 
+def _k3_schedule(q, k, v, causal, window, bk=128, rows=128):
+    """``flash_fwd_wgmma``'s loop in plain torch, float32: per block of
+    ``rows`` query rows, the kv tiles of ``bk`` keys from the first that a
+    row of the block can see to the last; per 64-row warpgroup with a row
+    below T, S = Q Kᵀ on K zero-filled past S, the mask only where the tile
+    straddles S, the causal diagonal or the window edge, and the online
+    softmax in the exp2 domain (base 0 while a row has seen no key), with P
+    rounded to q's dtype before P V."""
+    B, H, T, dh = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G, off = H // KV, S - T
+    sl = math.log2(math.e) / math.sqrt(dh)
+    n_keys = -(-S // bk) * bk
+    kp, vp = (torch.zeros((B, KV, n_keys, dh)) for _ in range(2))
+    kp[:, :, :S], vp[:, :, :S] = k.float(), v.float()
+    kp, vp = (x.repeat_interleave(G, dim=1) for x in (kp, vp))
+    out = torch.zeros((B, H, T, dh))
+    for q0 in range(0, T, rows):
+        r1 = min(q0 + rows, T) - 1
+        hi = min(S, r1 + off + 1) if causal else S
+        lo = max(0, q0 + off - window + 1) if window else 0
+        for r_lo in range(q0, r1 + 1, 64):
+            r_hi = min(r_lo + 63, T - 1)
+            qpos = torch.arange(r_lo, r_hi + 1)[:, None] + off
+            qq = q[:, :, r_lo:r_hi + 1].float()
+            m = torch.full(qq.shape[:3], -math.inf)
+            l = torch.zeros(qq.shape[:3])
+            acc = torch.zeros(qq.shape)
+            for k0 in range(lo // bk * bk, hi, bk):
+                s = qq @ kp[:, :, k0:k0 + bk].transpose(2, 3)
+                if (k0 + bk > S or (causal and k0 + bk - 1 > r_lo + off)
+                        or (window and k0 <= r_hi + off - window)):
+                    kpos = torch.arange(k0, k0 + bk)[None, :]
+                    vis = kpos < S
+                    if causal:
+                        vis = vis & (kpos <= qpos)
+                    if window:
+                        vis = vis & (kpos > qpos - window)
+                    s = s.masked_fill(~vis, -math.inf)
+                mn = torch.maximum(m, s.amax(-1))
+                base = torch.where(mn == -math.inf, 0.0, mn * sl)
+                corr = torch.exp2(m * sl - base)
+                p = torch.exp2(s * sl - base[..., None])
+                l = l * corr + p.sum(-1)
+                acc = (acc * corr[..., None]
+                       + p.to(q.dtype).float() @ vp[:, :, k0:k0 + bk])
+                m = mn
+            out[:, :, r_lo:r_hi + 1] = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES + KERNEL_CASES)
+def test_k3_schedule_matches_jax_oracle(case, dtype):
+    """The tensor-core kernel's schedule gives the JAX oracle's attention:
+    in float32 to the float32 tolerance (only the order of the sums
+    differs), in bf16 (P rounded to bf16, as the kernel feeds it to the
+    tensor cores) to the bf16 one."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(case, seed=6)
+    causal, window = case[6:]
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = _k3_schedule(q, k, v, causal, window)
+    assert got.dtype == tdt and got.shape == q.shape
+    _assert_close(got, jref.flash_attention_ref(
+        *(jnp.asarray(a, jdt) for a in arrays), causal=causal, window=window),
+        tol)
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
 def test_plain_flash_matches_model_attention_layout(causal, window):
     """Plain K3 (B,H,T,dh) vs the chunked model attention (B,T,H,dh)."""
@@ -146,13 +231,17 @@ def test_asking_for_k3_on_cpu_tensors_raises():
 def test_tensor_core_kernel_takes_bf16_aligned_rows_at_dh_64_and_128():
     """The wrapper's choice between K3's two CUDA kernels (pure shape and
     stride logic, so it runs here)."""
-    def qkv(dtype, dh, T=16):
+    def qkv(dtype, dh, T=16, S=16):
         q = torch.zeros((2, T, 4, dh), dtype=dtype).transpose(1, 2)
-        kv = torch.zeros((2, T, 2, dh), dtype=dtype).transpose(1, 2)
+        kv = torch.zeros((2, S, 2, dh), dtype=dtype).transpose(1, 2)
         return q, kv, kv
 
     assert tflash.uses_tensor_cores(*qkv(torch.bfloat16, 64))
     assert tflash.uses_tensor_cores(*qkv(torch.bfloat16, 128))
+    # any T and S: T off the kernel's 128-row tile, S off a multiple of 8
+    # (the wrapper pads the Vᵀ scratch, TMA reads only S keys of it)
+    assert tflash.uses_tensor_cores(*qkv(torch.bfloat16, 64, T=77, S=333))
+    assert tflash.uses_tensor_cores(*qkv(torch.bfloat16, 128, T=200, S=201))
     assert not tflash.uses_tensor_cores(*qkv(torch.float32, 128))
     assert not tflash.uses_tensor_cores(*qkv(torch.bfloat16, 48))
     q, k, v = qkv(torch.bfloat16, 64)
@@ -162,3 +251,8 @@ def test_tensor_core_kernel_takes_bf16_aligned_rows_at_dh_64_and_128():
     assert not tflash.uses_tensor_cores(q, shifted, v)
     odd = torch.zeros((2, 4, 16, 68), dtype=torch.bfloat16)[..., :64]
     assert not tflash.uses_tensor_cores(odd, k, v)
+    # a kv head broadcast over the batch (stride 0) takes the FMA kernel
+    shared = torch.zeros((1, 2, 16, 64), dtype=torch.bfloat16).expand(2, -1,
+                                                                      -1, -1)
+    assert shared.stride(0) == 0
+    assert not tflash.uses_tensor_cores(q, shared, shared)

@@ -12,8 +12,10 @@ same groups in the LiGO phase), a ragged f32 shape, a pinned f32 shape
 shape (the tensor-core GEMM K1 and K2 share) and an unaligned one (their
 FMA GEMM); K1 and K2 each run twice there, to agree bit for bit; for K3, the
 gpt2-medium and llama3-8b prefills, a sliding window, bert-large's
-bidirectional shape, ragged and f32 shapes, and a bf16 dh the tensor-core
-kernel does not take.
+bidirectional shape, ragged and f32 shapes, ragged bf16 shapes on the
+tensor-core kernel (T off its 128-row tile, S off a multiple of 8), bf16
+shapes it does not take (dh 48 and 32, rows of 136 and 264 bytes), and
+every body of the FMA kernel (8, 16 and 32 columns a thread, f32 and bf16).
 Tolerance (scale-normalised): 1e-2 for bf16, whose output is rounded once
 from an f32 sum on both sides; 1e-5 for f32 with TF32 off, where only the
 summation order differs. K2's ``dw`` is a long sum that cancels: its error
@@ -47,7 +49,8 @@ LIGO_SHAPES = [
 ]
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
-# name, dtype, (B, H, KV, T, S, dh, causal, window)
+# name, dtype, (B, H, KV, T, S, dh, causal, window[, pad]); ``pad`` more
+# elements in each row of the (B, T, heads, dh) storage (default 0)
 K3_SHAPES = [
     ("gpt2-medium", "bfloat16", (8, 16, 16, 128, 128, 64, True, 0)),
     ("llama3-8b", "bfloat16", (4, 32, 8, 2048, 2048, 128, True, 0)),
@@ -57,6 +60,14 @@ K3_SHAPES = [
     ("ragged-window", "float32", (2, 6, 2, 200, 328, 64, True, 100)),
     ("gpt2-medium", "float32", (8, 16, 16, 128, 128, 64, True, 0)),
     ("dh48-fma", "bfloat16", (2, 4, 2, 77, 77, 48, True, 0)),
+    ("bf16-ragged", "bfloat16", (2, 6, 2, 200, 328, 128, True, 0)),
+    ("bf16-ragged-window", "bfloat16", (2, 6, 2, 77, 333, 64, True, 100)),
+    ("bf16-unaligned-rows", "bfloat16", (2, 6, 2, 200, 328, 64, True, 0, 4)),
+    # the FMA kernel's bodies at 8 and 32 columns a thread (dh <= 32, > 64)
+    ("dh32-fma", "float32", (2, 4, 2, 77, 77, 32, True, 0)),
+    ("dh32-fma", "bfloat16", (2, 4, 2, 77, 77, 32, True, 0)),
+    ("dh128-fma", "float32", (2, 4, 2, 77, 140, 128, False, 0)),
+    ("dh128-unaligned-rows", "bfloat16", (2, 4, 2, 77, 140, 128, True, 0, 4)),
 ]
 K3_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
@@ -253,23 +264,26 @@ def test_vjp_backward_on_the_card_matches_plain_route(cuda):
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-5
 
 
-def _qkv(cuda, dtype, B, H, KV, T, S, dh, seed):
-    """q, k, v made in the model's (B, T, heads, dh) layout and handed over
-    as (B, heads, T, dh) views, as ``layers.full_attention`` does."""
+def _qkv(cuda, dtype, B, H, KV, T, S, dh, seed, pad=0):
+    """q, k, v made in the model's (B, T, heads, dh) layout (``pad`` more
+    elements a row) and handed over as (B, heads, T, dh) views, as
+    ``layers.full_attention`` does."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    q = torch.randn((B, T, H, dh), generator=gen, device=cuda).to(dtype)
-    k = torch.randn((B, S, KV, dh), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((B, S, KV, dh), generator=gen, device=cuda).to(dtype)
-    return tuple(x.transpose(1, 2) for x in (q, k, v))
+    return tuple(
+        torch.randn((B, n, heads, dh + pad), generator=gen, device=cuda)
+        .to(dtype)[..., :dh].transpose(1, 2)
+        for n, heads in ((T, H), (S, KV), (S, KV)))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,dtype,dims", K3_SHAPES,
                          ids=[f"{n}-{d}" for n, d, _ in K3_SHAPES])
 def test_k3_kernel_matches_plain(cuda, name, dtype, dims):
-    B, H, KV, T, S, dh, causal, window = dims
+    B, H, KV, T, S, dh, causal, window, *pad = dims
     dt = getattr(torch, dtype)
-    q, k, v = _qkv(cuda, dt, B, H, KV, T, S, dh, seed=3)
+    q, k, v = _qkv(cuda, dt, B, H, KV, T, S, dh, seed=3, pad=sum(pad))
+    assert flash_attention.uses_tensor_cores(q, k, v) is (
+        dtype == "bfloat16" and dh in (64, 128) and not pad)
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert ops.launch_counts()["flash_attention"] == 1
@@ -280,6 +294,38 @@ def test_k3_kernel_matches_plain(cuda, name, dtype, dims):
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= tol + tol * want.float().abs()).all()), \
         float(diff.max())
+
+
+@pytest.mark.gpu
+def test_k3_tensor_map_failure_raises(cuda, monkeypatch):
+    """A tensor map TMA cannot take (rows of 136 bytes, forced onto the
+    tensor-core route) makes K3's wrapper raise: no fallback to the FMA
+    kernel or to the plain version, and no launch counted."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 4, 2, 64, 64, 64, seed=9, pad=4)
+    assert not flash_attention.uses_tensor_cores(q, k, v)
+    monkeypatch.setattr(flash_attention, "uses_tensor_cores",
+                        lambda *args: True)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        flash_attention.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.gpu
+def test_k3_broadcast_kv_takes_the_fma_kernel(cuda):
+    """k and v broadcast over the batch (stride 0) are no layout a tensor
+    map describes: the call takes the FMA kernel and matches the plain
+    version."""
+    q = _qkv(cuda, torch.bfloat16, 2, 4, 2, 77, 140, 64, seed=10)[0]
+    _, k, v = _qkv(cuda, torch.bfloat16, 1, 4, 2, 77, 140, 64, seed=11)
+    k, v = (x.expand(2, -1, -1, -1) for x in (k, v))
+    assert not flash_attention.uses_tensor_cores(q, k, v)
+    got = flash_attention.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    tol = K3_TOL["bfloat16"]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol + tol * want.float().abs()).all())
 
 
 @pytest.mark.gpu
