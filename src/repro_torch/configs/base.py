@@ -153,6 +153,18 @@ class ModelConfig:
             total += attn_block(True)                      # shared attn block
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k experts only); for the
+        dense family, the port's, it is :meth:`param_count`."""
+        if not self.n_experts:
+            return self.param_count()
+        E, k, Fm, D = (self.n_experts, self.experts_top_k, self.moe_d_ff,
+                       self.d_model)
+        nm = 2 if self.act == "swiglu" else 1
+        per_expert = nm * D * Fm + Fm * D
+        n_moe = sum(1 for b in self.blocks if b == MOE)
+        return self.param_count() - n_moe * (E - k) * per_expert
+
     @property
     def mamba_heads(self) -> int:
         if self.ssm_heads:
@@ -175,10 +187,9 @@ class TrainConfig:
     The fields are the JAX package's. The port's trainer reads the schedule,
     AdamW, clip, ``microbatches`` and ``remat`` fields; ``seed``,
     ``ligo_*``, ``checkpoint_every`` and ``keep_checkpoints`` are kept for
-    parity and read by no code of the port yet (the launcher takes the seed
-    and the LiGO budget from its flags, and checkpoints come with a later
-    slice), and ``grad_compression`` belongs to the multi-chip trainer,
-    which is not ported.
+    parity (the launcher takes them from its flags), and
+    ``grad_compression`` belongs to the multi-chip trainer, which is not
+    ported.
     """
     seq_len: int = 128
     global_batch: int = 32

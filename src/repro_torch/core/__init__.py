@@ -1,12 +1,14 @@
 from repro_torch.core.grow import grow, ligo_loss, train_ligo
-from repro_torch.core.ligo import (apply_ligo, gamma_expand, init_ligo_params,
+from repro_torch.core.ligo import (apply_ligo, count_ligo_params,
+                                  gamma_expand, init_ligo_params,
                                   interp_pattern, resolve_expander,
                                   stack_pattern)
 from repro_torch.core.plan import (GrowthPlan, LeafGroup, compose_chain,
                                    compose_ligo, plan_for)
 from repro_torch.core.spec import check_growable, family_hop, width_dims
 
-__all__ = ["apply_ligo", "gamma_expand", "init_ligo_params", "interp_pattern",
-           "resolve_expander", "stack_pattern", "GrowthPlan", "LeafGroup",
-           "compose_chain", "compose_ligo", "plan_for", "check_growable",
-           "family_hop", "width_dims", "grow", "ligo_loss", "train_ligo"]
+__all__ = ["apply_ligo", "count_ligo_params", "gamma_expand",
+           "init_ligo_params", "interp_pattern", "resolve_expander",
+           "stack_pattern", "GrowthPlan", "LeafGroup", "compose_chain",
+           "compose_ligo", "plan_for", "check_growable", "family_hop",
+           "width_dims", "grow", "ligo_loss", "train_ligo"]

@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spec as S
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
@@ -186,6 +187,10 @@ def init_ligo_params(gen: torch.Generator, cfg1: ModelConfig,
                     for leaf in S.layer_spec(kind, cfg1, cfg2)}
              for kind in c1}
     return {"width": width, "depth": depth}
+
+
+def count_ligo_params(ligo: Params) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(ligo))
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ unnormalised direct-copy width when the widths differ), Net2Net (selection
 width with count-normalised fan-in) and bert2BERT-FPI (Net2Net width with
 the StackBERT depth pattern). Random selections come from a
 ``torch.Generator``, so they differ from the JAX package's draws for the
-same seed; their structure is the same. The LEMON and GQA-merge operators
-are not ported yet.
+same seed; their structure is the same. The LEMON operator (zero-padded
+identity) is deterministic and matches the JAX package's exactly. The
+GQA-merge operator is not ported yet.
 """
 from __future__ import annotations
 
@@ -123,3 +124,57 @@ def bert2bert_operator(gen: Optional[torch.Generator], cfg1: ModelConfig,
                        cfg2: ModelConfig, *, device="cuda") -> Dict:
     """bert2BERT (FPI): Net2Net width + StackBERT depth (Chen et al. 2021)."""
     return net2net_operator(gen, cfg1, cfg2, depth="stack", device=device)
+
+
+def lemon_operator(cfg1: ModelConfig, cfg2: ModelConfig, *,
+                   device="cuda") -> Dict:
+    """LEMON-style lossless zero-pad expansion ``[I; 0]`` (Wang et al.
+    2023): every width expander is the zero-padded identity, so new heads
+    and neurons compute exactly 0 and the grown model is bitwise the same
+    function.
+
+    Losslessness needs equal ``d_model`` (norm denominators), equal
+    ``d_head`` (RoPE and the 1/sqrt(d_head) scale act per head), equal
+    ``n_layers`` (depth blends are the identity), and MHA on both sides
+    when heads grow (under GQA ``wo``'s in-expander averages query heads
+    within a kv group). Breaking any of them is an error.
+    """
+    S.check_growable(cfg1, cfg2)
+    if cfg1.d_model != cfg2.d_model:
+        raise ValueError("lemon_operator: d_model must match "
+                         f"({cfg1.d_model} vs {cfg2.d_model}) — residual "
+                         "widening changes norm denominators")
+    if cfg1.d_head != cfg2.d_head:
+        raise ValueError("lemon_operator: d_head must match "
+                         f"({cfg1.d_head} vs {cfg2.d_head})")
+    if cfg1.n_layers != cfg2.n_layers:
+        raise ValueError("lemon_operator: depth growth is not lossless "
+                         f"({cfg1.n_layers} vs {cfg2.n_layers} layers); "
+                         "grow depth separately and re-prefill")
+    heads_grow = (cfg1.n_heads != cfg2.n_heads
+                  or cfg1.n_kv_heads != cfg2.n_kv_heads)
+    if heads_grow and not (cfg1.n_heads == cfg1.n_kv_heads
+                           and cfg2.n_heads == cfg2.n_kv_heads):
+        raise ValueError("lemon_operator: head growth is lossless only for "
+                         "MHA (n_kv_heads == n_heads on both sides)")
+    dev = resolve_device(device)
+    d1s, d2s = S.width_dims(cfg1), S.width_dims(cfg2)
+    # eye(d2, d1) is [I; 0]: zero rows kill new out-features, zero in-rows
+    # drop the (all-zero) new in-features
+    width = {n: torch.eye(d2s[n], d1s[n], device=dev) for n in d2s}
+
+    def identity(L2, L1, device):
+        return torch.eye(L1, device=device)
+    return {"width": width, "depth": _depth(cfg1, cfg2, identity, dev)}
+
+
+def direct_depth_map(stack_params, pattern_idx) -> Dict:
+    """``new_stack[i] = stack[pattern_idx[i]]``: direct layer rearrangement
+    (the oracle of the Prop.-1 equality tests)."""
+    def take(a):
+        return a[torch.as_tensor(pattern_idx, dtype=torch.long,
+                                 device=a.device)]
+    if isinstance(stack_params, dict):
+        return {k: direct_depth_map(v, pattern_idx)
+                for k, v in stack_params.items()}
+    return take(stack_params)

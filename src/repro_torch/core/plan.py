@@ -10,7 +10,10 @@ fixes, ahead of time:
 3. a min-FLOP contraction order per group (:func:`_best_order`), and whether
    the group may run on kernel K1, the fused depth-blend + left-expansion,
    with kernel K2 as its backward
-   (:func:`repro_torch.kernels.ops.ligo_blend_expand_grouped_vjp`).
+   (:func:`repro_torch.kernels.ops.ligo_blend_expand_grouped_vjp`); on that
+   route, whether the group's right expansion runs before K1, on the L1
+   source layers, or after it, on the L2 target layers, whichever needs
+   fewer operations.
 
 Kernel eligibility. The JAX package gates its fused path on
 ``fused_vmem_bytes``: the resident VMEM state of its *backward* TPU kernel
@@ -45,7 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spec as S
 from repro_torch.core.ligo import (_flatten, _kind_counts, _unflatten,
                                    resolve_expander)
-from repro_torch.kernels import ops
+from repro_torch.kernels import ligo_expand, ops
 
 ExprRef = Tuple[Any, str]          # (hashable expr key, role) — plan.exprs key
 
@@ -87,6 +90,7 @@ class LeafGroup:
     vec: bool                      # per-layer vector leaf (out-expander only)
     order: Tuple[str, ...]         # op sequence drawn from {in, out, blend}
     kernel_ok: bool                # may run on kernels K1 and K2
+    out_first: bool = False        # K1 route: right expansion before K1
 
 
 def _best_order(ops_present, L1: int, L2: int, extra: int, a: int, b: int,
@@ -140,8 +144,16 @@ def _plan_group(kind: str, stacked: bool, paths, shape, in_e, out_e,
     order = _best_order(ops_present, L1, L2, extra, a, b, i, j)
     kernel_ok = (blended and in_e is not None and len(shape) in (3, 4)
                  and min(L1, L2, extra, i, a, b) >= 1)
+    out_first = False
+    if kernel_ok and out_e is not None:
+        # expanding b -> j before K1 costs L1·a·b·j and widens K1's slabs
+        # to j; after K1 it costs L2·i·b·j
+        k1 = functools.partial(ligo_expand.operation_count, 1, L2, L1,
+                               extra, i, a)
+        out_first = (2 * extra * L1 * a * b * j + k1(j)
+                     < k1(b) + 2 * extra * L2 * i * b * j)
     return LeafGroup(kind, stacked, tuple(paths), tuple(shape), in_ref,
-                     out_ref, False, order, kernel_ok)
+                     out_ref, False, order, kernel_ok, out_first)
 
 
 class GrowthPlan:
@@ -198,11 +210,14 @@ class GrowthPlan:
         return X
 
     @staticmethod
-    def _run_group_fused(X: torch.Tensor, E_in, E_out, w_g):
+    def _run_group_fused(g: LeafGroup, X: torch.Tensor, E_in, E_out, w_g):
         """Blend + left-expand for the *whole group* in one K1 launch (the G
         leaves and any MoE expert dim E are the kernel's batch); the right
-        expansion is a plain matmul on the kernel's output. Differentiable
-        in ``w_g``, ``E_in`` and ``X``: the backward is one K2 launch."""
+        expansion is a plain matmul on K1's input or on its output, as
+        ``g.out_first`` says. Differentiable in ``w_g``, ``E_in``, ``E_out``
+        and ``X``: the backward is one K2 launch."""
+        if E_out is not None and g.out_first:
+            X, E_out = GrowthPlan._expand_out(X, E_out), None
         moe = X.dim() == 5                     # (G, L1, E, a, b) expert stack
         Xg = X if moe else X[:, :, None]       # insert E=1 for plain leaves
         P = ops.ligo_blend_expand_grouped_vjp(
@@ -252,7 +267,7 @@ class GrowthPlan:
             E_out = table[g.out_ref] if g.out_ref is not None else None
             X = leaves[0][None] if len(leaves) == 1 else torch.stack(leaves)
             if use_kernel and g.kernel_ok and w_g is not None:
-                out = self._run_group_fused(X, E_in, E_out, w_g)
+                out = self._run_group_fused(g, X, E_in, E_out, w_g)
             else:
                 out = self._run_group(g, X, E_in, E_out, w_g)
             dst = grown_stacks[g.kind] if g.kind else grown_top

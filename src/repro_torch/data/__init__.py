@@ -1,3 +1,6 @@
-from repro_torch.data.synthetic import batch_for_step, gen_tokens, optimal_loss
+from repro_torch.data.pipeline import GlobalBatchLoader
+from repro_torch.data.synthetic import (batch_for_step, data_iterator,
+                                        gen_tokens, optimal_loss)
 
-__all__ = ["batch_for_step", "gen_tokens", "optimal_loss"]
+__all__ = ["GlobalBatchLoader", "batch_for_step", "data_iterator",
+           "gen_tokens", "optimal_loss"]

@@ -8,7 +8,7 @@ regenerates exactly the same global batch for a given step.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -80,3 +80,12 @@ def batch_for_step(cfg, step: int, batch: int, seq: int, *, seed: int = 0,
         tokens = np.where(mask, cfg.vocab_size - 1, tokens)  # [MASK] id
         return {"tokens": tokens, "mask": mask, "labels": labels}
     raise ValueError(cfg.objective)
+
+
+def data_iterator(cfg, batch: int, seq: int, *, seed: int = 0,
+                  start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Host batches of consecutive steps from ``start_step`` on."""
+    step = start_step
+    while True:
+        yield batch_for_step(cfg, step, batch, seq, seed=seed)
+        step += 1

@@ -40,6 +40,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def operation_count(G: int, L2: int, L1: int, E: int, I: int, A: int,
+                    Bd: int) -> int:
+    """The fewest operations K1's function needs: the lesser of
+    blend-then-expand (the fused order, L2 expansions) and
+    expand-then-blend (K1's own order: L1 expansions, then the blend in the
+    large space). K1's bound and the measured-cost pass count this."""
+    fused = 2 * G * E * L2 * (L1 * A * Bd + I * A * Bd)
+    own = 2 * G * E * (L1 * I * A * Bd + L2 * L1 * I * Bd)
+    return min(fused, own)
+
+
 def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
                               W: torch.Tensor) -> torch.Tensor:
     """w: (G, L2, L1); B: (I, A); W: (G, L1, E, A, Bd) → (G, L2, E, I, Bd).

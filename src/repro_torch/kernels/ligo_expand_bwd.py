@@ -45,6 +45,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def operation_count(G: int, L2: int, L1: int, E: int, I: int, A: int,
+                    Bd: int) -> int:
+    """The fewest operations K2's function needs: the lesser of the fused
+    order (T over all L2 layers, dB against the blended slabs) and K2's own
+    order, which blends dP over k first (three L1-batched products plus the
+    blend and the dw contraction). K2's bound and the measured-cost pass
+    count this."""
+    fused = (2 * 2 * G * E * L2 * I * A * Bd
+             + 3 * 2 * G * E * L2 * L1 * A * Bd)
+    own = 3 * 2 * G * E * L1 * I * A * Bd + 2 * 2 * G * E * L2 * L1 * I * Bd
+    return min(fused, own)
+
+
 def db_splits(I: int, A: int, n: int) -> int:
     """Contiguous parts of the ``n = G·L1·E`` contraction that the dB GEMM
     runs as separate blocks: enough for ~2 blocks per SM when the (I, A)

@@ -18,13 +18,22 @@ of every forward that records no autograd graph, see
 :func:`launch_counts` reads the kernels' plain-integer launch counters (the
 port's stand-in for the JAX package's ``LAUNCH_COUNTS``) and
 :func:`reset_launch_counts` sets them to 0.
+
+K1 and K2 are registered as the custom operators
+``torch.ops.repro_torch.ligo_blend_expand_grouped`` and
+``torch.ops.repro_torch.ligo_blend_expand_bwd_fused``, each with a fake
+(shape-only) implementation and its operation count as a
+``torch.utils.flop_counter`` formula: the measured-cost pass
+(:mod:`repro_torch.obs.costs`) runs a step on fake tensors under
+``FlopCounterMode`` and counts the kernels' work without launching them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import (flash_attention as _flash,
                                  ligo_expand, ligo_expand_bwd, ref)
@@ -41,6 +50,56 @@ def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
     return ref.ligo_blend_expand_grouped_ref(w, B, W)
 
 
+def _dims(w, B, W):
+    """(G, L2, L1, E, I, A, Bd) of K1's operands, given as tensors or, as
+    a flop formula gets them, as shapes."""
+    (G, L2, L1), (I, A), Ws = (tuple(getattr(x, "shape", x))
+                               for x in (w, B, W))
+    return G, L2, L1, Ws[2], I, A, Ws[4]
+
+
+@torch.library.custom_op("repro_torch::ligo_blend_expand_grouped",
+                         mutates_args=())
+def _k1(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Kernel K1 (raises on tensors that are not on CUDA)."""
+    return ligo_expand.ligo_blend_expand_grouped(w, B, W)
+
+
+@_k1.register_fake
+def _k1_fake(w, B, W):
+    G, L2, _, E, I, _, Bd = _dims(w, B, W)
+    return W.new_empty((G, L2, E, I, Bd))
+
+
+@register_flop_formula(torch.ops.repro_torch.ligo_blend_expand_grouped)
+def _k1_flops(w, B, W, *args, **kwargs) -> int:
+    return ligo_expand.operation_count(*_dims(w, B, W))
+
+
+@torch.library.custom_op("repro_torch::ligo_blend_expand_bwd_fused",
+                         mutates_args=())
+def _k2(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
+        dP: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K2: dw (float32), dB, dW (raises off CUDA)."""
+    return ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
+
+
+@_k2.register_fake
+def _k2_fake(w, B, W, dP):
+    return (w.new_empty(w.shape, dtype=torch.float32), torch.empty_like(B),
+            torch.empty_like(W))
+
+
+@register_flop_formula(torch.ops.repro_torch.ligo_blend_expand_bwd_fused)
+def _k2_flops(w, B, W, dP, *args, **kwargs) -> int:
+    return ligo_expand_bwd.operation_count(*_dims(w, B, W))
+
+
+#: the custom operators of the kernels, as ``FlopCounterMode`` keys them
+KERNEL_OPS = (torch.ops.repro_torch.ligo_blend_expand_grouped,
+              torch.ops.repro_torch.ligo_blend_expand_bwd_fused)
+
+
 class _BlendExpandGrouped(torch.autograd.Function):
     """K1 forward and K2 backward, or both plain versions (``plain``)."""
 
@@ -52,7 +111,7 @@ class _BlendExpandGrouped(torch.autograd.Function):
         w, B, W = w.detach(), B.detach(), W.detach()
         if plain:
             return ref.ligo_blend_expand_grouped_ref(w, B, W)
-        return ligo_expand.ligo_blend_expand_grouped(w, B, W)
+        return _k1(w, B, W)
 
     @staticmethod
     @once_differentiable
@@ -63,7 +122,7 @@ class _BlendExpandGrouped(torch.autograd.Function):
         if ctx.plain:
             dw, dB, dW = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
         else:
-            dw, dB, dW = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
+            dw, dB, dW = _k2(w, B, W, dP)
             dw = dw.to(w.dtype)
         need = ctx.needs_input_grad
         return (dw if need[0] else None, dB if need[1] else None,
@@ -82,8 +141,9 @@ def ligo_blend_expand_grouped_vjp(w: torch.Tensor, B: torch.Tensor,
     versions on any device; ``True`` asks for the kernels, which raise on
     CPU tensors.
     """
-    plain = (not W.is_cuda) if use_kernel is None else not use_kernel
-    return _BlendExpandGrouped.apply(w, B, W, plain)
+    if use_kernel is None:
+        use_kernel = W.is_cuda
+    return _BlendExpandGrouped.apply(w, B, W, not use_kernel)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,12 +16,19 @@ is kernel K3. Without ``--grow-to`` the model is served as initialised, e.g.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --batch 4 --prompt-len 2048 --gen 32
 
+``--ckpt DIR`` serves the newest checkpoint in DIR (the ``params`` of a
+trainer or trajectory checkpoint, or a bare parameter tree) in place of
+the random init, e.g. the end of a trajectory::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-medium \\
+        --ckpt ckpt --batch 8 --prompt-len 128 --gen 32
+
 The run reports hot-grow ms, prefill ms, decode tok/s and the K1 and K3
 launches.
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when there is no
-CUDA device and no ``--device cpu``. The live engine, checkpoints, meshes,
-observability, the ledger and speculative decoding come with later slices.
+CUDA device and no ``--device cpu``. The live engine, meshes,
+observability and speculative decoding come with later slices.
 """
 from __future__ import annotations
 
@@ -107,6 +114,26 @@ def hot_grow(params, cfg, target: str, *, smoke: bool = False, seed: int = 1,
     return grown, cfg2, {"ligo": ligo, "ms": ms, "k1_launches": k1}
 
 
+def _restore_ckpt(ckpt_dir: str, cfg, dev):
+    """The parameters of the newest checkpoint in ``ckpt_dir``, on ``dev``:
+    ``params`` of a ``{"params", "opt"}`` checkpoint (the optimizer state
+    is not read into the tree), or a bare parameter tree."""
+    from repro_torch.checkpoint import CheckpointManager
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise SystemExit(f"--ckpt {ckpt_dir}: no checkpoint found")
+    tmpl = init_params(cfg, torch.Generator().manual_seed(0), device="meta")
+    try:
+        tree, _ = mgr.restore(step, {"params": tmpl}, dev)
+        params = tree["params"]
+    except KeyError:
+        params, _ = mgr.restore(step, tmpl, dev)
+    print(f"[serve] restored step-{step} checkpoint from {ckpt_dir} for "
+          f"{cfg.name}", flush=True)
+    return params
+
+
 def _serve(args) -> Dict[str, Any]:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -119,8 +146,11 @@ def _serve(args) -> Dict[str, Any]:
         _build.build()
     launches0 = ops.launch_counts()
     with torch.no_grad():
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        params = init_params(cfg, gen, device=dev)
+        if args.ckpt:
+            params = _restore_ckpt(args.ckpt, cfg, dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            params = init_params(cfg, gen, device=dev)
         res["small_cfg"], res["small"] = cfg, params
         if args.grow_to:
             params, cfg, info = hot_grow(params, cfg, args.grow_to,
@@ -180,6 +210,9 @@ def parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="serve the newest checkpoint in DIR (its params) "
+                         "in place of the random init")
     ap.add_argument("--grow-to", default=None, metavar="ARCH[,ARCH...]",
                     help="hot-grow to this arch (or '2x') at startup; a "
                          "comma-separated chain composes into one operator")

@@ -1,5 +1,6 @@
 """Training driver: pretrain a small source model, grow it (LiGO by
-default), then train the grown model with AdamW.
+default), then train the grown model with AdamW; or run a whole multi-stage
+growth trajectory.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-medium \\
         --grow-from gpt2-base --method ligo --pretrain-steps 2 \\
@@ -9,23 +10,42 @@ default), then train the grown model with AdamW.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-base \\
         --smoke --grow-from half --device cpu
 
-The twin of the JAX driver's single-arch branch. With ``--grow-from``
-(``half`` or an arch name), the source model is initialised from
-``--seed``, pretrained for ``--pretrain-steps`` AdamW steps, and grown by
-``--method``; for LiGO the operator is first trained for ``--ligo-steps``
-SGD-momentum steps through the GrowthPlan, so on the card every eligible leaf
-group runs kernel K1 forward and kernel K2 backward on every step. Without
-``--grow-from`` the model starts from a random init. Then ``--steps`` AdamW
-steps train it. Batches are the synthetic corpus of ``data.batch_for_step``
+    # a resumable train→grow→train schedule with the compute ledger:
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --trajectory traj.json --ckpt-dir ckpt --ledger run.jsonl
+
+The twin of the JAX launcher. With ``--grow-from`` (``half`` or an arch
+name), the source model is initialised from ``--seed``, pretrained for
+``--pretrain-steps`` AdamW steps, and grown by ``--method``; for LiGO the
+operator is first trained for ``--ligo-steps`` SGD-momentum steps through
+the GrowthPlan, so on the card every eligible leaf group runs kernel K1
+forward and kernel K2 backward on every step. Without ``--grow-from`` the
+model starts from a random init. Then ``--steps`` AdamW steps train it
+under the :class:`~repro_torch.distributed.Supervisor`: with ``--ckpt-dir``
+it checkpoints every ``--checkpoint-every`` steps and a relaunch resumes
+from the newest checkpoint (refusing one of another arch or of a
+trajectory). Batches are the synthetic corpus of ``data.batch_for_step``
 (seed ``--seed`` for pretraining, ``+1`` for the LiGO phase, ``+10`` for the
 main loop), made on the host and copied to the device.
 
-The run prints the source loss, the LiGO losses (first → last), ms per LiGO
-step, ms per train step, tokens/s and the K1/K2 launches, and ``main``
-returns them. Runs on CUDA unless ``--device cpu`` is given, and raises when
-there is no CUDA device and no ``--device cpu``. The trajectory and autogrow
-runners, meshes, the supervisor, checkpoints and observability flags come
-with later slices.
+``--trajectory cfg.json`` hands the run to
+:class:`repro_torch.trajectory.TrajectoryRunner` (schema in
+:mod:`repro_torch.trajectory.config`): its checkpoints under ``--ckpt-dir``
+carry (trajectory hash, stage, stage step), so the same command relaunched
+after a kill resumes where it stopped, mid-LiGO-phase included.
+``--max-steps`` pauses after that many global train steps;
+``--fail-at-ligo-step N`` kills the LiGO phase after its checkpoint at
+phase step N (chaos testing). ``--ledger FILE`` (trajectories only: its
+cursor rides the checkpoints) appends the compute ledger, one JSONL record
+per train and LiGO step with modelled and measured FLOPs;
+:func:`repro_torch.obs.savings_report` compares two of them.
+
+The single-arch run prints the source loss, the LiGO losses (first →
+last), ms per LiGO step, ms per train step, tokens/s and the K1/K2
+launches; ``main`` returns them (or the runner's result). Runs on CUDA
+unless ``--device cpu`` is given, and raises when there is no CUDA device
+and no ``--device cpu``. ``--autogrow``, meshes and the observability
+flags come with later slices.
 """
 from __future__ import annotations
 
@@ -39,8 +59,9 @@ import torch
 from repro_torch.configs import (TrainConfig, get_config, half_config,
                                  smoke_config)
 from repro_torch.core.grow import grow
-from repro_torch.data import batch_for_step
+from repro_torch.data import GlobalBatchLoader, batch_for_step
 from repro_torch.device import resolve_device
+from repro_torch.distributed import Supervisor
 from repro_torch.kernels import _build, ops
 from repro_torch.models.model import init_params
 from repro_torch.optim import adamw_init
@@ -88,7 +109,61 @@ def _steady_ms(times: List[float]) -> float:
     return statistics.median(times[1:] if len(times) > 1 else times)
 
 
+def _trajectory(args) -> Dict[str, Any]:
+    from repro_torch.trajectory import TrajectoryConfig, TrajectoryRunner
+    if not args.ckpt_dir:
+        raise SystemExit("--trajectory needs --ckpt-dir: its checkpoints "
+                         "are what a relaunch resumes from")
+    dev = resolve_device(args.device)
+    traj = TrajectoryConfig.from_json(args.trajectory)
+    if dev.type == "cuda":
+        _build.build()
+    print(f"[train] trajectory {traj.hash()}: "
+          f"{' -> '.join(st.cfg.name for st in traj.stages)} "
+          f"({traj.total_steps} steps) device={dev}", flush=True)
+    launches0 = ops.launch_counts()
+    res = TrajectoryRunner(traj, ckpt_dir=args.ckpt_dir,
+                           keep=args.keep_checkpoints,
+                           ligo_fail_at=args.fail_at_ligo_step,
+                           device=dev).run(max_steps=args.max_steps)
+    counts = ops.launch_counts()
+    res["launches"] = {k: counts[k] - launches0[k] for k in counts}
+    print(f"[train] trajectory {res['status']}: stage "
+          f"{res['stage'] + 1}/{len(traj.stages)} ({res['cfg'].name}) "
+          f"global_step={res['global_step']} "
+          f"final_loss={res['history'][-1][2]:.4f}"
+          if res["history"] else
+          f"[train] trajectory {res['status']} (no steps run)", flush=True)
+    return res
+
+
+def _resume_meta(sup: Supervisor, cfg) -> None:
+    """Refuse a ``--ckpt-dir`` that holds a trajectory or another arch,
+    before any restore (which would die on shapes first)."""
+    meta = sup.mgr.latest_meta()
+    if meta is None:
+        return
+    if "trajectory" in meta:
+        raise SystemExit(
+            f"--ckpt-dir holds a trajectory checkpoint (stage "
+            f"{meta.get('stage')}); resume it with --trajectory")
+    if meta.get("config", cfg.config_hash()) != cfg.config_hash():
+        raise SystemExit(
+            f"--ckpt-dir holds a checkpoint of {meta.get('arch', '?')} "
+            f"({meta.get('config')}), not {cfg.name} ({cfg.config_hash()}) "
+            f"— refusing to resume")
+
+
 def _train(args) -> Dict[str, Any]:
+    if args.autogrow:
+        raise NotImplementedError(
+            "--autogrow (the adaptive growth controller) is not ported yet "
+            "(ROADMAP queue 1 item 7); run a static schedule with "
+            "--trajectory")
+    if args.trajectory:
+        return _trajectory(args)
+    if not args.arch:
+        raise SystemExit("--arch is required (or pass --trajectory)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -96,7 +171,9 @@ def _train(args) -> Dict[str, Any]:
     if cfg.objective != "clm":
         raise SystemExit("the train driver runs CLM archs")
     tcfg = TrainConfig(steps=args.steps, warmup_steps=max(args.steps // 20, 5),
-                       lr=args.lr, seq_len=args.seq, global_batch=args.batch)
+                       lr=args.lr, seq_len=args.seq, global_batch=args.batch,
+                       checkpoint_every=args.checkpoint_every,
+                       keep_checkpoints=args.keep_checkpoints)
     if dev.type == "cuda":
         _build.build()
     print(f"[train] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
@@ -141,19 +218,48 @@ def _train(args) -> Dict[str, Any]:
                 cfg, torch.Generator(device=dev).manual_seed(args.seed),
                 device=dev)
 
-    params, _, losses, times = _run_steps(
-        make_train_step(cfg, tcfg), params, adamw_init(params), cfg, args,
-        args.seed + 10, args.steps, dev, "main")
+    # checkpoints carry the run's identity; a relaunch refuses another
+    # arch's or a trajectory's, and lands on the recorded step
+    run_meta = {"arch": cfg.name, "config": cfg.config_hash()}
+    sup = Supervisor(ckpt_dir=args.ckpt_dir,
+                     checkpoint_every=args.checkpoint_every,
+                     keep=args.keep_checkpoints)
+    state = {"params": params, "opt": adamw_init(params)}
+    start = 0
+    if sup.mgr is not None:
+        _resume_meta(sup, cfg)
+        restored = sup.resume(state)
+        if restored is not None:
+            state, meta = restored
+            start = int(meta.get("step", 0))
+            print(f"[train] resumed {meta.get('arch', cfg.name)} from step "
+                  f"{start}", flush=True)
+
+    def on_metrics(step, m):
+        if step % 20 == 0 or step == args.steps - 1:
+            print(f"[train] main step {step:5d} loss {float(m['total']):.4f} "
+                  f"lr {m['lr']:.2e} gnorm {float(m['grad_norm']):.2f}",
+                  flush=True)
+
+    loader = GlobalBatchLoader(cfg, args.batch, args.seq,
+                               seed=args.seed + 10, device=dev)
+    state = sup.run(state, make_train_step(cfg, tcfg), loader.batch_at,
+                    start_step=start, steps=args.steps,
+                    on_metrics=on_metrics, meta=run_meta)
+    losses = [h[1] for h in sup.history]
+    times = [h[2] * 1e3 for h in sup.history]
     counts = ops.launch_counts()
     launches = {k: counts[k] - launches0[k] for k in counts}
-    res.update(params=params, train_losses=losses, train_step_ms=times,
-               launches=launches)
+    res.update(params=state["params"], train_losses=losses,
+               train_step_ms=times, launches=launches,
+               stragglers=len(sup.watchdog.flagged), restarts=sup.restarts)
     if times:
         ms = _steady_ms(times)
         res.update(train_ms=ms, tok_s=args.batch * args.seq / (ms / 1e3))
-        print(f"[train] {args.steps} steps of {cfg.name}: final loss "
+        print(f"[train] {len(times)} steps of {cfg.name}: final loss "
               f"{losses[-1]:.4f} | {ms:.1f} ms per train step (median, first "
-              f"step left out) | {res['tok_s']:.0f} tokens/s", flush=True)
+              f"step left out) | {res['tok_s']:.0f} tokens/s | stragglers "
+              f"{res['stragglers']}, restarts {sup.restarts}", flush=True)
     print(f"[train] kernel launches: K1 "
           f"{launches['ligo_blend_expand_grouped']}, K2 "
           f"{launches['ligo_blend_expand_bwd_fused']}, K3 "
@@ -163,9 +269,20 @@ def _train(args) -> Dict[str, Any]:
 
 def parse_args(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="train the smoke-reduced config of --arch")
+    ap.add_argument("--trajectory", default=None, metavar="CFG_JSON",
+                    help="run a multi-stage growth trajectory from a JSON "
+                         "stage schedule; resumable via --ckpt-dir")
+    ap.add_argument("--autogrow", default=None, metavar="CFG_JSON",
+                    help="not ported yet: the adaptive growth controller")
+    ap.add_argument("--max-steps", type=int, default=None,
+                    help="trajectory only: stop (checkpointing) after this "
+                         "many global train steps; a relaunch resumes")
+    ap.add_argument("--fail-at-ligo-step", type=int, default=None,
+                    help="chaos testing: raise after the LiGO-phase "
+                         "checkpoint at this phase step")
     ap.add_argument("--grow-from", default=None,
                     help="'half' or an arch name: grow instead of cold start")
     ap.add_argument("--method", default="ligo", choices=METHODS)
@@ -177,6 +294,19 @@ def parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (required with --trajectory; "
+                         "without it a single-arch run writes none)")
+    ap.add_argument("--checkpoint-every", type=int, default=100)
+    ap.add_argument("--keep-checkpoints", type=int, default=3,
+                    help="how many of the newest checkpoints stay on disk")
+    ap.add_argument("--ledger", default=None, metavar="FILE",
+                    help="append the compute ledger to FILE: one JSONL "
+                         "record per train/LiGO step (loss, tokens, modelled "
+                         "and measured cumulative FLOPs) plus hop events. "
+                         "Requires --trajectory: the ledger cursor rides the "
+                         "checkpoints, so a killed run resumes "
+                         "record-identical")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     return ap.parse_args(argv)
@@ -184,7 +314,21 @@ def parse_args(argv: Optional[List[str]] = None):
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Train once; returns the results (trees, losses, times, launches)."""
-    return _train(parse_args(argv))
+    from repro_torch.obs.ledger import attach_ledger, detach_ledger
+    args = parse_args(argv)
+    if args.ledger and not args.trajectory:
+        raise SystemExit("--ledger requires --trajectory: the trajectory "
+                         "runner owns the cursor-in-checkpoint contract that "
+                         "makes the ledger crash-safe")
+    if args.ledger:
+        attach_ledger(args.ledger)
+    try:
+        return _train(args)
+    finally:
+        if args.ledger:
+            led = detach_ledger()
+            print(f"[ledger] compute ledger written to {led.path} "
+                  f"({led.n_records} records)", flush=True)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ from typing import Any, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import sorted_leaves, tree_map
 
 Params = Any
 F32 = torch.float32
@@ -86,8 +86,9 @@ def sgd_update(grads: Params, state: SGDState, params: Params, *,
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def global_norm(tree: Params) -> torch.Tensor:
+    """Summed in JAX's leaf order, whatever the dicts' insertion order."""
     return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree_leaves(tree)))
+                          for x in sorted_leaves(tree)))
 
 
 @torch.no_grad()

@@ -1,0 +1,208 @@
+"""Trajectory configuration: an ordered schedule of train→grow→train stages
+(the twin of the JAX package's ``trajectory/config.py``, for static
+schedules).
+
+A :class:`TrajectoryConfig` is pure data: which architecture each stage
+trains, for how many steps, and how each stage is entered (the growth
+method and its LiGO budget). Its :meth:`TrajectoryConfig.hash` is stamped
+into every checkpoint, so a resume refuses state of another schedule. It
+is built from the fields of the JAX package's and hashes to the same
+value for the same schedule, so a checkpoint directory written by either
+package is recognised by the other.
+
+JSON format (``launch/train.py --trajectory cfg.json``)::
+
+    {
+      "arch": "gpt2-base",        # base registry arch
+      "smoke": false,             # reduce via smoke_config
+      "batch": 8, "seq": 128, "lr": 1e-3, "checkpoint_every": 2, "seed": 0,
+      "stages": [
+        {"steps": 4},                                    # stage 0: source
+        {"steps": 4, "arch": "gpt2-medium",              # grow INTO stage 1
+         "method": "ligo", "ligo_steps": 4, "ligo_scan_chunk": 2}
+      ]
+    }
+
+Stage 0 defaults to the base arch; ``"half"`` takes ``half_config`` of
+it; any other name hits the registry (smoke-reduced when ``smoke``). Later
+stages default to ``"grow": "2x"`` (``grow_target`` of the previous stage)
+or name a registry arch. Every consecutive pair must pass
+``check_growable``.
+
+Not ported yet, and refused with ``NotImplementedError``: ``"steps":
+"auto"`` and ``"policy"`` blocks (the adaptive controller, ROADMAP queue 1
+item 7), ``"grow": "moe"`` and the ``upcycle`` / ``gqa_merge`` methods (the
+other families, queue 1 item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spec as S
+
+# Growth methods that understand a family-changing hop.
+CROSS_FAMILY_METHODS = ("upcycle", "ligo", "random")
+_LATER = {"upcycle": "the other families (ROADMAP queue 1 item 6)",
+          "gqa_merge": "the other families (ROADMAP queue 1 item 6)"}
+
+
+@dataclass(frozen=True)
+class GrowthSpec:
+    """How a stage is entered from the previous one."""
+    method: str = "ligo"        # ligo | stackbert | interpolation |
+    #                             net2net | bert2bert | lemon | random
+    ligo_steps: int = 100       # SGD steps on the operator (ligo only)
+    ligo_lr: float = 1e-3
+    ligo_momentum: float = 0.9
+    grow_optimizer: bool = True  # carry AdamW moments through the operator
+    ligo_scan_chunk: int = 0     # LiGO-phase chunk length (0 = auto): the
+    #                              phase checkpoints at chunk boundaries, so
+    #                              this is also the resume granularity
+
+
+@dataclass(frozen=True)
+class Stage:
+    """One trajectory stage: an architecture trained for ``steps`` steps.
+    ``growth`` describes the hop into this stage; it is None exactly for
+    stage 0."""
+    cfg: ModelConfig
+    steps: int
+    growth: Optional[GrowthSpec] = None
+
+
+@dataclass(frozen=True)
+class TrajectoryConfig:
+    stages: Tuple[Stage, ...]
+    batch: int = 8
+    seq: int = 64
+    lr: float = 1e-3
+    checkpoint_every: int = 50
+    seed: int = 0
+
+    def __post_init__(self):
+        if not self.stages:
+            raise ValueError("a trajectory needs at least one stage")
+        if self.stages[0].growth is not None:
+            raise ValueError("stage 0 is the source model; it has no "
+                             "growth hop")
+        for i, st in enumerate(self.stages):
+            if st.steps is None:
+                raise NotImplementedError(
+                    f"stage {i}: steps='auto' needs the adaptive growth "
+                    "controller, not ported yet (ROADMAP queue 1 item 7)")
+        for i in range(1, len(self.stages)):
+            growth = self.stages[i].growth
+            if growth is None:
+                raise ValueError(f"stage {i} must carry a GrowthSpec")
+            if growth.method in _LATER:
+                raise NotImplementedError(
+                    f"stage {i}: growth method {growth.method!r} is not "
+                    f"ported yet ({_LATER[growth.method]})")
+            prev_cfg, cfg = self.stages[i - 1].cfg, self.stages[i].cfg
+            S.check_growable(prev_cfg, cfg)
+            if (prev_cfg.family != cfg.family
+                    and growth.method not in CROSS_FAMILY_METHODS):
+                raise ValueError(
+                    f"stage {i}: growth method {growth.method!r} cannot "
+                    f"cross the {prev_cfg.family!r} -> {cfg.family!r} "
+                    f"family hop ({prev_cfg.name!r} -> {cfg.name!r}); use "
+                    f"one of {list(CROSS_FAMILY_METHODS)}")
+
+    # ------------------------------------------------------------------
+    @property
+    def total_steps(self) -> int:
+        return sum(st.steps for st in self.stages)
+
+    def stage_bounds(self) -> Tuple[Tuple[int, int], ...]:
+        """[start, end) global-step interval of each stage."""
+        out, start = [], 0
+        for st in self.stages:
+            out.append((start, start + st.steps))
+            start += st.steps
+        return tuple(out)
+
+    def hash(self) -> str:
+        """Schedule identity, stamped into checkpoint meta by the runner
+        (the JAX package's blob: its ``policy`` is None for every static
+        stage)."""
+        blob = json.dumps({
+            "stages": [{
+                "cfg": st.cfg.config_hash(), "steps": st.steps,
+                "growth": (None if st.growth is None
+                           else dataclasses.asdict(st.growth)),
+                "policy": None,
+            } for st in self.stages],
+            **{k: getattr(self, k) for k in ("batch", "seq", "lr",
+                                             "checkpoint_every", "seed")},
+        }, sort_keys=True)
+        return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def from_json(src: Any) -> "TrajectoryConfig":
+        """Build from a JSON file path or an already-parsed dict."""
+        from repro_torch.configs import (get_config, grow_target,
+                                         half_config, smoke_config)
+        if isinstance(src, str):
+            with open(src) as f:
+                obj = json.load(f)
+        else:
+            obj = dict(src)
+        base = get_config(obj["arch"])
+        smoke = bool(obj.get("smoke", False))
+        if smoke:
+            base = smoke_config(base)
+
+        def resolve(entry: Dict, prev: Optional[ModelConfig]) -> ModelConfig:
+            if prev is None:                         # stage 0
+                name = entry.get("arch")
+                if name in (None, "base"):
+                    return base
+                if name == "half":
+                    return half_config(base)
+                cfg = get_config(name)
+                return smoke_config(cfg) if smoke else cfg
+            if "arch" in entry:
+                cfg = get_config(entry["arch"])
+                return smoke_config(cfg) if smoke else cfg
+            tok = entry.get("grow", "2x")
+            if tok == "2x":
+                return grow_target(prev)
+            if tok == "moe":
+                raise NotImplementedError(
+                    "'grow': 'moe' (dense->MoE upcycling) is not ported yet "
+                    "(the other families, ROADMAP queue 1 item 6)")
+            raise ValueError(f"unknown grow token {tok!r} "
+                             "(use '2x', 'moe', or an explicit 'arch')")
+
+        stages, prev = [], None
+        for i, entry in enumerate(obj["stages"]):
+            if entry["steps"] == "auto" or "policy" in entry:
+                raise NotImplementedError(
+                    f"stage {i}: steps='auto' and policy blocks need the "
+                    "adaptive growth controller, not ported yet (ROADMAP "
+                    "queue 1 item 7)")
+            cfg = resolve(entry, prev)
+            growth = None
+            if i > 0:
+                growth = GrowthSpec(
+                    method=entry.get("method", "ligo"),
+                    ligo_steps=int(entry.get("ligo_steps", 100)),
+                    ligo_lr=float(entry.get("ligo_lr", 1e-3)),
+                    ligo_momentum=float(entry.get("ligo_momentum", 0.9)),
+                    grow_optimizer=bool(entry.get("grow_optimizer", True)),
+                    ligo_scan_chunk=int(entry.get("ligo_scan_chunk", 0)))
+            stages.append(Stage(cfg=cfg, steps=int(entry["steps"]),
+                                growth=growth))
+            prev = cfg
+        return TrajectoryConfig(
+            stages=tuple(stages),
+            batch=int(obj.get("batch", 8)), seq=int(obj.get("seq", 64)),
+            lr=float(obj.get("lr", 1e-3)),
+            checkpoint_every=int(obj.get("checkpoint_every", 50)),
+            seed=int(obj.get("seed", 0)))

@@ -24,6 +24,16 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def sorted_leaves(tree: Any) -> List[Any]:
+    """Leaves with dict keys sorted at every level: JAX's flatten order,
+    the same for any insertion order (a reduction over leaves in this order
+    gives the same bits for a grown tree and for the same tree restored
+    from a checkpoint)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    return [tree]
+
+
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """A tree with the structure of ``like`` and the given leaves, in
     :func:`tree_leaves` order."""

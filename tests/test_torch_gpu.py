@@ -345,3 +345,87 @@ def test_k3_refuses_recorded_autograd_and_the_route_follows_it(cuda):
     torch.cuda.synchronize()
     assert float((free.float() - recorded.detach().float()).abs().max()) \
         <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints of CUDA tensors and the measured-cost pass on the kernel route
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_bf16_cuda_checkpoint_round_trip_is_bitwise(cuda, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import AdamWState
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {"w": torch.randn(64, 48, generator=gen, device=cuda).to(
+                  torch.bfloat16),
+              "b": {"x": torch.randn(48, generator=gen, device=cuda)}}
+    opt = AdamWState(m={"w": torch.randn(64, 48, generator=gen, device=cuda),
+                        "b": {"x": torch.randn(48, generator=gen,
+                                               device=cuda)}},
+                     v={"w": torch.rand(64, 48, generator=gen, device=cuda),
+                        "b": {"x": torch.rand(48, generator=gen,
+                                              device=cuda)}}, count=5)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, {"params": params, "opt": opt}, {"arch": "t"}, block=True)
+    got, meta = mgr.restore_latest(
+        {"params": params, "opt": AdamWState(opt.m, opt.v, 0)})
+    assert meta["_dtypes"] == {"params|w": "bfloat16"}
+    assert got["opt"].count == 5
+    for a, b in ((got["params"]["w"], params["w"]),
+                 (got["params"]["b"]["x"], params["b"]["x"]),
+                 (got["opt"].m["w"], opt.m["w"]),
+                 (got["opt"].v["b"]["x"], opt.v["b"]["x"])):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("snapshot", ["host", "device"])
+def test_async_save_of_cuda_tensors_against_an_in_place_update(
+        cuda, tmp_path, snapshot):
+    """A CUDA tensor changed in place by the next kernel after ``save``
+    returns is written as it was at the call."""
+    from repro_torch.checkpoint import CheckpointManager, load_step
+    w = torch.arange(1 << 24, dtype=torch.float32, device=cuda)
+    b = torch.ones(1 << 20, dtype=torch.bfloat16, device=cuda)
+    want_w, want_b = w.cpu(), b.cpu()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"w": w, "b": b}, snapshot=snapshot)
+    w.add_(1.0)
+    b.mul_(3.0)
+    mgr.wait()
+    got, _ = load_step(str(tmp_path), 1)
+    assert torch.equal(got["w"], want_w) and torch.equal(got["b"], want_b)
+
+
+@pytest.mark.gpu
+def test_measured_flops_of_a_kernel_route_ligo_step(cuda):
+    """The measured-cost pass over a LiGO step on CUDA inputs counts K1's
+    and K2's work (non-zero), launches nothing, and lands within
+    [0.5, 2.0] of the 6ND model at a small gpt2-shaped pair."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_ligo_params
+    from repro_torch.core.grow import ligo_loss
+    from repro_torch.data import batch_for_step
+    from repro_torch.models.model import init_params
+    from repro_torch.obs import costs
+    from repro_torch.roofline import train_flops_per_step
+    from repro_torch.training import to_device, value_and_grad
+    c1 = get_config("gpt2-base").scaled(
+        name="gpu-tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+        d_head=16, d_ff=128, vocab_size=256, max_seq=64)
+    c2 = c1.scaled(name="gpu-tiny-grown", n_layers=4, d_model=96, n_heads=6,
+                   n_kv_heads=6, d_ff=192)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    small = init_params(c1, gen, device=cuda)
+    op = init_ligo_params(gen, c1, c2, device=cuda)
+    batch = to_device(batch_for_step(c1, 0, 8, 64), cuda)
+
+    def step(o, b, s):
+        return value_and_grad(lambda oo, bb: (ligo_loss(oo, s, c1, c2, bb),
+                                              {}), o, b)
+    ops.reset_launch_counts()
+    m = costs.measure_step("ligo_step[gpu-tiny-grown]", step, op, batch,
+                           small, modelled_flops=train_flops_per_step(
+                               c2, 8, 64))
+    assert set(ops.launch_counts().values()) == {0}
+    assert m["flops_kernels"] > 0 and m["flops_aten"] > 0
+    assert 0.5 <= m["ratio"] <= 2.0, m

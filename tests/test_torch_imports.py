@@ -1,6 +1,7 @@
 """The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
-imports jax or anything of the JAX package ``repro``, and importing the
-port's modules builds and loads no kernel."""
+imports jax, anything of the JAX package ``repro`` or ``ml_dtypes`` (the
+card machine has none of them), and importing the port's modules builds
+and loads no kernel."""
 import ast
 import os
 import subprocess
@@ -37,7 +38,11 @@ def test_scan_covers_the_port():
     for mod in (("launch", "serve.py"), ("launch", "train.py"),
                 ("core", "grow.py"), ("training", "trainer.py"),
                 ("optim", "adamw.py"), ("kernels", "ligo_expand_bwd.py"),
-                ("kernels", "flash_attention.py")):
+                ("kernels", "flash_attention.py"),
+                ("checkpoint", "io.py"), ("checkpoint", "manager.py"),
+                ("obs", "ledger.py"), ("obs", "costs.py"),
+                ("trajectory", "runner.py"), ("distributed", "supervisor.py"),
+                ("examples", "quickstart.py")):
         assert os.path.join("src", "repro_torch", *mod) in names
     assert len(names) >= 20
 
@@ -47,16 +52,19 @@ def test_scan_covers_the_port():
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (path, mod)
         assert not mod.startswith("."), (path, mod)   # absolute imports only
 
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = ("import sys, repro_torch.launch.serve, repro_torch.core, "
             "repro_torch.launch.train, repro_torch.training, "
-            "repro_torch.optim, repro_torch.bridge, "
+            "repro_torch.optim, repro_torch.bridge, repro_torch.checkpoint, "
+            "repro_torch.obs.costs, repro_torch.trajectory, "
+            "repro_torch.distributed, repro_torch.examples.quickstart, "
             "repro_torch.kernels._build as b; "
-            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "assert not any(m in ('jax', 'ml_dtypes') "
+            "or m.startswith(('jax.', 'repro.', 'ml_dtypes.')) "
             "for m in sys.modules), sorted(sys.modules); "
             "assert not b._LIBS and not b.BUILD_LOG")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

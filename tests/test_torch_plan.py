@@ -81,6 +81,28 @@ def test_k1_eligibility_at_gpt2_width():
     assert [g.order for g in tplan.groups] == [g.order for g in jplan.groups]
 
 
+@pytest.mark.parametrize("square", [False, True])
+def test_k1_route_places_the_right_expansion_by_cost(square):
+    """On the K1 route a group's right expansion runs before K1 (on the L1
+    source layers) where that needs fewer operations than after it (on the
+    L2 target layers): all six groups at gpt2-base -> gpt2-medium, some of
+    the quickstart's. Either place gives the plain route's tree."""
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.models.model import init_params
+    g1, g2 = tc.get_config("gpt2-base"), tc.get_config("gpt2-medium")
+    meta = init_params(g1, torch.Generator().manual_seed(0), device="meta")
+    assert all(g.out_first for g in plan_for(g1, g2, meta).groups
+               if g.kernel_ok)
+    gen = torch.Generator().manual_seed(0)
+    sp = init_params(qs.SMALL, gen, device="cpu")
+    op = init_ligo_params(gen, qs.SMALL, qs.BIG, device="cpu")
+    plan = plan_for(qs.SMALL, qs.BIG, sp)
+    assert {g.out_first for g in plan.groups if g.kernel_ok} == {False, True}
+    fused = plan.apply(op, sp, use_kernel=True, square=square)
+    plain = plan.apply(op, sp, use_kernel=False, square=square)
+    assert_close(fused, bridge.to_numpy(plain), rel=1e-5)
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 @pytest.mark.parametrize("square", [False, True])
 def test_plan_apply_matches_jax(small, operator, use_kernel, square):
