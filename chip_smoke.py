@@ -16,13 +16,18 @@ sources are not beside it. Phases, each fatal on failure:
    kernel, the plain version and one library call computing the same
    function, beside the least time the card could take (``bound_ms``):
    K1 (the LiGO blend-expand) and K2 (its backward: dw, dB and dW, each
-   checked on its own), each also run twice, to agree bit for bit; on the
+   checked on its own, K2 taking K1's U and computing dW only where W takes
+   a gradient; where the plan puts a group's right expansion between K1's
+   U and its blend, each of K1's two steps and K2's two halves), each also
+   run twice, to agree bit for bit, and K1's U equal bit for bit to the U
+   K2 computes for itself; the same at both vision pairs' groups; on the
    GEMM core they share, the bf16 main-path shapes and an aligned ragged
    bf16 shape must take the tensor-core GEMM, an unaligned bf16 shape and
    the float32 ones the FMA GEMM; and
    K3 (flash attention: the gpt2-medium and llama3-8b prefills, a sliding
-   window, bert-large's bidirectional shape, ragged bf16 and float32 shapes
-   and unaligned bf16 rows; routes checked: bf16 at dh 64 and 128 with
+   window, bert-large's bidirectional shape, ragged bf16 and float32 shapes,
+   unaligned bf16 rows, and the vision evals at T = 197 (deit at dh 64,
+   cait at dh 48), with SDPA's time; routes checked: bf16 at dh 64 and 128 with
    aligned rows on the TMA + wgmma kernel, whose V^T pass and kernel are
    also timed apart under the profiler, the rest on the FMA kernel);
 3. drive the serving path at full width through its entry point —
@@ -65,16 +70,30 @@ sources are not beside it. Phases, each fatal on failure:
    must be record-identical and their final params and AdamW state (m, v,
    count) bitwise equal; A's launches must be K2 once per group per LiGO
    step and K1 once per group per LiGO step and per grow (params and both
-   moments); the train steps' measured FLOPs must lie within [0.5, 2.0] of
-   the 6ND model, as must a kernel-route LiGO step at the JAX package's CI
-   shape, and the full-width LiGO step's kernel count must be its groups'
-   (its ratio, above 2.0, is printed: an open fault listed in ROADMAP
-   section 3); a gpt2-medium run from scratch gives the savings report's
+   moments), each twice for a group whose right expansion runs between
+   K1's steps; the measured FLOPs of the train steps, of the full-width
+   LiGO step on the kernel route (printed beside the plain route's count
+   of the same step) and of a kernel-route LiGO step at the JAX package's
+   CI shape must lie within [0.5, 2.0] of the 6ND model, and the
+   full-width LiGO step's kernel count must be its groups'; a gpt2-medium
+   run from scratch gives the savings report's
    baseline; ``serve --ckpt`` of A's directory must prefill through 24 K3
    launches to logits bitwise equal to A's final params; and the
    checkpoint size, write and restore ms and the ledger's cost are printed;
 7. run the quickstart twin (``repro_torch.examples.quickstart``) at the
    script's own size: LiGO's initial loss must be below scratch's;
+8. run the paper's vision pairs at full width, bf16, batch 32 images:
+   deit-s -> deit-b (12 layers, d 384 -> 768, 6 -> 12 heads, 197 tokens,
+   1000 classes) and cait-xs -> cait-s (24 layers, d 288 -> 384, dh 48, at
+   fewer steps): the source from a seeded generator, AdamW steps on
+   ``dummy_batch`` batches, a LiGO phase (K1 forward, K2 backward),
+   ``grow()`` with the AdamW moments (K1), an autograd-free eval forward
+   of the grown model (K3, bidirectional at T = 197) and AdamW steps of
+   it, with the counters set to 0 just before and read just after (each
+   kernel launched, in the counts the plan gives); the same on the plain
+   route in bf16 and in float32, the kernel route's LiGO and target losses,
+   eval loss and grown tree held against them; the vision LiGO step's
+   measured / modelled FLOPs printed on both routes;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -128,6 +147,12 @@ K3_SHAPES = [
     ("bf16 ragged window", "bfloat16", (2, 6, 2, 77, 333, 64, True, 100)),
     ("bf16 unaligned rows", "bfloat16", (2, 6, 2, 200, 328, 64, True, 0, 4)),
     ("quickstart eval", "float32", (32, 8, 8, 64, 64, 16, True, 0)),
+    # phase 8's eval forwards, bidirectional over the cls token and 196
+    # patches (T = 197, off the 128-row tile): deit-b (its main path) and
+    # deit-s at dh 64 on the tensor cores, cait-s at dh 48 on the FMA kernel
+    ("deit-b eval", "bfloat16", (32, 12, 12, 197, 197, 64, False, 0)),
+    ("deit-s", "bfloat16", (32, 6, 6, 197, 197, 64, False, 0)),
+    ("cait-s eval", "bfloat16", (32, 8, 8, 197, 197, 48, False, 0)),
 ]
 
 # K1's and K2's shapes besides the main path's six groups (gpt2-base ->
@@ -173,9 +198,11 @@ def _time_ms(torch, fn, reps):
 
 
 def _k1_shapes(torch, cfg1, cfg2):
-    """(name, G, L2, L1, E, I, A, Bd) of every K1 launch of one grow, read
-    from the port's own GrowthPlan for the pair: Bd is the target width
-    where the plan runs the group's right expansion before K1."""
+    """One dict per kernel-route group of the pair's GrowthPlan: name, G,
+    L2, L1, E, I, A, the source width b and target width j of its right
+    expansion (j None where it has none), and where the plan puts that
+    expansion for a forward alone (``right``) and for a LiGO step
+    (``right_grad``)."""
     from repro_torch.core.ligo import _kind_counts
     from repro_torch.core.plan import _expr_dims, plan_for
     from repro_torch.models.model import init_params
@@ -186,14 +213,90 @@ def _k1_shapes(torch, cfg1, cfg2):
     for g in plan.groups:
         if not g.kernel_ok:
             continue
-        E = g.shape[1] if len(g.shape) == 4 else 1
-        I = _expr_dims(plan.exprs[g.in_ref], cfg1, cfg2)[0]
-        Bd = (_expr_dims(plan.exprs[g.out_ref], cfg1, cfg2)[0]
-              if g.out_first else g.shape[-1])
-        L2 = _kind_counts(cfg2)[g.kind]
-        shapes.append(("+".join(g.paths), len(g.paths), L2, g.shape[0], E, I,
-                       g.shape[-2], Bd))
+        j = (_expr_dims(plan.exprs[g.out_ref], cfg1, cfg2)[0]
+             if g.out_ref else None)
+        shapes.append({
+            "name": "+".join(g.paths), "G": len(g.paths),
+            "L2": _kind_counts(cfg2)[g.kind], "L1": g.shape[0],
+            "E": g.shape[1] if len(g.shape) == 4 else 1,
+            "I": _expr_dims(plan.exprs[g.in_ref], cfg1, cfg2)[0],
+            "A": g.shape[-2], "b": g.shape[-1], "j": j,
+            "right": g.right if j else None,
+            "right_grad": g.right_grad if j else None})
     return shapes
+
+
+def _dims(sh, Bd):
+    return (sh["G"], sh["L2"], sh["L1"], sh["E"], sh["I"], sh["A"], Bd)
+
+
+def _k1_calls(sh, grad):
+    """K1's launches in one forward of the group: [(stage, dims)]."""
+    place = sh["right_grad" if grad else "right"]
+    if place == "between":
+        return [("expand", _dims(sh, sh["b"])), ("blend", _dims(sh, sh["j"]))]
+    return [("both", _dims(sh, sh["j"] if place == "before" else sh["b"]))]
+
+
+def _k2_calls(sh):
+    """K2's launches in one LiGO backward of the group: [(kind, dims,
+    need_dW)]: the whole of K2 (from K1's U), or its two halves around a
+    right expansion between K1's U and its blend. W takes a gradient only
+    where the expansion runs before K1."""
+    place = sh["right_grad"]
+    if place == "between":
+        return [("blend", _dims(sh, sh["j"]), False),
+                ("products", _dims(sh, sh["b"]), False)]
+    return [("whole", _dims(sh, sh["j"] if place == "before" else sh["b"]),
+             place == "before")]
+
+
+def _kernel_operations(shapes):
+    """K1's and K2's operation counts over one LiGO step of the groups."""
+    from repro_torch.kernels import ligo_expand, ligo_expand_bwd
+    n = 0
+    for sh in shapes:
+        for stage, d in _k1_calls(sh, True):
+            n += ligo_expand.operation_count(*d, stage=stage)
+        for kind, d, need_dW in _k2_calls(sh):
+            n += ligo_expand_bwd.operation_count(
+                *d, u_given=kind != "products", need_dW=need_dW,
+                q_given=kind == "products", need_dB=kind != "blend",
+                need_dw=kind != "products")
+    return n
+
+
+def _launches(shapes, grad):
+    """(K1, K2) launches of one forward (and, with ``grad``, backward)."""
+    return (sum(len(_k1_calls(sh, grad)) for sh in shapes),
+            sum(len(_k2_calls(sh)) for sh in shapes) if grad else 0)
+
+
+def _k1_checks(shapes):
+    """The distinct K1 checks the groups' forwards need, with and without
+    gradients: (name, dims, j), j the width of a right expansion between
+    K1's U and its blend."""
+    out = {}
+    for sh in shapes:
+        for grad in (False, True):
+            calls = _k1_calls(sh, grad)
+            key = (sh["name"], calls[0][1],
+                   calls[1][1][-1] if len(calls) == 2 else None)
+            out.setdefault(key, None)
+    return [(name, d, j) for name, d, j in out]
+
+
+def _k2_checks(shapes):
+    """The K2 checks of the groups' LiGO backward: (name, dims, j,
+    need_dW), j as in :func:`_k1_checks`."""
+    out = []
+    for sh in shapes:
+        calls = _k2_calls(sh)
+        if len(calls) == 2:
+            out.append((sh["name"], calls[1][1], calls[0][1][-1], False))
+        else:
+            out.append((sh["name"], calls[0][1], None, calls[0][2]))
+    return out
 
 
 def _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed, cotangent):
@@ -211,55 +314,102 @@ def _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed, cotangent):
     return w, B, W, dP
 
 
+def _norm_err(got, want):
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff, diff / (want.float().abs().max().item() + 1e-30)
+
+
+def _expanded(torch, U, R, dtype):
+    """U Rᵀ as the plan's between placement computes it: U rounded to the
+    working dtype, one matmul, read back in float32."""
+    return (U.to(dtype).reshape(-1, U.shape[-1]) @ R.T).reshape(
+        U.shape[:-1] + (R.shape[0],)).float()
+
+
 def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
-              square=False):
+              square=False, j=None):
     """K1 against its plain version; ``square`` gives it the inputs of an
     AdamW second moment's grow: the squared blend and expander, and a
-    moment that is not negative."""
+    moment that is not negative. With ``j``, the group's right expansion
+    (Bd -> j) runs between K1's two steps, as the plan runs it: each step
+    is held against its plain version on the same inputs (the blend on
+    the expanded U of the kernel's own U)."""
     from repro_torch.kernels import ligo_expand, ref
     w, B, W = _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed, False)
     if square:
         w, B, W = w * w, B * B, W * W
+    tname = str(dtype).replace("torch.", "")
+    Bj = j or Bd                            # the blend's width
+    if j:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+        R = (torch.randn((j, Bd), generator=gen, device="cuda")
+             / Bd ** 0.5).to(dtype)
+        if square:
+            R = R * R
+        UR = _expanded(torch, ligo_expand.ligo_expand(B, W), R, dtype)
 
-    def kernel():
-        return ligo_expand.ligo_blend_expand_grouped(w, B, W)
+        def kernel():
+            return (ligo_expand.ligo_expand(B, W),
+                    ligo_expand.ligo_blend(w, UR, dtype))
 
-    def plain():
-        return ref.ligo_blend_expand_grouped_ref(w, B, W)
+        def plain():
+            return (ref.ligo_expand_ref(B, W),
+                    ref.ligo_blend_ref(w, UR, dtype))
 
-    def library():   # einsum blend in the working dtype, then one matmul
-        bl = torch.einsum("gkl,gleab->gkeab", w.to(dtype), W)
-        return torch.matmul(B, bl)
+        def library():   # K1's two steps as a batched matmul and einsum
+            return (torch.matmul(B, W),
+                    torch.einsum("gkl,gleib->gkeib", w.to(dtype),
+                                 UR.to(dtype)))
+        library_minflop = library
+    else:
+        def kernel():
+            return (ligo_expand.ligo_blend_expand_grouped(w, B, W),)
 
-    def library_minflop():   # K1's own order: one batched matmul, the blend
-        return torch.einsum("gkl,gleib->gkeib", w.to(dtype),
-                            torch.matmul(B, W))
+        def plain():
+            return (ref.ligo_blend_expand_grouped_ref(w, B, W),)
+
+        def library():   # einsum blend in the working dtype, then a matmul
+            bl = torch.einsum("gkl,gleab->gkeab", w.to(dtype), W)
+            return (torch.matmul(B, bl),)
+
+        def library_minflop():   # K1's own order: a batched matmul, blend
+            return (torch.einsum("gkl,gleib->gkeib", w.to(dtype),
+                                 torch.matmul(B, W)),)
 
     got, want, again = kernel(), plain(), kernel()
     torch.cuda.synchronize()
-    if not torch.equal(got, again):
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"K1 is not deterministic at {name}: two runs "
                              f"on the same inputs differ")
     del again
-    diff = (got.float() - want.float()).abs().max().item()
-    norm = diff / (want.float().abs().max().item() + 1e-30)
-    tname = str(dtype).replace("torch.", "")
-    ok = norm <= TOL[tname] and bool(torch.isfinite(got).all())
-    # The bound counts the fewest operations the function needs: the least
-    # of blend-then-expand (the fused order) and expand-then-blend (K1's
-    # order), ligo_expand.operation_count; K1 itself does the latter.
-    k1_flops = 2 * G * E * (L1 * I * A * Bd + L2 * L1 * I * Bd)
-    flops = ligo_expand.operation_count(G, L2, L1, E, I, A, Bd)
+    errs = [_norm_err(a, b) for a, b in zip(got, want)]
+    diff, norm = max(e[0] for e in errs), max(e[1] for e in errs)
+    ok = norm <= TOL[tname] and all(bool(torch.isfinite(x).all())
+                                    for x in got)
+    # The bound counts the fewest operations the function needs
+    # (ligo_expand.least_operations: the least of blend-then-expand and
+    # K1's own expand-then-blend); split, K1's two steps as they run.
+    if j:
+        k1_flops = (ligo_expand.operation_count(G, L2, L1, E, I, A, Bd,
+                                                stage="expand")
+                    + ligo_expand.operation_count(G, L2, L1, E, I, A, j,
+                                                  stage="blend"))
+        flops = k1_flops
+    else:
+        k1_flops = ligo_expand.operation_count(G, L2, L1, E, I, A, Bd)
+        flops = ligo_expand.least_operations(G, L2, L1, E, I, A, Bd)
     tc = ligo_expand.tensor_core_route(dtype, I, A, Bd)
-    elt = got.element_size()
+    elt = got[-1].element_size()
     nbytes = (4 * G * L2 * L1 + elt * (I * A + G * L1 * E * A * Bd
-                                       + G * L2 * E * I * Bd))
+                                       + G * L2 * E * I * Bj))
+    if j:      # U written, its expansion read back, both f32
+        nbytes += 4 * G * L1 * E * I * (Bd + j)
     t_ops, t_bytes = flops / PEAK_OPS[tname], nbytes / PEAK_BYTES
     reps = 1 if t_ops > 1e-3 else 3 if flops > 1e11 else 10
     row = {
         "shape": name, "dtype": tname, "square": square,
         "G": G, "L2": L2, "L1": L1, "E": E, "I": I, "A": A, "Bd": Bd,
-        "max_abs_err": diff, "max_norm_err": norm, "tol": TOL[tname],
+        "j": j, "max_abs_err": diff, "max_norm_err": norm, "tol": TOL[tname],
         "ms": _time_ms(torch, kernel, reps),
         "plain_ms": _time_ms(torch, plain, reps),
         "library_ms": _time_ms(torch, library, reps),
@@ -269,12 +419,13 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         "gflop": flops / 1e9, "kernel_gflop": k1_flops / 1e9,
         "mbytes": nbytes / 1e6, "tensor_cores": tc,
     }
+    split = f" (U at {Bd}, blend at {j})" if j else ""
     print(f"[k1] {name:>14} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
-          f"A={A} Bd={Bd} ({'wgmma' if tc else 'fma'}): norm err {norm:.2e} "
-          f"(tol {TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, plain "
-          f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
-          f"library in K1's order {row['library_minflop_ms']:.3f} ms, bound "
-          f"{row['bound_ms']:.3f} ms ({row['bound_by']}) "
+          f"A={A} Bd={Bd}{split} ({'wgmma' if tc else 'fma'}): norm err "
+          f"{norm:.2e} (tol {TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
+          f"ms, library in K1's order {row['library_minflop_ms']:.3f} ms, "
+          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}) "
           f"{'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version at {name} "
@@ -283,68 +434,149 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
     return row
 
 
-def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
-    from repro_torch.kernels import ligo_expand_bwd, ref
-    w, B, W, dP = _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed,
-                               True)
+def _dw_terms(torch, dP, U):
+    """Σ_e |dP[g,k,e]| |U[g,l,e]|: the size of dw's terms, which bounds its
+    rounding error entry by entry (dw is a long sum that cancels)."""
+    with torch.no_grad():
+        return torch.einsum("gkeib,gleib->gkl", dP.float().abs(),
+                            U.float().abs())
 
-    def kernel():
-        return ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
 
-    def plain():
-        return ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
+              need_dW=True, j=None):
+    """K2 against its plain version, taking K1's U as the LiGO step does,
+    and computing dW only with ``need_dW``. Checks first that K1's U and
+    the U K2 computes for itself are equal bit for bit, and that K2 fed
+    K1's U gives the bits of K2 on its own. With ``j``, the group's right
+    expansion (Bd -> j) sits between K1's U and its blend: K2's two halves
+    (the dP blend and dw against the expanded U at width j; dB from the
+    narrow Q R) are each held against their plain versions."""
+    from repro_torch.kernels import ligo_expand, ligo_expand_bwd, ref
+    tname = str(dtype).replace("torch.", "")
+    w, B, W = _ligo_inputs(torch, dtype, G, L2, L1, E, I, A, Bd, seed, False)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    _, U = ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    bitwise = None
+    if j:
+        R = (torch.randn((j, Bd), generator=gen, device="cuda")
+             / Bd ** 0.5).to(dtype)
+        UR = _expanded(torch, U, R, dtype)
+        dP = torch.randn((G, L2, E, I, j), generator=gen,
+                         device="cuda").to(dtype)
+        dU = (ligo_expand_bwd.ligo_blend_bwd(w, dP, UR)[1].reshape(-1, j)
+              @ R).reshape(G, L1, E, I, Bd).contiguous()
 
-    def library():   # the einsum formulation in the working dtype (cuBLAS)
-        wd = w.to(dtype)
-        T = torch.einsum("ia,gkeib->gkeab", B, dP)
-        bl = torch.einsum("gkl,gleab->gkeab", wd, W)
-        return (torch.einsum("gkeab,gleab->gkl", T, W),
-                torch.einsum("gkeib,gkeab->ia", dP, bl),
-                torch.einsum("gkl,gkeab->gleab", wd, T))
+        def kernel():
+            dw, Q = ligo_expand_bwd.ligo_blend_bwd(w, dP, UR)
+            return (dw, Q) + ligo_expand_bwd.ligo_expand_bwd(
+                B, W, dU, need_dW=need_dW)
 
-    def library_minflop():   # K2's own order as einsums in the working dtype
-        Q = torch.einsum("gkl,gkeib->gleib", w.to(dtype), dP)
-        U = torch.einsum("ia,gleab->gleib", B, W)
-        return (torch.einsum("gkeib,gleib->gkl", dP, U),
-                torch.einsum("gleib,gleab->ia", Q, W),
-                torch.einsum("ia,gleib->gleab", B, Q))
+        def plain():
+            return (ref.ligo_blend_bwd_ref(w, dP, UR)
+                    + ref.ligo_expand_bwd_ref(B, W, dU, need_dW=need_dW))
+
+        def library_minflop():   # the same four products as einsums
+            Q = torch.einsum("gkl,gkeib->gleib", w.to(dtype), dP)
+            return (torch.einsum("gkeib,gleib->gkl", dP.float(), UR), Q,
+                    torch.einsum("gleib,gleab->ia", dU, W))
+        library = library_minflop
+        keys = ("dw", "Q", "dB", "dW")
+        terms = _dw_terms(torch, dP, UR)
+    else:
+        dP = torch.randn((G, L2, E, I, Bd), generator=gen,
+                         device="cuda").to(dtype)
+        own = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, keep_u=True)
+        fed = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(U, own[3])) and all(
+            torch.equal(a, b) for a, b in zip(own[:3], fed))
+        if not bitwise:
+            du = (U - own[3]).abs().max().item()
+            raise AssertionError(f"K2 at {name}: K1's U and K2's own U "
+                                 f"differ (max {du:.3e}), or K2 fed K1's U "
+                                 f"differs from K2 on its own")
+        del own, fed
+
+        def kernel():
+            return ligo_expand_bwd.ligo_blend_expand_bwd(
+                w, B, W, dP, U=U, need_dW=need_dW)
+
+        def plain():
+            return ref.ligo_blend_expand_bwd_ref(w, B, W, dP,
+                                                 need_dW=need_dW)
+
+        def library():   # the einsum formulation in the working dtype
+            wd = w.to(dtype)
+            T = torch.einsum("ia,gkeib->gkeab", B, dP)
+            bl = torch.einsum("gkl,gleab->gkeab", wd, W)
+            return (torch.einsum("gkeab,gleab->gkl", T, W),
+                    torch.einsum("gkeib,gkeab->ia", dP, bl),
+                    torch.einsum("gkl,gkeab->gleab", wd, T)
+                    if need_dW else None)
+
+        def library_minflop():   # K2's own order, given U, as einsums
+            Q = torch.einsum("gkl,gkeib->gleib", w.to(dtype), dP)
+            return (torch.einsum("gkeib,gleib->gkl", dP.float(), U),
+                    torch.einsum("gleib,gleab->ia", Q, W),
+                    torch.einsum("ia,gleib->gleab", B, Q)
+                    if need_dW else None)
+        keys = ("dw", "dB", "dW")
+        terms = _dw_terms(torch, dP, U)
 
     got, want, again = kernel(), plain(), kernel()
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    if not all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None):
         raise AssertionError(f"K2 is not deterministic at {name}: two runs "
                              f"on the same inputs differ")
     del again
-    tname = str(dtype).replace("torch.", "")
     errs, diffs = {}, []
-    for key, a, b in (("dB", got[1], want[1]), ("dW", got[2], want[2])):
-        diff = (a.float() - b.float()).abs().max().item()
-        errs[key] = diff / (b.float().abs().max().item() + 1e-30)
+    for key, a, b in zip(keys, got, want):
+        if (a is None) != (b is None) or (a is None and key != "dW"):
+            raise AssertionError(f"K2 at {name}: {key} is "
+                                 f"{'missing' if a is None else 'extra'}")
+        if a is None or key == "dw":
+            continue
+        diff, errs[key] = _norm_err(a, b)
         diffs.append(diff)
-    # dw is a long sum that cancels: normalise each entry's error by the sum
-    # of the absolute values of its terms, Σ_{e,a,b} |T[g,k,e]| |W[g,l,e]|.
-    with torch.no_grad():
-        T_abs = torch.einsum("ia,gkeib->gkeab", B.float(), dP.float()).abs()
-        terms = torch.einsum("gkeab,gleab->gkl", T_abs, W.float().abs())
-        del T_abs
+    if (got[-1] is None) == need_dW:
+        raise AssertionError(f"K2 at {name}: dW {'missing' if need_dW else 'computed'}")
     dw_diff = (got[0].float() - want[0].float()).abs()
     errs["dw"] = (dw_diff / (terms + 1e-30)).max().item()
     diffs.append(dw_diff.max().item())
     ok = (all(e <= TOL[tname] for e in errs.values())
-          and all(bool(torch.isfinite(x).all()) for x in got))
-    # The bound counts the fewest operations the function needs: the least
-    # of the fused order and K2's own order (ligo_expand_bwd.operation_count)
-    flops = ligo_expand_bwd.operation_count(G, L2, L1, E, I, A, Bd)
+          and all(bool(torch.isfinite(x).all()) for x in got
+                  if x is not None))
+    # The bound counts the fewest operations the function needs given U
+    # (ligo_expand_bwd.least_operations); split, K2's two halves as they
+    # run.
+    if j:
+        flops = (ligo_expand_bwd.operation_count(
+                     G, L2, L1, E, I, A, j, u_given=True, need_dW=False,
+                     need_dB=False)
+                 + ligo_expand_bwd.operation_count(
+                     G, L2, L1, E, I, A, Bd, q_given=True, need_dW=need_dW,
+                     need_dw=False))
+    else:
+        flops = ligo_expand_bwd.least_operations(
+            G, L2, L1, E, I, A, Bd, u_given=True, need_dW=need_dW)
     tc = ligo_expand_bwd.tensor_core_route(dtype, I, A, Bd)
     elt = B.element_size()
-    nbytes = (2 * 4 * G * L2 * L1 + elt * (2 * I * A + 2 * G * L1 * E * A * Bd
-                                           + G * L2 * E * I * Bd))
+    Bj = j or Bd
+    nbytes = (2 * 4 * G * L2 * L1 + elt * (2 * I * A + G * L1 * E * A * Bd
+                                           + G * L2 * E * I * Bj)
+              + 4 * G * L1 * E * I * Bj)                   # U read
+    if need_dW:
+        nbytes += elt * G * L1 * E * A * Bd
+    if j:      # Q written, Q R read
+        nbytes += elt * G * L1 * E * I * (j + Bd)
     t_ops, t_bytes = flops / PEAK_OPS[tname], nbytes / PEAK_BYTES
     reps = 1 if t_ops > 1e-3 else 2 if flops > 1e11 else 10
     row = {
-        "shape": name, "dtype": tname,
+        "shape": name, "dtype": tname, "need_dW": need_dW, "j": j,
         "G": G, "L2": L2, "L1": L1, "E": E, "I": I, "A": A, "Bd": Bd,
         "max_abs_err": max(diffs), "norm_err": errs, "tol": TOL[tname],
+        "u_bitwise": bitwise,
         "ms": _time_ms(torch, kernel, reps),
         "plain_ms": _time_ms(torch, plain, reps),
         "library_ms": _time_ms(torch, library, reps),
@@ -353,9 +585,12 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "tensor_cores": tc,
     }
+    split = f" (halves: blend at {j}, dB at {Bd})" if j else ""
+    ubits = ("" if j else ", K1's U = K2's own U bit for bit")
+    shown = " ".join(f"{k} {v:.2e}" for k, v in errs.items())
     print(f"[k2] {name:>14} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
-          f"A={A} Bd={Bd} ({'wgmma' if tc else 'fma'}): norm err dw "
-          f"{errs['dw']:.2e} dB {errs['dB']:.2e} dW {errs['dW']:.2e} (tol "
+          f"A={A} Bd={Bd}{split} dW {'yes' if need_dW else 'no'} "
+          f"({'wgmma' if tc else 'fma'}){ubits}: norm err {shown} (tol "
           f"{TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, plain "
           f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
           f"library min-FLOP order {row['library_minflop_ms']:.3f} ms, bound "
@@ -640,6 +875,28 @@ def _ligo_grad_check(torch, res, tol32, tol16):
                              f"{bad}")
 
 
+def _saved_u_gb(torch, tres):
+    """GB of float32 U (K1's, and the expanded U of a group whose right
+    expansion runs between K1's steps) that the growth of one bf16 LiGO
+    forward on the kernel route keeps for K2: the float32 tensors autograd
+    saves during the plan's apply, summed by a saved-tensors hook."""
+    from repro_torch.core.ligo import apply_ligo
+    from repro_torch.tree import tree_map
+    total = [0]
+
+    def pack(t):
+        if t.dtype == torch.float32 and t.dim() == 5:
+            total[0] += t.numel() * 4
+        return t
+    op = tree_map(lambda x: x.detach().requires_grad_(True),
+                  tres["grow_info"]["operator_init"])
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        big = apply_ligo(op, tres["small"], tres["small_cfg"], tres["cfg"])
+    del big, op
+    torch.cuda.empty_cache()
+    return total[0] / 1e9
+
+
 def _moment_grow_check(torch, plan, ligo, small):
     """The float32 grow of both AdamW moments that rides a trajectory's hop
     (m by the operator, v by its elementwise square), here of moments made
@@ -672,8 +929,9 @@ def _right_expansion_ms(torch, tres):
     """Device ms (CUDA events) of the right expansions of one bf16 LiGO
     step on the kernel route, forward and backward, at the shapes and
     places the plan gives them: before K1 on the source layers (the
-    expander's gradient only) or after it on the target layers (the
-    expander's and K1's output's)."""
+    expander's gradient only), between K1's U and its blend on the L1
+    expanded slabs, or after K1 on the target layers (the expander's and
+    its input's gradients)."""
     from repro_torch.core.ligo import _flatten, _kind_counts
     from repro_torch.core.plan import GrowthPlan, _expr_dims, plan_for
     small_cfg, cfg, small = tres["small_cfg"], tres["cfg"], tres["small"]
@@ -686,10 +944,12 @@ def _right_expansion_ms(torch, tres):
         if not (g.kernel_ok and g.out_ref):
             continue
         X = torch.stack([stacks[g.kind][p] for p in g.paths])
-        if not g.out_first:
+        if g.right_grad != "before":
             i = _expr_dims(plan.exprs[g.in_ref], small_cfg, cfg)[0]
-            X = torch.randn((len(g.paths), _kind_counts(cfg)[g.kind], i,
-                             X.shape[-1]), generator=gen, device="cuda",
+            n = (g.shape[0] if g.right_grad == "between"
+                 else _kind_counts(cfg)[g.kind])
+            X = torch.randn((len(g.paths), n, i, X.shape[-1]),
+                            generator=gen, device="cuda",
                             dtype=X.dtype).requires_grad_(True)
         E = table[g.out_ref].detach().requires_grad_(True)
         with torch.no_grad():
@@ -808,11 +1068,16 @@ def _profile_steps(torch, tres):
 
     ev = _profile(torch, f"LiGO step of {small_cfg.name} -> {cfg.name}",
                   ligo_step)
-    # the bf16 LiGO step runs K1's product (tag 3) and K2's three (tags 0-2)
-    # of every group on the tensor-core GEMM, and none on the FMA GEMM
-    n = tres["k2_groups"]
-    _check_gemm_launches("LiGO step", ev, {("wgmma", t): n
-                                           for t in range(4)})
+    # the bf16 LiGO step runs K1's product (tag 3) and K2's dB (tag 1) of
+    # every group, and K2's dW (tag 0) where W takes a gradient, on the
+    # tensor-core GEMM; K2's own U (tag 2) never (it takes K1's), and
+    # nothing on the FMA GEMM
+    shapes = tres["shapes"]
+    n_dW = sum(1 for sh in shapes for _, _, need in _k2_calls(sh) if need)
+    want = {("wgmma", 3): len(shapes), ("wgmma", 1): len(shapes)}
+    if n_dW:
+        want[("wgmma", 0)] = n_dW
+    _check_gemm_launches("LiGO step", ev, want)
     from torch.autograd import DeviceType
     busy = sum(e.self_device_time_total for e in ev
                if e.device_type == DeviceType.CUDA
@@ -837,13 +1102,11 @@ SCRATCH = {"arch": "gpt2-medium", "batch": 8, "seq": 128, "lr": 1e-3,
            "checkpoint_every": 8, "seed": 0, "stages": [{"steps": 8}]}
 FAIL_AT = 2
 # The reference's CI gate on measured / modelled FLOPs (its
-# tests/test_ledger.py): held for every train step at full width, and for
-# the LiGO step at the reference's own CI shape (tr0 -> tr1, batch 4 x 16)
-# on the kernel route. The full-width LiGO step on the kernel route counts
-# more than the gate allows (an open fault of the port, ROADMAP section 3:
-# K2 recomputes K1's expansion, and K1 cannot take the right expansion
-# between its expansion and its blend); its ratio is printed and its
-# kernel count checked.
+# tests/test_ledger.py): held for every train step at full width, for the
+# full-width LiGO step on the kernel route (its K1 and K2 count checked
+# against the plan's groups, and the plain route's count of the same step
+# printed beside it), and for the LiGO step at the reference's own CI shape
+# (tr0 -> tr1, batch 4 x 16) on the kernel route.
 FLOPS_GATE = (0.5, 2.0)
 
 
@@ -959,7 +1222,7 @@ def _trajectory_phase(torch, tmp, shapes):
     """Phase 6: trajectories A and B, the scratch baseline, the ledger and
     FLOPs checks, and serve --ckpt of A's directory."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.kernels import ligo_expand, ligo_expand_bwd, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
     from repro_torch.models.model import prefill
     from repro_torch.obs import costs
@@ -979,7 +1242,8 @@ def _trajectory_phase(torch, tmp, shapes):
                 os.path.join(tmp, f"ck_{run}"), "--ledger",
                 os.path.join(tmp, f"{run}.jsonl"), "--keep-checkpoints", "2",
                 *extra]
-    n = len(shapes)
+    k1_grad, k2_grad = _launches(shapes, True)
+    k1_grow = _launches(shapes, False)[0]
     launches = {}
 
     # -- A: uninterrupted ---------------------------------------------------
@@ -993,8 +1257,9 @@ def _trajectory_phase(torch, tmp, shapes):
     # forward, on the grow of the parameters and on the grows of the two
     # AdamW moments that ride the hop; K3 never (every forward records
     # autograd); the counting passes launch nothing
-    want = {"ligo_blend_expand_grouped": n * (LIGO_STEPS + 3),
-            "ligo_blend_expand_bwd_fused": n * LIGO_STEPS,
+    want = {"ligo_blend_expand_grouped": (k1_grad * LIGO_STEPS
+                                          + 3 * k1_grow),
+            "ligo_blend_expand_bwd_fused": k2_grad * LIGO_STEPS,
             "flash_attention": 0}
     print(f"[traj] A: {sec_a:.1f} s, launches {launches['A']}", flush=True)
     if launches["A"] != want or res_a["status"] != "done":
@@ -1046,24 +1311,17 @@ def _trajectory_phase(torch, tmp, shapes):
                     costs.measurement(f"train_step[{arch}]"))
     train_pass_ms = costs.measurement(f"train_step[{archs[-1]}]")["pass_ms"]
     m_ligo = costs.measurement(f"ligo_step[{archs[-1]}]")
-    want_k = sum(ligo_expand.operation_count(*d[1:])
-                 + ligo_expand_bwd.operation_count(*d[1:]) for d in shapes)
-    print(f"[flops] LiGO step gpt2-base -> gpt2-medium (batch 8 x 128, "
-          f"kernel route): measured {m_ligo['flops']:.4e} (aten "
-          f"{m_ligo['flops_aten']:.4e}, K1+K2 {m_ligo['flops_kernels']:.4e})"
-          f" / modelled {m_ligo['modelled_flops']:.4e} = "
-          f"{m_ligo['ratio']:.3f}; FlopCounter pass "
-          f"{m_ligo['pass_ms']:.1f} ms. Not gated: an open fault of the "
-          f"port (ROADMAP section 3), above the gate's {FLOPS_GATE[1]}",
-          flush=True)
-    if m_ligo["flops_kernels"] != want_k:
-        raise AssertionError(f"LiGO step: K1+K2 counted "
-                             f"{m_ligo['flops_kernels']:.6e}, the plan's "
-                             f"groups need {want_k:.6e}")
+    want_k = _kernel_operations(shapes)
     m_plain = _plain_route_ligo_flops(torch, m_ligo["modelled_flops"])
     print(f"[flops] the same LiGO step on the plain route (min-FLOP "
           f"contractions, no kernel): measured {m_plain['flops']:.4e} / "
           f"modelled = {m_plain['ratio']:.3f}", flush=True)
+    _gate_ratio("LiGO step gpt2-base -> gpt2-medium (batch 8 x 128, kernel "
+                "route)", m_ligo)
+    if m_ligo["flops_kernels"] != want_k:
+        raise AssertionError(f"LiGO step: K1+K2 counted "
+                             f"{m_ligo['flops_kernels']:.6e}, the plan's "
+                             f"groups need {want_k:.6e}")
     m_ci = _reference_ci_ligo_gate(torch)
 
     # -- the scratch baseline and the savings report --------------------------
@@ -1161,6 +1419,213 @@ def _trajectory_phase(torch, tmp, shapes):
             "ligo_ratio": m_ligo["ratio"], "ci_ratio": m_ci["ratio"]}
 
 
+# Phase 8: the paper's vision pairs through the train path's pieces at
+# full width: (source, target, batch, source AdamW steps, LiGO steps,
+# target AdamW steps). CaiT takes K3's FMA route (dh 48) at a reduced step
+# count.
+VISION = [("deit-s", "deit-b", 32, 3, 4, 3), ("cait-xs", "cait-s", 32, 2, 2, 2)]
+# kernel route against the plain route: a value of the bf16 kernel route
+# may lie no farther from the float32 plain route than twice the bf16 plain
+# route's distance plus this (normalised), the rule of _ligo_grad_check
+VISION_TOL = 1e-2
+
+
+def _vision_batches(torch, cfg, batch, seed, n, f32=False):
+    """``n`` ``dummy_batch`` training batches of ``cfg`` on the card, seeds
+    ``seed``, ``seed + 1``, ...; with ``f32`` their patches in float32."""
+    from repro_torch.models.inputs import dummy_batch
+    for i in range(n):
+        b = dummy_batch(cfg, batch, 0, "train", seed=seed + i)
+        yield {k: v.float() if f32 and v.is_floating_point() else v
+               for k, v in b.items()}
+
+
+def _vision_source(torch, c1, batch, steps):
+    """``c1`` from a seeded generator, then ``steps`` AdamW steps on
+    ``dummy_batch`` batches: (params, AdamW state, losses)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.training import init_train_state, make_train_step
+    params, opt = init_train_state(
+        c1, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    step = make_train_step(c1, TrainConfig(steps=steps, warmup_steps=1,
+                                           lr=1e-3))
+    losses = []
+    for s_, b in enumerate(_vision_batches(torch, c1, batch, 100, steps)):
+        params, opt, m = step(params, opt, b, s_)
+        losses.append(float(m["loss"]))
+    return params, opt, losses
+
+
+def _vision_run(torch, c1, c2, small, opt, batch, ligo_steps, tsteps, route):
+    """The rest of the paper's pipeline for one vision pair on one route,
+    from the trained source ``small`` and its AdamW state ``opt``: a LiGO
+    phase of ``ligo_steps`` SGD steps on target batches, ``grow()`` with the
+    AdamW moments, an autograd-free eval forward of the grown model, then
+    ``tsteps`` AdamW steps of it. ``route``: "kernel" (K1, K2 and K3 on
+    CUDA tensors), "plain" (the legacy per-leaf growth walk and the plain
+    attention), or "plain32" (the plain route in float32, from the same
+    source and batches upcast)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import grow
+    from repro_torch.models.losses import loss_fn
+    from repro_torch.training import make_train_step
+    from repro_torch.tree import tree_map
+    f32 = route == "plain32"
+    d1, d2 = ((c.scaled(dtype="float32") for c in (c1, c2)) if f32
+              else (c1, c2))
+    if f32:
+        small = tree_map(lambda x: x.float(), small)
+    big, info = grow(small, d1, d2, method="ligo",
+                     gen=torch.Generator(device="cuda").manual_seed(1),
+                     data_it=_vision_batches(torch, c2, batch, 200,
+                                             ligo_steps, f32),
+                     ligo_steps=ligo_steps,
+                     engine="plan" if route == "kernel" else "legacy",
+                     opt_state=opt)
+    grown = tree_map(lambda x: x.clone(), big)
+    eval_b = next(_vision_batches(torch, c2, batch, 300, 1, f32))
+    with torch.no_grad():
+        eval_loss, _ = loss_fn(big, d2, eval_b,
+                               use_kernel=None if route == "kernel"
+                               else False)
+    step = make_train_step(d2, TrainConfig(steps=tsteps, warmup_steps=1,
+                                           lr=1e-3))
+    opt2, tgt = info["opt_state"], []
+    for s_, b in enumerate(_vision_batches(torch, c2, batch, 400, tsteps,
+                                           f32)):
+        big, opt2, m = step(big, opt2, b, s_)
+        tgt.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return {"ligo": info["ligo_losses"], "grown": grown,
+            "eval": float(eval_loss), "tgt": tgt, "operator": info["operator"]}
+
+
+def _tree_dist(torch, got, want):
+    """The worst per-leaf distance of two trees, each leaf's max error
+    normalised by its largest entry, floored at 1e-3 of the tree's largest
+    (a leaf that starts at 0, such as the key bias, whose LiGO gradient is
+    0 in exact arithmetic, carries only rounding noise)."""
+    from repro_torch.core.ligo import _flatten
+    fg, fw = _flatten(got), _flatten(want)
+    if sorted(fg) != sorted(fw):
+        raise AssertionError("grown trees differ in structure")
+    top = max(float(x.float().abs().max()) for x in fw.values())
+    return max(float((fg[k].float() - fw[k].float()).abs().max())
+               / max(float(fw[k].float().abs().max()), 1e-3 * top)
+               for k in fw)
+
+
+def _vision_flops(torch, c1, c2, batch, operator, small):
+    """The measured-cost pass over one LiGO step of the pair (batch of
+    ``batch`` images) on the kernel route and on the plain route (the
+    plan's min-FLOP contractions), against the 6ND model at 196 tokens an
+    image."""
+    from repro_torch.core.grow import ligo_loss
+    from repro_torch.models.inputs import dummy_batch
+    from repro_torch.obs import costs
+    from repro_torch.roofline import train_flops_per_step
+    from repro_torch.training import value_and_grad
+    b = dummy_batch(c2, batch, 0, "train", seed=500)
+    modelled = train_flops_per_step(c2, batch, c2.num_patches - 1)
+    out = {}
+    for route, uk in (("kernel", None), ("plain", False)):
+        def step(o, bb, sp, uk=uk):
+            return value_and_grad(lambda oo, b3: (
+                ligo_loss(oo, sp, c1, c2, b3, use_kernel=uk), {}), o, bb)
+        out[route] = costs.measure_step(f"ligo_step[{c2.name}, {route}]",
+                                        step, operator, b, small,
+                                        modelled_flops=modelled)
+    return out
+
+
+def _vision_phase(torch):
+    """Phase 8: each vision pair on the kernel route (launches counted from
+    0 just before and read just after), the bf16 plain route and the
+    float32 plain route; the kernel route held against the plain routes;
+    the LiGO step's FLOPs on both routes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    launches, report = {}, {}
+    for a, b, batch, steps, lsteps, tsteps in VISION:
+        c1, c2 = get_config(a), get_config(b)
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        small, opt, src = _vision_source(torch, c1, batch, steps)
+        res = _vision_run(torch, c1, c2, small, opt, batch, lsteps, tsteps,
+                          "kernel")
+        got = ops.launch_counts()
+        sec_k = time.perf_counter() - t0
+        shapes = _k1_shapes(torch, c1, c2)
+        k1_grad, k2_grad = _launches(shapes, True)
+        want = {"ligo_blend_expand_grouped": (lsteps * k1_grad + 3
+                                              * _launches(shapes, False)[0]),
+                "ligo_blend_expand_bwd_fused": lsteps * k2_grad,
+                "flash_attention": c2.n_layers}
+        print(f"[vision] {a} -> {b} kernel route ({sec_k:.1f} s): launches "
+              f"{got}, want {want}", flush=True)
+        if got != want or not all(v > 0 for v in got.values()):
+            raise AssertionError(f"{a} -> {b}: launches {got}, want {want} "
+                                 f"(K1 and K2 on every LiGO step's groups and "
+                                 f"K1 on the grow of the params and both "
+                                 f"moments; K3 once a layer of the eval)")
+        launches[b] = got
+        plain, ref32 = (_vision_run(torch, c1, c2, small, opt, batch, lsteps,
+                                    tsteps, route)
+                        for route in ("plain", "plain32"))
+
+        def rel(x, y):
+            return abs(x - y) / max(abs(y), 1e-30)
+        worst = {}
+        for key in ("ligo", "tgt"):
+            for i, (k, p, r) in enumerate(zip(res[key], plain[key],
+                                              ref32[key])):
+                ek, ep = rel(k, r), rel(p, r)
+                worst[f"{key}[{i}]"] = (ek, ep)
+        worst["eval"] = (rel(res["eval"], ref32["eval"]),
+                         rel(plain["eval"], ref32["eval"]))
+        worst["grown"] = (_tree_dist(torch, res["grown"], ref32["grown"]),
+                          _tree_dist(torch, plain["grown"], ref32["grown"]))
+        bad = {k: v for k, v in worst.items()
+               if not v[0] <= 2 * v[1] + VISION_TOL}
+        finite = all(math.isfinite(x) for x in src) and all(
+            math.isfinite(x) for r in (res, plain) for key in ("ligo", "tgt")
+            for x in r[key])
+        print(f"[vision] {a} -> {b}: losses source {src}, LiGO "
+              f"{res['ligo']}, eval {res['eval']:.4f}, target {res['tgt']} "
+              f"(kernel route) | plain route LiGO {plain['ligo']}, eval "
+              f"{plain['eval']:.4f} | float32 plain LiGO {ref32['ligo']}, "
+              f"eval {ref32['eval']:.4f}", flush=True)
+        print(f"[vision] {a} -> {b}: normalised distance to the float32 "
+              f"plain route (bf16 kernel route, bf16 plain route): "
+              + ", ".join(f"{k} {v[0]:.2e}/{v[1]:.2e}"
+                          for k, v in worst.items())
+              + f" (kernel within 2x plain + {VISION_TOL:.0e})", flush=True)
+        if bad or not finite or not math.isfinite(res["eval"]):
+            raise AssertionError(f"{a} -> {b}: the kernel route disagrees "
+                                 f"with the plain route at {bad}, or a loss "
+                                 f"is not finite")
+        m = _vision_flops(torch, c1, c2, batch, res["operator"], small)
+        print(f"[flops] LiGO step {a} -> {b} (batch {batch} x "
+              f"{c2.num_patches - 1} patches): kernel route measured "
+              f"{m['kernel']['flops']:.4e} (aten {m['kernel']['flops_aten']:.4e}"
+              f", K1+K2 {m['kernel']['flops_kernels']:.4e}) / modelled "
+              f"{m['kernel']['modelled_flops']:.4e} = "
+              f"{m['kernel']['ratio']:.3f}; plain route "
+              f"{m['plain']['flops']:.4e} = {m['plain']['ratio']:.3f}",
+              flush=True)
+        want_k = _kernel_operations(shapes)
+        if m["kernel"]["flops_kernels"] != want_k:
+            raise AssertionError(f"{a} -> {b}: K1+K2 counted "
+                                 f"{m['kernel']['flops_kernels']:.6e}, the "
+                                 f"plan's groups need {want_k:.6e}")
+        report[b] = {"ratio": m["kernel"]["ratio"],
+                     "plain_ratio": m["plain"]["ratio"],
+                     "seconds": time.perf_counter() - t0}
+        del res, plain, ref32, small, opt
+        torch.cuda.empty_cache()
+    return launches, report
+
+
 def _quickstart_phase():
     """Phase 7: the quickstart twin at the script's own size; returns its
     kernel launches."""
@@ -1234,45 +1699,72 @@ def main() -> int:
     cfg1, cfg2 = get_config("gpt2-base"), get_config("gpt2-medium")
     shapes = _k1_shapes(torch, cfg1, cfg2)
     qs_shapes = _k1_shapes(torch, quickstart.SMALL, quickstart.BIG)
-    rows = [_check_k1(torch, name, torch.bfloat16, *dims, seed=100 + i)
-            for i, (name, *dims) in enumerate(shapes)]
+    k1_main = _k1_checks(shapes)
+    rows = [_check_k1(torch, name, torch.bfloat16, *d, seed=100 + i, j=j)
+            for i, (name, d, j) in enumerate(k1_main)]
     main_rows = rows[:]
-    rows += [_check_k1(torch, f"{name} {mom}", torch.float32, *dims,
-                       seed=seed + i, square=mom == "v")
+    rows += [_check_k1(torch, f"{name} {mom}", torch.float32, *d,
+                       seed=seed + i, square=mom == "v", j=j)
              for mom, seed in (("m", 110), ("v", 120))
-             for i, (name, *dims) in enumerate(shapes)]
-    rows += [_check_k1(torch, f"qs {name}", torch.float32, *dims,
-                       seed=130 + i)
-             for i, (name, *dims) in enumerate(qs_shapes)]
+             for i, (name, d, j) in enumerate(_k1_checks(shapes))]
+    qs_k1 = _k1_checks(qs_shapes)
+    rows += [_check_k1(torch, f"qs {name}", torch.float32, *d, seed=130 + i,
+                       j=j)
+             for i, (name, d, j) in enumerate(qs_k1)]
     rows += [_check_k1(torch, name, getattr(torch, dt), *dims, seed=seed)
              for name, dt, dims, seed in K1_EXTRA_SHAPES]
     routes = [r["tensor_cores"] for r in rows]
-    if routes != ([True] * len(shapes) + [False] * (2 * len(shapes)
-                                                    + len(qs_shapes))
+    if routes != ([True] * len(k1_main) + [False] * (2 * len(k1_main)
+                                                     + len(qs_k1))
                   + [False, False, True, False]):
         raise AssertionError(f"K1 routes {routes}: the bf16 main-path and "
                              f"aligned shapes must take the tensor cores, the "
                              f"float32 and unaligned ones the FMA GEMM")
-    rows2 = [_check_k2(torch, name, torch.bfloat16, *dims, seed=200 + i)
-             for i, (name, *dims) in enumerate(shapes)]
+    k2_main = _k2_checks(shapes)
+    rows2 = [_check_k2(torch, name, torch.bfloat16, *d, seed=200 + i,
+                       need_dW=need, j=j)
+             for i, (name, d, j, need) in enumerate(k2_main)]
     main_rows2 = rows2[:]
-    rows2 += [_check_k2(torch, f"qs {name}", torch.float32, *dims,
-                        seed=230 + i)
-              for i, (name, *dims) in enumerate(qs_shapes)]
+    qs_k2 = _k2_checks(qs_shapes)
+    rows2 += [_check_k2(torch, f"qs {name}", torch.float32, *d, seed=230 + i,
+                        need_dW=need, j=j)
+              for i, (name, d, j, need) in enumerate(qs_k2)]
     rows2 += [_check_k2(torch, name, getattr(torch, dt), *dims, seed=seed)
               for name, dt, dims, seed in K2_EXTRA_SHAPES]
     routes = [r["tensor_cores"] for r in rows2]
-    if routes != ([True] * len(shapes) + [False] * len(qs_shapes)
+    if routes != ([True] * len(k2_main) + [False] * len(qs_k2)
                   + [False, False, True, False]):
         raise AssertionError(f"K2 routes {routes}: the bf16 main-path and "
                              f"aligned shapes must take the tensor cores, the "
                              f"float32 and unaligned ones the FMA GEMM")
-    mom_rows = rows[len(shapes):3 * len(shapes)]
-    print(f"[k1] one float32 grow of both AdamW moments (phase 2, 12 "
-          f"launches): kernel {sum(r['ms'] for r in mom_rows):.1f} ms, plain "
+    n_bits = sum(1 for r in rows2 if r["u_bitwise"])
+    print(f"[k2] K1's U equal bit for bit to the U K2 computes for itself, "
+          f"and K2 fed K1's U equal bit for bit to K2 on its own, at "
+          f"{n_bits} shapes (every K2 check without a split)", flush=True)
+    mom_rows = rows[len(k1_main):3 * len(k1_main)]
+    print(f"[k1] one float32 grow of both AdamW moments (phase 2, "
+          f"{2 * _launches(shapes, False)[0]} launches): kernel "
+          f"{sum(r['ms'] for r in mom_rows):.1f} ms, plain "
           f"{sum(r['plain_ms'] for r in mom_rows):.1f} ms, library "
           f"{sum(r['library_ms'] for r in mom_rows):.1f} ms, bound "
           f"{sum(r['bound_ms'] for r in mom_rows):.1f} ms", flush=True)
+    # phase 8's groups: both vision pairs' LiGO steps and grows, bf16
+    vision = {}
+    for i, (a, b, *_) in enumerate(VISION):
+        vshapes = _k1_shapes(torch, get_config(a), get_config(b))
+        vision[b] = (
+            [_check_k1(torch, f"{b} {name}", torch.bfloat16, *d,
+                       seed=140 + 10 * i + n, j=j)
+             for n, (name, d, j) in enumerate(_k1_checks(vshapes))],
+            [_check_k2(torch, f"{b} {name}", torch.bfloat16, *d,
+                       seed=240 + 10 * i + n, need_dW=need, j=j)
+             for n, (name, d, j, need) in enumerate(_k2_checks(vshapes))])
+        if not all(r["tensor_cores"] for r in vision[b][0] + vision[b][1]):
+            raise AssertionError(f"{b}: every bf16 K1 and K2 shape of the "
+                                 f"pair has widths that are multiples of 8 "
+                                 f"and must take the tensor cores")
+        rows += vision[b][0]
+        rows2 += vision[b][1]
 
     k3_rows = [_check_k3(torch, name, dtype, *dims, seed=300 + i)
                for i, (name, dtype, dims) in enumerate(K3_SHAPES)]
@@ -1289,13 +1781,15 @@ def main() -> int:
     res = serve.main(MAIN_ARGS)
     launches = ops.launch_counts()
     print(f"[main] launches during the serving path: {launches}", flush=True)
-    want = {"ligo_blend_expand_grouped": len(shapes),
+    want = {"ligo_blend_expand_grouped": _launches(shapes, False)[0],
             "ligo_blend_expand_bwd_fused": 0,
             "flash_attention": cfg2.n_layers}
     if launches != want:
         raise AssertionError(f"kernel launches on the serving path: "
                              f"{launches}, want {want} (K1 once per eligible "
-                             f"group, K3 once per layer of the prefill)")
+                             f"group, twice where the right expansion runs "
+                             f"between its steps; K3 once per layer of the "
+                             f"prefill)")
     with torch.no_grad():
         plan = plan_for(res["small_cfg"], res["cfg"], res["small"])
         plain = plan.apply(res["ligo"], res["small"], use_kernel=False)
@@ -1380,15 +1874,18 @@ def main() -> int:
     tres = train.main(TRAIN_ARGS)
     tlaunch = ops.launch_counts()
     print(f"[main] launches during the training path: {tlaunch}", flush=True)
-    want = {"ligo_blend_expand_grouped": len(shapes) * (LIGO_STEPS + 1),
-            "ligo_blend_expand_bwd_fused": len(shapes) * LIGO_STEPS,
+    k1_ligo, k2_ligo = _launches(shapes, True)
+    want = {"ligo_blend_expand_grouped": (k1_ligo * LIGO_STEPS
+                                          + _launches(shapes, False)[0]),
+            "ligo_blend_expand_bwd_fused": k2_ligo * LIGO_STEPS,
             "flash_attention": 0}
     if tlaunch != want:
         raise AssertionError(f"kernel launches on the training path: "
-                             f"{tlaunch}, want {want} (K1 once per eligible "
-                             f"group per LiGO step and final grow, K2 once "
-                             f"per eligible group per LiGO step, K3 never: "
-                             f"every forward there records autograd)")
+                             f"{tlaunch}, want {want} (K1 and K2 once per "
+                             f"eligible group per LiGO step, twice where the "
+                             f"right expansion runs between K1's steps, K1 "
+                             f"also on the final grow, K3 never: every "
+                             f"forward there records autograd)")
     if tres["restarts"] != 0:
         raise AssertionError(f"the training path's supervisor restarted "
                              f"{tres['restarts']} times: a step raised")
@@ -1398,7 +1895,10 @@ def main() -> int:
             math.isfinite(x) for x in losses):
         raise AssertionError(f"training losses: {losses}")
     _ligo_grad_check(torch, tres, 1e-4, 1e-2)
-    tres["k2_groups"] = len(shapes)
+    tres["shapes"] = shapes
+    u_gb = _saved_u_gb(torch, tres)
+    print(f"[train] K1's float32 U kept for K2 by the growth of one LiGO "
+          f"forward (saved-tensors hook): {u_gb:.3f} GB", flush=True)
     _profile_steps(torch, tres)
     print(f"[train] losses: source {tres['source_losses']}, LiGO "
           f"{tres['ligo_losses']}, gpt2-medium {tres['train_losses']}")
@@ -1427,6 +1927,31 @@ def main() -> int:
 
     # -- phase 7: the quickstart twin at the script's own size ---------------
     traj["launches"]["quickstart"] = _quickstart_phase()
+
+    # -- phase 8: the paper's vision pairs at full width ---------------------
+    vlaunch, vreport = _vision_phase(torch)
+    traj["launches"].update({f"vision {b}": n for b, n in vlaunch.items()})
+    by_name = {r["shape"]: r for r in k3_rows}
+    for a, b, batch, *_ in VISION:
+        k1r, k2r = vision[b]
+        k3r = by_name[f"{b} eval"]
+        n3 = vlaunch[b]["flash_attention"]
+        print(f"[report] {a} -> {b} (phase 2 rows, bf16): K1 one grow "
+              f"{sum(r['ms'] for r in k1r):.3f} ms (plain "
+              f"{sum(r['plain_ms'] for r in k1r):.3f}, library "
+              f"{sum(r['library_ms'] for r in k1r):.3f}, bound "
+              f"{sum(r['bound_ms'] for r in k1r):.3f}); K2 one LiGO "
+              f"backward {sum(r['ms'] for r in k2r):.3f} ms (plain "
+              f"{sum(r['plain_ms'] for r in k2r):.3f}, library "
+              f"{sum(r['library_ms'] for r in k2r):.3f}, bound "
+              f"{sum(r['bound_ms'] for r in k2r):.3f}); K3 one eval "
+              f"forward {n3} x {k3r['ms']:.4f} ms (SDPA {k3r['library_ms']:.4f}"
+              f", bound {k3r['bound_ms']:.4f}, "
+              f"{'wgmma' if k3r['tensor_cores'] else 'fma'}); launches "
+              f"{vlaunch[b]}; LiGO step FLOPs / 6ND "
+              f"{vreport[b]['ratio']:.3f} (plain route "
+              f"{vreport[b]['plain_ratio']:.3f}); phase "
+              f"{vreport[b]['seconds']:.1f} s", flush=True)
 
     # -- phase 5: report ------------------------------------------------------
     def entry(name, source, replaces, n, rows_, main_):

@@ -41,6 +41,17 @@ def ligo_loss(ligo, small_params, cfg1: ModelConfig, cfg2: ModelConfig,
     return loss
 
 
+def batch_geometry(batch: Dict[str, torch.Tensor]) -> Tuple[int, int]:
+    """(batch size, tokens a row) of a batch, as the JAX package's ledger
+    reads them: from ``tokens``, else from the leaf with the most
+    dimensions in key order (a vision batch's patches: B x num_patches - 1).
+    """
+    leaf = batch.get("tokens")
+    if leaf is None:
+        leaf = max((batch[k] for k in sorted(batch)), key=lambda x: x.dim())
+    return int(leaf.shape[0]), int(leaf.shape[1])
+
+
 def _ligo_phase_id(cfg1: ModelConfig, cfg2: ModelConfig, steps: int,
                    lr: float, momentum: float,
                    phase_meta: Optional[Dict]) -> Dict:
@@ -159,7 +170,7 @@ def train_ligo(ligo, small_params, cfg1: ModelConfig, cfg2: ModelConfig,
         """Model and measure one LiGO step, once per phase."""
         from repro_torch.obs import costs
         from repro_torch.roofline import train_flops_per_step
-        bsz, seq = batch["tokens"].shape[:2]
+        bsz, seq = batch_geometry(batch)
         led["tokens"] = float(bsz * seq)
         led["fps_model"] = train_flops_per_step(cfg2, bsz, seq)
         led["meas_fps"] = costs.measure_step(

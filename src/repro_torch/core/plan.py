@@ -11,9 +11,11 @@ fixes, ahead of time:
    the group may run on kernel K1, the fused depth-blend + left-expansion,
    with kernel K2 as its backward
    (:func:`repro_torch.kernels.ops.ligo_blend_expand_grouped_vjp`); on that
-   route, whether the group's right expansion runs before K1, on the L1
-   source layers, or after it, on the L2 target layers, whichever needs
-   fewer operations.
+   route, where the group's right expansion runs (:func:`_right_costs`):
+   before K1, on the L1 source layers; between K1's U product and its
+   blend, on the L1 expanded slabs; or after K1, on the L2 target layers,
+   whichever needs the fewest operations, once for a forward alone and
+   once for a forward and its backward.
 
 Kernel eligibility. The JAX package gates its fused path on
 ``fused_vmem_bytes``: the resident VMEM state of its *backward* TPU kernel
@@ -48,7 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spec as S
 from repro_torch.core.ligo import (_flatten, _kind_counts, _unflatten,
                                    resolve_expander)
-from repro_torch.kernels import ligo_expand, ops
+from repro_torch.kernels import ops
 
 ExprRef = Tuple[Any, str]          # (hashable expr key, role) — plan.exprs key
 
@@ -90,7 +92,8 @@ class LeafGroup:
     vec: bool                      # per-layer vector leaf (out-expander only)
     order: Tuple[str, ...]         # op sequence drawn from {in, out, blend}
     kernel_ok: bool                # may run on kernels K1 and K2
-    out_first: bool = False        # K1 route: right expansion before K1
+    right: str = "after"           # K1 route: where the right expansion
+    right_grad: str = "after"      # runs without / with gradients
 
 
 def _best_order(ops_present, L1: int, L2: int, extra: int, a: int, b: int,
@@ -114,6 +117,36 @@ def _best_order(ops_present, L1: int, L2: int, extra: int, a: int, b: int,
         if best_cost is None or cost < best_cost:
             best, best_cost = perm, cost
     return best if best is not None else ()
+
+
+RIGHT_PLACES = ("before", "after", "between")   # ties go to the first
+
+
+def _right_costs(extra: int, L1: int, L2: int, a: int, b: int, i: int,
+                 j: int) -> Dict[str, Tuple[int, int]]:
+    """Operations of a K1-route group's forward and of its backward, for
+    each place of its right expansion (b → j), with the operator taking
+    gradients and the source leaves not (the LiGO phase):
+
+    - ``before``: X Rᵀ on the L1 source layers, then K1 and K2 at width j;
+      W takes a gradient through R, so K2 computes dW;
+    - ``between``: K1's U at width b, U Rᵀ, K1's blend at width j; K2's
+      blend half (Q, dw) at j, dR = Σ Qᵀ U and dU = Q R, K2's dB at b;
+    - ``after``: K1 at width b, then P Rᵀ on the L2 target layers; its
+      backward dR and dP, then K2 (dB, Q, dw) at width b.
+
+    K2 takes K1's U in every place, so it never recomputes it."""
+    def prod(bd):          # one L1-batched product: K1's U, K2's dW or dB
+        return 2 * extra * L1 * i * a * bd
+
+    def blend(bd):         # K1's blend, K2's dP blend or its dw
+        return 2 * extra * L2 * L1 * i * bd
+    src, mid, tgt = (2 * extra * n * b * j for n in (L1 * a, L1 * i, L2 * i))
+    return {
+        "before": (src + prod(j) + blend(j), src + 2 * prod(j) + 2 * blend(j)),
+        "between": (prod(b) + mid + blend(j), 2 * blend(j) + 2 * mid + prod(b)),
+        "after": (prod(b) + blend(b) + tgt, 2 * tgt + prod(b) + 2 * blend(b)),
+    }
 
 
 def _plan_group(kind: str, stacked: bool, paths, shape, in_e, out_e,
@@ -144,16 +177,13 @@ def _plan_group(kind: str, stacked: bool, paths, shape, in_e, out_e,
     order = _best_order(ops_present, L1, L2, extra, a, b, i, j)
     kernel_ok = (blended and in_e is not None and len(shape) in (3, 4)
                  and min(L1, L2, extra, i, a, b) >= 1)
-    out_first = False
+    right = right_grad = "after"
     if kernel_ok and out_e is not None:
-        # expanding b -> j before K1 costs L1·a·b·j and widens K1's slabs
-        # to j; after K1 it costs L2·i·b·j
-        k1 = functools.partial(ligo_expand.operation_count, 1, L2, L1,
-                               extra, i, a)
-        out_first = (2 * extra * L1 * a * b * j + k1(j)
-                     < k1(b) + 2 * extra * L2 * i * b * j)
+        cost = _right_costs(extra, L1, L2, a, b, i, j)
+        right = min(RIGHT_PLACES, key=lambda p: cost[p][0])
+        right_grad = min(RIGHT_PLACES, key=lambda p: sum(cost[p]))
     return LeafGroup(kind, stacked, tuple(paths), tuple(shape), in_ref,
-                     out_ref, False, order, kernel_ok, out_first)
+                     out_ref, False, order, kernel_ok, right, right_grad)
 
 
 class GrowthPlan:
@@ -213,18 +243,25 @@ class GrowthPlan:
     def _run_group_fused(g: LeafGroup, X: torch.Tensor, E_in, E_out, w_g):
         """Blend + left-expand for the *whole group* in one K1 launch (the G
         leaves and any MoE expert dim E are the kernel's batch); the right
-        expansion is a plain matmul on K1's input or on its output, as
-        ``g.out_first`` says. Differentiable in ``w_g``, ``E_in``, ``E_out``
-        and ``X``: the backward is one K2 launch."""
-        if E_out is not None and g.out_first:
-            X, E_out = GrowthPlan._expand_out(X, E_out), None
+        expansion is a plain matmul on K1's input, between K1's two steps
+        or on its output, as ``g.right`` (forward only) or ``g.right_grad``
+        (when the operator takes gradients) says. Differentiable in ``w_g``,
+        ``E_in``, ``E_out`` and ``X``: the backward is K2."""
+        place = None
+        if E_out is not None:
+            grad = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (w_g, E_in, E_out, X))
+            place = g.right_grad if grad else g.right
+        if place == "before":
+            X = GrowthPlan._expand_out(X, E_out)
         moe = X.dim() == 5                     # (G, L1, E, a, b) expert stack
         Xg = X if moe else X[:, :, None]       # insert E=1 for plain leaves
         P = ops.ligo_blend_expand_grouped_vjp(
-            w_g, E_in.to(X.dtype).contiguous(), Xg.contiguous())
+            w_g, E_in.to(X.dtype).contiguous(), Xg.contiguous(),
+            E_out if place == "between" else None)
         if not moe:
             P = P[:, :, 0]
-        if E_out is not None:
+        if place == "after":
             P = GrowthPlan._expand_out(P, E_out)
         return P
 

@@ -20,13 +20,19 @@
 //      wgmma GEMM, from X = B (K-major as it is) and Y = W^T (from
 //      ligo_transpose_kernel); f32, or an unaligned width, on the FMA GEMM
 //      on W's own strides. It is the launch K2 makes for its product U, with
-//      the same arguments, so the two should agree bit for bit (expected, not
-//      checked on the card).
+//      the same arguments, so the two agree bit for bit (chip_smoke.py and
+//      tests/test_torch_gpu.py check it): K2 takes this U from K1 instead of
+//      computing it again.
 //   2. k1_blend_kernel: P[g, k, e] = sum_l w[g, k, l] U[g, l, e] in f32, each
 //      thread V consecutive elements of one (g, e) and the sums of up to
 //      kBlendK target layers k in registers, so U is read once; the sum over
 //      l runs in order, so the result is deterministic; P is rounded to its
 //      dtype once.
+//
+// `stage` runs both steps (0), step 1 alone (1: U is the result) or step 2
+// alone from the caller's U (2). The GrowthPlan runs the two apart where a
+// group's right expansion goes between them (U -> U E^T -> blend), in the
+// order that needs the fewest operations for mlp/w2.
 //
 // Why this order, always. Expanding first costs 2 G E (L1 I A Bd + L2 L1 I Bd)
 // operations, blending first 2 G E L2 (L1 A Bd + I A Bd). On the LiGO paths
@@ -123,22 +129,24 @@ k1_blend_kernel(const float* __restrict__ w, const float* __restrict__ U,
 template <typename T>
 int launch(const float* w, const T* B, const T* W, __nv_bfloat16* Wt,
            float* U, T* P, int G, int L2, int L1, int E, int I, int A,
-           int Bd, int route, cudaStream_t stream) {
+           int Bd, int route, int stage, cudaStream_t stream) {
   const int Z = G * L1 * E;                  // (g, l, e) batch
   const int64_t slab = (int64_t)I * Bd;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if (route != 0 && (route != 1 || !kBf16)) {
+  if ((route != 0 && (route != 1 || !kBf16)) || stage < 0 || stage > 2) {
     return (int)cudaErrorNotSupported;
   }
+  const bool expand = stage != 2;
+  const bool blend = stage != 1;
   // the blend stages w[g] transposed, its k padded to Lp; refused before
   // anything launches where it would not fit
   const int Lp = (L2 + kBlendK - 1) / kBlendK * kBlendK;
   const size_t smem = (size_t)L1 * Lp * sizeof(float);
-  if (smem > kBlendSmem) return (int)cudaErrorInvalidValue;
+  if (blend && smem > kBlendSmem) return (int)cudaErrorInvalidValue;
 
   // 1. U[z] (I x Bd) = B (I x A) W[z] (A x Bd), f32: K2's product U
   if constexpr (kBf16) {
-    if (route == 1) {
+    if (expand && route == 1) {
       // both maps before the first launch: a map TMA cannot take returns
       // its error with nothing launched
       CUtensorMap mx, my;
@@ -156,7 +164,7 @@ int launch(const float* w, const T* B, const T* W, __nv_bfloat16* Wt,
       if (e != 0) return e;
     }
   }
-  if (route == 0) {
+  if (expand && route == 0) {
     GemmArgs gu;
     gu.M = I; gu.N = Bd; gu.K = A; gu.R = 1; gu.S = 1;
     gu.sAm = A; gu.sAk = 1; gu.sAz = 0; gu.sAr = 0;
@@ -167,6 +175,7 @@ int launch(const float* w, const T* B, const T* W, __nv_bfloat16* Wt,
   }
 
   // 2. P = w . U over the layer axis l; 4-wide where the rows allow it
+  if (!blend) return (int)cudaGetLastError();
   if (aligned4(U) && aligned4(P) && slab % 4 == 0) {
     const dim3 grid((unsigned)((slab / 4 + kThreads - 1) / kThreads), G * E);
     k1_blend_kernel<T, 4><<<grid, kThreads, smem, stream>>>(w, U, P, L2, L1,
@@ -186,29 +195,32 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (for B, W and P). w is (G, L2, L1) f32.
 // route: 0 runs U = B W on the FMA GEMM, 1 on the tensor-core GEMM (bf16
 // only; the caller has checked that I, A and Bd are multiples of 8 and put B
-// and W on 16-byte boundaries). Scratch, allocated by the caller: on route 1
-// Wt (G, L1, E, Bd, A) bf16; U (G, L1, E, I, Bd) f32. Returns 0, a
+// and W on 16-byte boundaries). stage: 0 both steps, 1 U only (w and P
+// unused), 2 the blend only, from the caller's U (B, W and Wt unused).
+// Allocated by the caller: on route 1 Wt (G, L1, E, Bd, A) bf16 scratch;
+// U (G, L1, E, I, Bd) f32, which holds B W when the call returns. Returns 0, a
 // cudaError_t (cudaErrorInvalidValue, with nothing launched, where the
 // blend's staged w, L1 * ceil(L2 / 24) * 24 * 4 bytes, exceeds 48 KB), or a
 // value >= kErrTensorMap - 1 for a failed tensor-map encode.
 int ligo_blend_expand_grouped(const void* w, const void* B, const void* W,
                               void* Wt, void* U, void* P, int G, int L2,
                               int L1, int E, int I, int A, int Bd, int route,
-                              int dtype, void* stream) {
+                              int stage, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return launch<__nv_bfloat16>(
         static_cast<const float*>(w), static_cast<const __nv_bfloat16*>(B),
         static_cast<const __nv_bfloat16*>(W),
         static_cast<__nv_bfloat16*>(Wt), static_cast<float*>(U),
-        static_cast<__nv_bfloat16*>(P), G, L2, L1, E, I, A, Bd, route, s);
+        static_cast<__nv_bfloat16*>(P), G, L2, L1, E, I, A, Bd, route, stage,
+        s);
   }
   return launch<float>(static_cast<const float*>(w),
                        static_cast<const float*>(B),
                        static_cast<const float*>(W),
                        static_cast<__nv_bfloat16*>(Wt),
                        static_cast<float*>(U), static_cast<float*>(P), G, L2,
-                       L1, E, I, A, Bd, route, s);
+                       L1, E, I, A, Bd, route, stage, s);
 }
 
 const char* ligo_cuda_error_string(int err) { return error_text(err); }

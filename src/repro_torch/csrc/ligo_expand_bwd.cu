@@ -15,6 +15,16 @@
 // Every sum accumulates in f32. In bf16, Q's rounding is the one rounding
 // that the function's own definition does not have.
 //
+// `flags` says which of these a call runs, so that it does only the work the
+// caller's autograd needs: kUGiven takes U from the caller (kernel K1 has
+// just computed it, with the same GEMM and arguments: bit for bit this U)
+// instead of product U; kQGiven takes Q from the caller instead of the dP
+// blend; kNeedDw, kNeedDB and kNeedDWt ask for dw, dB and dW. The GrowthPlan
+// asks for dW only where W takes a gradient, and runs the K2 of a group whose
+// right expansion sits between K1's U and its blend in two calls: the dP
+// blend and dw (against the expanded U), then, after the expansion's own
+// backward, dB from the narrow Q.
+//
 // Replaces the Pallas TPU kernel src/repro/kernels/ligo_expand_bwd.py::
 // ligo_blend_expand_bwd_fused (body `_bwd_kernel`, pallas_call at line 164).
 // The TPU kernel makes one serial pass over the dP tiles and keeps a whole
@@ -80,6 +90,12 @@
 #include "ligo_gemm.cuh"
 
 namespace {
+
+constexpr int kUGiven = 1;     // flags: U is the caller's, no product U
+constexpr int kQGiven = 2;     //        Q is the caller's, no dP blend
+constexpr int kNeedDw = 4;     //        dw (needs dP and U)
+constexpr int kNeedDB = 8;     //        dB
+constexpr int kNeedDWt = 16;   //        dW
 
 constexpr int kBlendL = 12;    // l values per pass of the dP blend
 constexpr int kDwL = 12;       // l values per pass of the dw partials
@@ -282,29 +298,34 @@ struct Bufs {
 // Products 2-4 on the FMA core; Z = G*L1*E.
 template <typename T>
 cudaError_t products_fma(const Bufs<T>& b, int Z, int I, int A, int Bd,
-                         int splits, cudaStream_t stream) {
+                         int splits, int flags, bool u, cudaStream_t stream) {
   const int64_t sQ = (int64_t)I * Bd;
   const int64_t sW = (int64_t)A * Bd;
   cudaError_t err;
 
   // dW[z] (A x Bd) = B^T (A x I) @ Q[z] (I x Bd)
-  GemmArgs gw;
-  gw.M = A; gw.N = Bd; gw.K = I; gw.R = 1; gw.S = 1;
-  gw.sAm = 1; gw.sAk = A; gw.sAz = 0; gw.sAr = 0;
-  gw.sBk = Bd; gw.sBn = 1; gw.sBz = sQ; gw.sBr = 0;
-  gw.ldc = Bd; gw.sCz = sW;
-  err = fma_gemm<kProdDW>(b.B, b.Q, b.dW, gw, Z, stream);
-  if (err != cudaSuccess) return err;
+  if (flags & kNeedDWt) {
+    GemmArgs gw;
+    gw.M = A; gw.N = Bd; gw.K = I; gw.R = 1; gw.S = 1;
+    gw.sAm = 1; gw.sAk = A; gw.sAz = 0; gw.sAr = 0;
+    gw.sBk = Bd; gw.sBn = 1; gw.sBz = sQ; gw.sBr = 0;
+    gw.ldc = Bd; gw.sCz = sW;
+    err = fma_gemm<kProdDW>(b.B, b.Q, b.dW, gw, Z, stream);
+    if (err != cudaSuccess) return err;
+  }
 
   // dB (I x A) = sum_r Q[r] (I x Bd) @ W[r]^T (Bd x A), r over the split
-  GemmArgs gb;
-  gb.M = I; gb.N = A; gb.K = Bd; gb.R = Z; gb.S = splits;
-  gb.sAm = Bd; gb.sAk = 1; gb.sAz = 0; gb.sAr = sQ;
-  gb.sBk = 1; gb.sBn = Bd; gb.sBz = 0; gb.sBr = sW;
-  gb.ldc = A; gb.sCz = (int64_t)I * A;
-  err = splits == 1 ? fma_gemm<kProdDB>(b.Q, b.W, b.dB, gb, 1, stream)
-                    : fma_gemm<kProdDB>(b.Q, b.W, b.dBpart, gb, 1, stream);
-  if (err != cudaSuccess) return err;
+  if (flags & kNeedDB) {
+    GemmArgs gb;
+    gb.M = I; gb.N = A; gb.K = Bd; gb.R = Z; gb.S = splits;
+    gb.sAm = Bd; gb.sAk = 1; gb.sAz = 0; gb.sAr = sQ;
+    gb.sBk = 1; gb.sBn = Bd; gb.sBz = 0; gb.sBr = sW;
+    gb.ldc = A; gb.sCz = (int64_t)I * A;
+    err = splits == 1 ? fma_gemm<kProdDB>(b.Q, b.W, b.dB, gb, 1, stream)
+                      : fma_gemm<kProdDB>(b.Q, b.W, b.dBpart, gb, 1, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (!u) return cudaSuccess;
 
   // U[z] (I x Bd) = B (I x A) @ W[z] (A x Bd), f32
   GemmArgs gu;
@@ -315,47 +336,66 @@ cudaError_t products_fma(const Bufs<T>& b, int Z, int I, int A, int Bd,
   return fma_gemm<kProdU>(b.B, b.W, b.U, gu, Z, stream);
 }
 
-// The six tensor maps of products 2-4 on the tensor cores, X and Y of dW,
-// dB and U in turn. launch() encodes them before its first kernel, so a map
-// that TMA cannot take returns its error with nothing launched.
+// The tensor maps of products 2-4 on the tensor cores that a call runs, X
+// and Y of dW, dB and U in turn. launch() encodes them before its first
+// kernel, so a map that TMA cannot take returns its error with nothing
+// launched.
 int tc_maps(const Bufs<__nv_bfloat16>& b, int Z, int I, int A, int Bd,
-            CUtensorMap* m) {
+            int flags, bool u, CUtensorMap* m) {
   int e = 0;
-  if ((e = make_map(&m[0], b.Bt, I, A, 1)) != 0) return e;    // dW: X = B^T
-  if ((e = make_map(&m[1], b.Qt, I, Bd, Z)) != 0) return e;   //     Y = Q^T
-  if ((e = make_map(&m[2], b.Q, Bd, I, Z)) != 0) return e;    // dB: X = Q
-  if ((e = make_map(&m[3], b.W, Bd, A, Z)) != 0) return e;    //     Y = W
-  if ((e = make_map(&m[4], b.B, A, I, 1)) != 0) return e;     // U:  X = B
-  return make_map(&m[5], b.Wt, A, Bd, Z);                     //     Y = W^T
+  if (flags & kNeedDWt) {
+    if ((e = make_map(&m[0], b.Bt, I, A, 1)) != 0) return e;  // dW: X = B^T
+    if ((e = make_map(&m[1], b.Qt, I, Bd, Z)) != 0) return e; //     Y = Q^T
+  }
+  if (flags & kNeedDB) {
+    if ((e = make_map(&m[2], b.Q, Bd, I, Z)) != 0) return e;  // dB: X = Q
+    if ((e = make_map(&m[3], b.W, Bd, A, Z)) != 0) return e;  //     Y = W
+  }
+  if (u) {
+    if ((e = make_map(&m[4], b.B, A, I, 1)) != 0) return e;   // U:  X = B
+    return make_map(&m[5], b.Wt, A, Bd, Z);                   //     Y = W^T
+  }
+  return 0;
 }
 
 // Products 2-4 on the tensor cores (bf16 only), from K-major operands.
 int products_tc(const Bufs<__nv_bfloat16>& b, const CUtensorMap* m, int Z,
-                int I, int A, int Bd, int splits, cudaStream_t stream) {
+                int I, int A, int Bd, int splits, int flags, bool u,
+                cudaStream_t stream) {
   int e = 0;
-  cudaError_t err = transpose(b.B, b.Bt, 1, I, A, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = transpose(b.Q, b.Qt, Z, I, Bd, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = transpose(b.W, b.Wt, Z, A, Bd, stream);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (flags & kNeedDWt) {
+    err = transpose(b.B, b.Bt, 1, I, A, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = transpose(b.Q, b.Qt, Z, I, Bd, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (u) {
+    err = transpose(b.W, b.Wt, Z, A, Bd, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
 
   // dW[z] (A x Bd) = B^T (A x I) . (Q[z]^T (Bd x I))^T
-  TcArgs gw;
-  gw.M = A; gw.N = Bd; gw.K = I; gw.R = 1; gw.S = 1;
-  gw.xz = 0; gw.xr = 0; gw.yz = 1; gw.yr = 0;
-  gw.ldc = Bd; gw.sCz = (int64_t)A * Bd;
-  e = tc_gemm<kProdDW>(m[0], m[1], b.dW, gw, Z, stream);
-  if (e != 0) return e;
+  if (flags & kNeedDWt) {
+    TcArgs gw;
+    gw.M = A; gw.N = Bd; gw.K = I; gw.R = 1; gw.S = 1;
+    gw.xz = 0; gw.xr = 0; gw.yz = 1; gw.yr = 0;
+    gw.ldc = Bd; gw.sCz = (int64_t)A * Bd;
+    e = tc_gemm<kProdDW>(m[0], m[1], b.dW, gw, Z, stream);
+    if (e != 0) return e;
+  }
 
   // dB (I x A) = sum_r Q[r] (I x Bd) . W[r] (A x Bd)^T, r over the split
-  TcArgs gb;
-  gb.M = I; gb.N = A; gb.K = Bd; gb.R = Z; gb.S = splits;
-  gb.xz = 0; gb.xr = 1; gb.yz = 0; gb.yr = 1;
-  gb.ldc = A; gb.sCz = (int64_t)I * A;
-  e = splits == 1 ? tc_gemm<kProdDB>(m[2], m[3], b.dB, gb, 1, stream)
-                  : tc_gemm<kProdDB>(m[2], m[3], b.dBpart, gb, 1, stream);
-  if (e != 0) return e;
+  if (flags & kNeedDB) {
+    TcArgs gb;
+    gb.M = I; gb.N = A; gb.K = Bd; gb.R = Z; gb.S = splits;
+    gb.xz = 0; gb.xr = 1; gb.yz = 0; gb.yr = 1;
+    gb.ldc = A; gb.sCz = (int64_t)I * A;
+    e = splits == 1 ? tc_gemm<kProdDB>(m[2], m[3], b.dB, gb, 1, stream)
+                    : tc_gemm<kProdDB>(m[2], m[3], b.dBpart, gb, 1, stream);
+    if (e != 0) return e;
+  }
+  if (!u) return 0;
 
   // U[z] (I x Bd) = B (I x A) . (W[z]^T (Bd x A))^T, f32
   TcArgs gu;
@@ -367,17 +407,20 @@ int products_tc(const Bufs<__nv_bfloat16>& b, const CUtensorMap* m, int Z,
 
 template <typename T>
 int launch(const Bufs<T>& b, int G, int L2, int L1, int E, int I, int A,
-           int Bd, int splits, int dw_chunk, int route, cudaStream_t stream) {
+           int Bd, int splits, int dw_chunk, int route, int flags,
+           cudaStream_t stream) {
   const int64_t sQ = (int64_t)I * Bd;
   const int Z = G * L1 * E;                  // (g, l, e) batch
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if (route != 0 && (route != 1 || !kBf16)) {
+  if ((route != 0 && (route != 1 || !kBf16)) || flags < 0 || flags > 31) {
     return (int)cudaErrorNotSupported;
   }
+  const bool u = (flags & kNeedDw) && !(flags & kUGiven);   // product U
+  const bool products = u || (flags & (kNeedDB | kNeedDWt));
   CUtensorMap maps[6];
   if constexpr (kBf16) {
-    if (route == 1) {
-      const int e = tc_maps(b, Z, I, A, Bd, maps);
+    if (route == 1 && products) {
+      const int e = tc_maps(b, Z, I, A, Bd, flags, u, maps);
       if (e != 0) return e;
     }
   }
@@ -385,27 +428,33 @@ int launch(const Bufs<T>& b, int G, int L2, int L1, int E, int I, int A,
 
   // 1. Q = w^T . dP, over the layer axis k; 4-wide where rows allow it
   const bool vec = aligned4(b.dP) && sQ % 4 == 0;
-  const int64_t nq = (int64_t)G * E * sQ / (vec ? 4 : 1);
-  if (vec) {
-    k2_blend_dp_kernel<T, 4><<<grid_stride_blocks(nq), kThreads, 0, stream>>>(
-        b.w, b.dP, b.Q, L2, L1, E, sQ, nq);
-  } else {
-    k2_blend_dp_kernel<T, 1><<<grid_stride_blocks(nq), kThreads, 0, stream>>>(
-        b.w, b.dP, b.Q, L2, L1, E, sQ, nq);
+  if (!(flags & kQGiven)) {
+    const int64_t nq = (int64_t)G * E * sQ / (vec ? 4 : 1);
+    if (vec) {
+      k2_blend_dp_kernel<T, 4><<<grid_stride_blocks(nq), kThreads, 0,
+                                 stream>>>(b.w, b.dP, b.Q, L2, L1, E, sQ, nq);
+    } else {
+      k2_blend_dp_kernel<T, 1><<<grid_stride_blocks(nq), kThreads, 0,
+                                 stream>>>(b.w, b.dP, b.Q, L2, L1, E, sQ, nq);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
 
-  // 2-4. dW, dB (or its partials), U
+  // 2-4. dW, dB (or its partials), U: those the flags ask for
   int ep = 0;
   if constexpr (kBf16) {
-    if (route == 1) ep = products_tc(b, maps, Z, I, A, Bd, splits, stream);
+    if (route == 1 && products) {
+      ep = products_tc(b, maps, Z, I, A, Bd, splits, flags, u, stream);
+    }
   }
-  if (route == 0) ep = (int)products_fma<T>(b, Z, I, A, Bd, splits, stream);
+  if (route == 0 && products) {
+    ep = (int)products_fma<T>(b, Z, I, A, Bd, splits, flags, u, stream);
+  }
   if (ep != 0) return ep;
 
   // dB = sum of the partials
-  if (splits > 1) {
+  if ((flags & kNeedDB) && splits > 1) {
     const int64_t nB = (int64_t)I * A;
     k2_sum_parts_kernel<T><<<grid_stride_blocks(nB), kThreads, 0, stream>>>(
         b.dBpart, b.dB, splits, nB);
@@ -414,6 +463,7 @@ int launch(const Bufs<T>& b, int G, int L2, int L1, int E, int I, int A,
   }
 
   // 5. dw partials over chunks of the E*I*Bd axis, then their sum in order
+  if (!(flags & kNeedDw)) return (int)cudaGetLastError();
   const int64_t K = (int64_t)E * sQ;
   const unsigned n_chunks = (unsigned)((K + dw_chunk - 1) / dw_chunk);
   const dim3 grid_w(n_chunks, G);
@@ -437,7 +487,8 @@ int launch_typed(const void* w, const void* B, const void* W, const void* dP,
                  void* Q, void* U, void* Bt, void* Qt, void* Wt,
                  void* dBpart, void* dwpart, void* dw, void* dB, void* dW,
                  int G, int L2, int L1, int E, int I, int A, int Bd,
-                 int splits, int dw_chunk, int route, cudaStream_t stream) {
+                 int splits, int dw_chunk, int route, int flags,
+                 cudaStream_t stream) {
   Bufs<T> b;
   b.w = static_cast<const float*>(w);
   b.B = static_cast<const T*>(B);
@@ -453,7 +504,7 @@ int launch_typed(const void* w, const void* B, const void* W, const void* dP,
   b.dw = static_cast<float*>(dw);
   b.dB = static_cast<T*>(dB);
   b.dW = static_cast<T*>(dW);
-  return launch<T>(b, G, L2, L1, E, I, A, Bd, splits, dw_chunk, route,
+  return launch<T>(b, G, L2, L1, E, I, A, Bd, splits, dw_chunk, route, flags,
                    stream);
 }
 
@@ -464,9 +515,12 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (for B, W, dP, Q, dB and dW). w is
 // (G, L2, L1) f32; dw is f32. route: 0 runs products 2-4 on the FMA GEMM,
 // 1 on the tensor-core GEMM (bf16 only; the caller has checked that I, A
-// and Bd are multiples of 8 and put B and W on 16-byte boundaries).
-// Scratch, allocated by the caller: Q (G, L1, E, I, Bd) in the dtype, U (G, L1, E, I, Bd) f32,
-// on route 1 Bt (A, I), Qt (G, L1, E, Bd, I) and Wt (G, L1, E, Bd, A) bf16,
+// and Bd are multiples of 8 and put B, W and a given Q on 16-byte
+// boundaries). flags: kUGiven, kQGiven, kNeedDw, kNeedDB, kNeedDWt above;
+// an operand or result that the flags leave unused may be null. Allocated
+// by the caller: Q (G, L1, E, I, Bd) in the dtype (written, or read with
+// kQGiven), U (G, L1, E, I, Bd) f32 (written, or read with kUGiven), on
+// route 1 Bt (A, I), Qt (G, L1, E, Bd, I) and Wt (G, L1, E, Bd, A) bf16,
 // dBpart (splits, I, A) f32 (unused when splits == 1), dwpart
 // (G, L2, L1, ceil(E*I*Bd / dw_chunk)) f32; dw_chunk a multiple of 32.
 // Returns 0, a cudaError_t, or a value >= kErrTensorMap - 1 for a failed
@@ -476,16 +530,18 @@ int ligo_blend_expand_bwd(const void* w, const void* B, const void* W,
                           void* Qt, void* Wt, void* dBpart, void* dwpart,
                           void* dw, void* dB, void* dW, int G, int L2,
                           int L1, int E, int I, int A, int Bd, int splits,
-                          int dw_chunk, int route, int dtype, void* stream) {
+                          int dw_chunk, int route, int flags, int dtype,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return launch_typed<__nv_bfloat16>(w, B, W, dP, Q, U, Bt, Qt, Wt, dBpart,
                                        dwpart, dw, dB, dW, G, L2, L1, E, I,
-                                       A, Bd, splits, dw_chunk, route, s);
+                                       A, Bd, splits, dw_chunk, route, flags,
+                                       s);
   }
   return launch_typed<float>(w, B, W, dP, Q, U, Bt, Qt, Wt, dBpart, dwpart,
                              dw, dB, dW, G, L2, L1, E, I, A, Bd, splits,
-                             dw_chunk, route, s);
+                             dw_chunk, route, flags, s);
 }
 
 const char* ligo_bwd_error_string(int err) { return error_text(err); }

@@ -8,8 +8,10 @@ and on a CUDA tensor the kernel launches or raises.
 :func:`ligo_blend_expand_grouped_vjp` is the differentiable entry point the
 GrowthPlan uses (:mod:`repro_torch.core.plan`), the twin of the JAX
 package's ``custom_vjp``: a ``torch.autograd.Function`` whose forward is
-kernel K1 and whose backward is kernel K2, which emits all three cotangents
-(dw, dB, dW) of one leaf group in one call.
+kernel K1 and whose backward is kernel K2, which emits the cotangents
+(dw, dB, and dW where W takes a gradient) of one leaf group in one call,
+from the U that K1 kept. Given a right expander, the expansion runs between
+K1's two steps, and K2's two halves run around its backward.
 
 :func:`flash_attention` is kernel K3 (forward only: it serves the attention
 of every forward that records no autograd graph, see
@@ -21,7 +23,9 @@ port's stand-in for the JAX package's ``LAUNCH_COUNTS``) and
 
 K1 and K2 are registered as the custom operators
 ``torch.ops.repro_torch.ligo_blend_expand_grouped`` and
-``torch.ops.repro_torch.ligo_blend_expand_bwd_fused``, each with a fake
+``torch.ops.repro_torch.ligo_blend_expand_bwd_fused``, and their halves as
+``ligo_expand``, ``ligo_blend``, ``ligo_blend_bwd`` and ``ligo_expand_bwd``
+(:data:`KERNEL_OPS`), each with a fake
 (shape-only) implementation and its operation count as a
 ``torch.utils.flop_counter`` formula: the measured-cost pass
 (:mod:`repro_torch.obs.costs`) runs a step on fake tensors under
@@ -58,17 +62,39 @@ def _dims(w, B, W):
     return G, L2, L1, Ws[2], I, A, Ws[4]
 
 
+def _slab_dims(w, S):
+    """(G, L2, L1, E, I, 1, Bd) of a call that takes w and a (G, L1|L2, E,
+    I, Bd) slab stack (U or dP) but no B: the products' A is not used."""
+    (G, L2, L1), Ss = (tuple(getattr(x, "shape", x)) for x in (w, S))
+    return G, L2, L1, Ss[2], Ss[3], 1, Ss[4]
+
+
+def _prod_dims(B, W):
+    """(G, 1, L1, E, I, A, Bd) of a call that takes B and W but no w."""
+    (I, A), (G, L1, E, _, Bd) = (tuple(getattr(x, "shape", x))
+                                 for x in (B, W))
+    return G, 1, L1, E, I, A, Bd
+
+
+# -- K1: both steps, and each step alone ------------------------------------
 @torch.library.custom_op("repro_torch::ligo_blend_expand_grouped",
                          mutates_args=())
-def _k1(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """Kernel K1 (raises on tensors that are not on CUDA)."""
-    return ligo_expand.ligo_blend_expand_grouped(w, B, W)
+def _k1(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
+        keep_u: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K1 (raises on tensors that are not on CUDA): (P, U), U empty
+    unless ``keep_u``."""
+    if keep_u:
+        return ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    P = ligo_expand.ligo_blend_expand_grouped(w, B, W)
+    return P, P.new_empty((0,), dtype=torch.float32)
 
 
 @_k1.register_fake
-def _k1_fake(w, B, W):
-    G, L2, _, E, I, _, Bd = _dims(w, B, W)
-    return W.new_empty((G, L2, E, I, Bd))
+def _k1_fake(w, B, W, keep_u):
+    G, L2, L1, E, I, _, Bd = _dims(w, B, W)
+    return (W.new_empty((G, L2, E, I, Bd)),
+            W.new_empty((G, L1, E, I, Bd) if keep_u else (0,),
+                        dtype=torch.float32))
 
 
 @register_flop_formula(torch.ops.repro_torch.ligo_blend_expand_grouped)
@@ -76,74 +102,227 @@ def _k1_flops(w, B, W, *args, **kwargs) -> int:
     return ligo_expand.operation_count(*_dims(w, B, W))
 
 
+@torch.library.custom_op("repro_torch::ligo_expand", mutates_args=())
+def _k1_expand(B: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """K1's first step: U = B W in float32."""
+    return ligo_expand.ligo_expand(B, W)
+
+
+@_k1_expand.register_fake
+def _k1_expand_fake(B, W):
+    G, _, L1, E, I, _, Bd = _prod_dims(B, W)
+    return W.new_empty((G, L1, E, I, Bd), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ligo_expand)
+def _k1_expand_flops(B, W, *args, **kwargs) -> int:
+    return ligo_expand.operation_count(*_prod_dims(B, W), stage="expand")
+
+
+@torch.library.custom_op("repro_torch::ligo_blend", mutates_args=())
+def _k1_blend(w: torch.Tensor, U: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """K1's second step: the blend of a float32 U, rounded to ``dtype``."""
+    return ligo_expand.ligo_blend(w, U, dtype)
+
+
+@_k1_blend.register_fake
+def _k1_blend_fake(w, U, dtype):
+    G, L2, _, E, I, _, Bd = _slab_dims(w, U)
+    return U.new_empty((G, L2, E, I, Bd), dtype=dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.ligo_blend)
+def _k1_blend_flops(w, U, *args, **kwargs) -> int:
+    return ligo_expand.operation_count(*_slab_dims(w, U), stage="blend")
+
+
+# -- K2: the whole backward, and its two halves -----------------------------
 @torch.library.custom_op("repro_torch::ligo_blend_expand_bwd_fused",
                          mutates_args=())
-def _k2(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
-        dP: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel K2: dw (float32), dB, dW (raises off CUDA)."""
-    return ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP)
+def _k2(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor, dP: torch.Tensor,
+        U: Optional[torch.Tensor], need_dW: bool
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K2: dw (float32), dB, dW (empty unless ``need_dW``), from K1's
+    U where it is given (raises off CUDA)."""
+    dw, dB, dW = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U,
+                                                       need_dW=need_dW)
+    return dw, dB, dW if need_dW else W.new_empty((0,))
 
 
 @_k2.register_fake
-def _k2_fake(w, B, W, dP):
+def _k2_fake(w, B, W, dP, U, need_dW):
     return (w.new_empty(w.shape, dtype=torch.float32), torch.empty_like(B),
-            torch.empty_like(W))
+            torch.empty_like(W) if need_dW else W.new_empty((0,)))
 
 
 @register_flop_formula(torch.ops.repro_torch.ligo_blend_expand_bwd_fused)
-def _k2_flops(w, B, W, dP, *args, **kwargs) -> int:
-    return ligo_expand_bwd.operation_count(*_dims(w, B, W))
+def _k2_flops(w, B, W, dP, U, need_dW, *args, **kwargs) -> int:
+    return ligo_expand_bwd.operation_count(
+        *_dims(w, B, W), u_given=U is not None, need_dW=need_dW)
+
+
+@torch.library.custom_op("repro_torch::ligo_blend_bwd", mutates_args=())
+def _k2_blend(w: torch.Tensor, dP: torch.Tensor,
+              U: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's first half: (dw, Q)."""
+    return ligo_expand_bwd.ligo_blend_bwd(w, dP, U)
+
+
+@_k2_blend.register_fake
+def _k2_blend_fake(w, dP, U):
+    return (w.new_empty(w.shape, dtype=torch.float32),
+            dP.new_empty(U.shape))
+
+
+@register_flop_formula(torch.ops.repro_torch.ligo_blend_bwd)
+def _k2_blend_flops(w, dP, U, *args, **kwargs) -> int:
+    return ligo_expand_bwd.operation_count(
+        *_slab_dims(w, dP), u_given=True, need_dW=False, need_dB=False)
+
+
+@torch.library.custom_op("repro_torch::ligo_expand_bwd", mutates_args=())
+def _k2_expand(B: torch.Tensor, W: torch.Tensor, Q: torch.Tensor,
+               need_dW: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's second half from a given Q: (dB, dW), dW empty unless
+    ``need_dW``."""
+    dB, dW = ligo_expand_bwd.ligo_expand_bwd(B, W, Q, need_dW=need_dW)
+    return dB, dW if need_dW else W.new_empty((0,))
+
+
+@_k2_expand.register_fake
+def _k2_expand_fake(B, W, Q, need_dW):
+    return (torch.empty_like(B),
+            torch.empty_like(W) if need_dW else W.new_empty((0,)))
+
+
+@register_flop_formula(torch.ops.repro_torch.ligo_expand_bwd)
+def _k2_expand_flops(B, W, Q, need_dW, *args, **kwargs) -> int:
+    return ligo_expand_bwd.operation_count(
+        *_prod_dims(B, W), q_given=True, need_dW=need_dW, need_dw=False)
 
 
 #: the custom operators of the kernels, as ``FlopCounterMode`` keys them
 KERNEL_OPS = (torch.ops.repro_torch.ligo_blend_expand_grouped,
-              torch.ops.repro_torch.ligo_blend_expand_bwd_fused)
+              torch.ops.repro_torch.ligo_expand,
+              torch.ops.repro_torch.ligo_blend,
+              torch.ops.repro_torch.ligo_blend_expand_bwd_fused,
+              torch.ops.repro_torch.ligo_blend_bwd,
+              torch.ops.repro_torch.ligo_expand_bwd)
+
+
+def _keeps_u(*xs) -> bool:
+    """Whether a forward will be differentiated: grad mode on and an
+    operand that takes a gradient (decided before ``Function.apply``, whose
+    forward runs with grad mode off)."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 class _BlendExpandGrouped(torch.autograd.Function):
-    """K1 forward and K2 backward, or both plain versions (``plain``)."""
+    """K1 forward and K2 backward, or both plain versions (``plain``). A
+    forward that will be differentiated keeps K1's U for K2."""
 
     @staticmethod
-    def forward(ctx, w, B, W, plain: bool):
-        ctx.save_for_backward(w, B, W)
+    def forward(ctx, w, B, W, plain: bool, keep_u: bool):
         ctx.plain = plain
         # the raw kernel wrapper refuses tensors that require grad
         w, B, W = w.detach(), B.detach(), W.detach()
         if plain:
-            return ref.ligo_blend_expand_grouped_ref(w, B, W)
-        return _k1(w, B, W)
+            out = ref.ligo_blend_expand_grouped_ref(w, B, W, keep_u=keep_u)
+        else:
+            out = _k1(w, B, W, keep_u)
+        P, U = out if keep_u or not plain else (out, None)
+        ctx.save_for_backward(w, B, W, U if keep_u else None)
+        return P
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dP):
-        w, B, W = (x.detach() for x in ctx.saved_tensors)
+        w, B, W, U = ctx.saved_tensors
+        need = ctx.needs_input_grad
         # dP arrives strided after the plan's slicing and right expansion
         dP = dP.contiguous()
         if ctx.plain:
-            dw, dB, dW = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+            dw, dB, dW = ref.ligo_blend_expand_bwd_ref(w, B, W, dP, U=U,
+                                                       need_dW=need[2])
         else:
-            dw, dB, dW = _k2(w, B, W, dP)
+            dw, dB, dW = _k2(w, B, W, dP, U, need[2])
             dw = dw.to(w.dtype)
-        need = ctx.needs_input_grad
         return (dw if need[0] else None, dB if need[1] else None,
-                dW if need[2] else None, None)
+                dW if need[2] else None, None, None)
+
+
+class _BlendExpandBetween(torch.autograd.Function):
+    """``P[g,k,e] = Σ_l w[g,k,l] (B W[g,l,e]) Rᵀ``: K1's U, the right
+    expansion by R (j, b) as a matmul, then K1's blend; its backward is K2's
+    blend half (Q = wᵀ·dP and dw against the expanded U), the expansion's
+    backward as two matmuls (dR = Σ Qᵀ U, dU = Q R), then K2's products
+    half (dB, and dW where W takes a gradient) from the narrow dU. U and
+    its expansion are rounded to the working dtype before the matmul and
+    read back in float32 by the blend; or all of it through the plain
+    versions (``plain``)."""
+
+    @staticmethod
+    def forward(ctx, w, B, W, R, plain: bool):
+        ctx.plain = plain
+        w, B, W, R = (x.detach() for x in (w, B, W, R))
+        dt = W.dtype
+        U = (ref.ligo_expand_ref(B, W) if plain
+             else _k1_expand(B, W)).to(dt)
+        UR = (U.reshape(-1, U.shape[-1]) @ R.to(dt).T).reshape(
+            U.shape[:-1] + (R.shape[0],)).to(
+                torch.promote_types(dt, torch.float32))
+        P = (ref.ligo_blend_ref(w, UR, dt) if plain
+             else _k1_blend(w, UR, dt))
+        ctx.save_for_backward(w, B, W, R, U, UR)
+        return P
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dP):
+        w, B, W, R, U, UR = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dP = dP.contiguous()
+        if ctx.plain:
+            dw, Q = ref.ligo_blend_bwd_ref(w, dP, UR)
+        else:
+            dw, Q = _k2_blend(w, dP, UR)
+        Rd = R.to(Q.dtype)
+        dR = (Q.reshape(-1, Q.shape[-1]).T @ U.reshape(-1, U.shape[-1])
+              if need[3] else None)
+        dU = (Q.reshape(-1, Q.shape[-1]) @ Rd).reshape(U.shape).contiguous()
+        dB = dW = None
+        if need[1] or need[2]:
+            if ctx.plain:
+                dB, dW = ref.ligo_expand_bwd_ref(B, W, dU, need_dW=need[2])
+            else:
+                dB, dW = _k2_expand(B, W, dU, need[2])
+        return (dw.to(w.dtype) if need[0] else None,
+                dB if need[1] else None, dW if need[2] else None,
+                dR.to(R.dtype) if dR is not None else None, None)
 
 
 def ligo_blend_expand_grouped_vjp(w: torch.Tensor, B: torch.Tensor,
-                                  W: torch.Tensor, *,
+                                  W: torch.Tensor,
+                                  R: Optional[torch.Tensor] = None, *,
                                   use_kernel: Optional[bool] = None
                                   ) -> torch.Tensor:
-    """Differentiable grouped ``P[g,k,e] = B @ (Σ_l w[g,k,l] W[g,l,e])``.
+    """Differentiable grouped ``P[g,k,e] = B @ (Σ_l w[g,k,l] W[g,l,e])``,
+    or with a right expander ``R`` (j, Bd), ``P[g,k,e] = B @ (Σ_l w[g,k,l]
+    W[g,l,e]) @ Rᵀ`` with the right expansion between K1's U and its blend.
 
-    w: (G, L2, L1); B: (I, A); W: (G, L1, E, A, Bd) → (G, L2, E, I, Bd).
-    ``use_kernel=None`` follows the tensors' device (CUDA: K1 forward, K2
-    backward; CPU: their plain versions); ``False`` asks for the plain
-    versions on any device; ``True`` asks for the kernels, which raise on
-    CPU tensors.
+    w: (G, L2, L1); B: (I, A); W: (G, L1, E, A, Bd) → (G, L2, E, I, Bd) (Bd
+    → j with ``R``). ``use_kernel=None`` follows the tensors' device (CUDA:
+    K1 forward, K2 backward; CPU: their plain versions); ``False`` asks for
+    the plain versions on any device; ``True`` asks for the kernels, which
+    raise on CPU tensors.
     """
     if use_kernel is None:
         use_kernel = W.is_cuda
-    return _BlendExpandGrouped.apply(w, B, W, not use_kernel)
+    if R is not None:
+        return _BlendExpandBetween.apply(w, B, W, R, not use_kernel)
+    return _BlendExpandGrouped.apply(w, B, W, not use_kernel,
+                                     _keeps_u(w, B, W))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -8,7 +8,7 @@ them) and return each result in its operand's dtype, as the JAX oracles do.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,40 +17,89 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def ligo_expand_ref(B: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """U = B W over the source slabs: (I, A) × (G, L1, E, A, Bd) →
+    (G, L1, E, I, Bd) in float32 (float64 for float64 operands) — the plain
+    version of K1's first step, and of the U that K2 computes for dw."""
+    acc = _acc(B.dtype)
+    return torch.einsum("ia,gleab->gleib", B.to(acc), W.to(acc))
+
+
+def ligo_blend_ref(w: torch.Tensor, U: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """P[g, k, e] = Σ_l w[g, k, l] U[g, l, e], accumulated in U's dtype and
+    rounded once to ``dtype`` — the plain version of K1's blend step."""
+    return torch.einsum("gkl,gleib->gkeib", w.to(U.dtype), U).to(dtype)
+
+
 def ligo_blend_expand_grouped_ref(w: torch.Tensor, B: torch.Tensor,
-                                  W: torch.Tensor) -> torch.Tensor:
+                                  W: torch.Tensor, *, keep_u: bool = False):
     """Grouped oracle: P[g,k,e] = B @ (Σ_l w[g,k,l] · W[g,l,e]).
 
     w: (G, L2, L1); B: (I, A); W: (G, L1, E, A, Bd) → (G, L2, E, I, Bd).
     Blends in the small space first, accumulates in float32, and returns the
-    result in B's dtype — the plain version of kernel K1.
+    result in B's dtype — the plain version of kernel K1. ``keep_u`` also
+    returns U = B W (:func:`ligo_expand_ref`), as K1 hands it to K2.
     """
     acc = _acc(B.dtype)
     blended = torch.einsum("gkl,gleab->gkeab", w.to(acc), W.to(acc))
-    return torch.einsum("ia,gkeab->gkeib", B.to(acc), blended).to(B.dtype)
+    P = torch.einsum("ia,gkeab->gkeib", B.to(acc), blended).to(B.dtype)
+    return (P, ligo_expand_ref(B, W)) if keep_u else P
+
+
+def _blend_bwd(w, dP, U):
+    """(dw in w's dtype, Q = wᵀ·dP in the accumulation dtype)."""
+    acc = _acc(dP.dtype)
+    dP_ = dP.to(acc)
+    dw = torch.einsum("gkeib,gleib->gkl", dP_, U.to(acc)).to(w.dtype)
+    return dw, torch.einsum("gkl,gkeib->gleib", w.to(acc), dP_)
+
+
+def ligo_blend_bwd_ref(w: torch.Tensor, dP: torch.Tensor, U: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's first half, plain: dw[g,k,l] = Σ_e ⟨dP[g,k,e], U[g,l,e]⟩ in
+    float32 (in w's dtype) and the dP blend Q[g,l,e] = Σ_k w[g,k,l] dP[g,k,e]
+    rounded to dP's dtype, as K2 writes it. Returns (dw, Q)."""
+    dw, Q = _blend_bwd(w, dP, U)
+    return dw, Q.to(dP.dtype)
+
+
+def ligo_expand_bwd_ref(B: torch.Tensor, W: torch.Tensor, Q: torch.Tensor,
+                        *, need_dW: bool = True
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K2's second half, plain: dB = Σ_{g,l,e} Q[g,l,e] W[g,l,e]ᵀ in B's
+    dtype and, with ``need_dW``, dW[g,l,e] = Bᵀ Q[g,l,e] in W's dtype."""
+    acc = _acc(B.dtype)
+    Q_ = Q.to(acc)
+    dB = torch.einsum("gleib,gleab->ia", Q_, W.to(acc)).to(B.dtype)
+    dW = (torch.einsum("ia,gleib->gleab", B.to(acc), Q_).to(W.dtype)
+          if need_dW else None)
+    return dB, dW
 
 
 def ligo_blend_expand_bwd_ref(w: torch.Tensor, B: torch.Tensor,
-                              W: torch.Tensor, dP: torch.Tensor
+                              W: torch.Tensor, dP: torch.Tensor, *,
+                              U: Optional[torch.Tensor] = None,
+                              need_dW: bool = True
                               ) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
+                                         Optional[torch.Tensor]]:
     """Einsum oracle for the backward of the grouped blend-expand — the
-    plain version of kernel K2, without widened intermediates:
+    plain version of kernel K2, in its order:
 
-    - T[g,k,e] = Bᵀ dP[g,k,e]                  (small-space (A, Bd) stack)
-    - dW[g,l,e] = Σ_k w[g,k,l] T[g,k,e]
-    - dB = Σ_{g,k,e} dP[g,k,e] · blendedᵀ      (blended = w·W, small space)
-    - dw[g,k,l] = Σ_e ⟨T[g,k,e], W[g,l,e]⟩
+    - Q[g,l,e] = Σ_k w[g,k,l] dP[g,k,e]        (the dP blend)
+    - dW[g,l,e] = Bᵀ Q[g,l,e]                   (only with ``need_dW``)
+    - dB = Σ_{g,l,e} Q[g,l,e] W[g,l,e]ᵀ
+    - U[g,l,e] = B W[g,l,e]                     (unless ``U`` is given)
+    - dw[g,k,l] = Σ_e ⟨dP[g,k,e], U[g,l,e]⟩
 
-    Returns (dw, dB, dW) in the dtypes of (w, B, W).
+    Returns (dw, dB, dW) in the dtypes of (w, B, W); dW None without
+    ``need_dW``. A given ``U`` (K1's, :func:`ligo_blend_expand_grouped_ref`
+    with ``keep_u``) gives the same bits as the U computed here.
     """
-    acc = _acc(B.dtype)
-    w_, B_, W_, dP_ = (x.to(acc) for x in (w, B, W, dP))
-    T = torch.einsum("ia,gkeib->gkeab", B_, dP_)
-    dW = torch.einsum("gkl,gkeab->gleab", w_, T).to(W.dtype)
-    blended = torch.einsum("gkl,gleab->gkeab", w_, W_)
-    dB = torch.einsum("gkeib,gkeab->ia", dP_, blended).to(B.dtype)
-    dw = torch.einsum("gkeab,gleab->gkl", T, W_).to(w.dtype)
+    if U is None:
+        U = ligo_expand_ref(B, W)
+    dw, Q = _blend_bwd(w, dP, U)
+    dB, dW = ligo_expand_bwd_ref(B, W, Q, need_dW=need_dW)
     return dw, dB, dW
 
 

@@ -158,7 +158,7 @@ def _train(args) -> Dict[str, Any]:
     if args.autogrow:
         raise NotImplementedError(
             "--autogrow (the adaptive growth controller) is not ported yet "
-            "(ROADMAP queue 1 item 7); run a static schedule with "
+            "(ROADMAP, 'autogrow'); run a static schedule with "
             "--trajectory")
     if args.trajectory:
         return _trajectory(args)

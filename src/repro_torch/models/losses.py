@@ -1,16 +1,16 @@
-"""Objectives: causal LM and masked LM (the twin of the JAX package's
-``models/losses.py``).
+"""Objectives: causal LM, masked LM and image classification (the twin of
+the JAX package's ``models/losses.py``).
 
 The LM losses can compute logits in sequence chunks (``loss_chunk``), so the
 whole ``(B, T, V)`` logits tensor need not exist at once; softmax and CE run
-in float32. The classification objective (``cls``) belongs to the vision
-family, which is not ported: it raises. The JAX ``loss_fn``'s attention
+in float32. The classification objective (``cls``, the vision models)
+pools the cls token's hidden state. The JAX ``loss_fn``'s attention
 chunk sizes, ``act_spec`` and ``p_bf16`` are knobs of its TPU attention and
 mesh, which the port's forward does not take.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -69,14 +69,14 @@ def chunked_lm_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = False, loss_chunk: int = 0,
             aux_weight: float = 0.01, bf16_cotangent: bool = False,
+            use_kernel: Optional[bool] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Scalar training loss and metrics ``{"loss", "aux"}``. The dense
-    family has no router loss, so ``aux`` is 0."""
+    family has no router loss, so ``aux`` is 0. ``use_kernel`` picks the
+    attention route as in :func:`repro_torch.models.model.forward`."""
     _check_ported(cfg)
-    if cfg.objective == "cls":
-        raise NotImplementedError(f"{cfg.name}: the cls objective belongs to "
-                                  f"the vision family, which is not ported")
-    hidden, _ = forward(params, cfg, batch, mode="train", remat=remat)
+    hidden, _ = forward(params, cfg, batch, mode="train", remat=remat,
+                        use_kernel=use_kernel)
     aux = torch.zeros((), dtype=F32, device=hidden.device)
     if bf16_cotangent and hidden.dtype == torch.bfloat16:
         hidden = grad_cast_bf16(hidden)
@@ -89,6 +89,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     elif cfg.objective == "mlm":
         labels = batch["labels"]
         weights = batch["mask"].to(F32)
+    elif cfg.objective == "cls":
+        logits = unembed(params, cfg, hidden[:, 0])       # CLS pooling
+        loss = torch.mean(_ce_fp32(logits, batch["labels"]))
+        return loss + aux_weight * aux, {"loss": loss, "aux": aux}
     else:
         raise ValueError(cfg.objective)
     s, n = chunked_lm_loss(params, cfg, hidden, labels, weights,

@@ -1,5 +1,9 @@
 """Model API for the dense attention family: init, forward, prefill, decode.
 
+Text models embed tokens; vision models (DeiT, CaiT: ``modality="vision"``)
+take precomputed patch embeddings behind a learned cls token, as the JAX
+package's do.
+
 ``init_params(cfg, gen, device=...)`` returns the JAX package's parameter
 tree: ``params["layers"]["attn"][leaf]`` stacked over a leading L dim,
 weights ``(in, out)``. ``forward`` loops over that dim in Python where the
@@ -31,11 +35,12 @@ def _dtype(cfg):
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.modality != "text" or set(cfg.blocks) != {"attn"}
+    if (cfg.modality not in ("text", "vision") or set(cfg.blocks) != {"attn"}
             or cfg.rope not in ("learned", "rope", "none")):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention family with text input "
-            f"is ported (family={cfg.family!r}, rope={cfg.rope!r})")
+            f"{cfg.name}: only the dense attention family with text or "
+            f"vision input is ported (family={cfg.family!r}, "
+            f"modality={cfg.modality!r}, rope={cfg.rope!r})")
 
 
 def _index(tree, i: int):
@@ -55,8 +60,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": {}, "layers": {}}
-    params["embed"]["tok"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                        dtype=dtype, device=dev)
+    if cfg.modality == "vision":
+        params["embed"]["cls"] = (torch.randn(
+            (cfg.d_model,), generator=gen, device=dev) * 0.02).to(dtype)
+    else:
+        params["embed"]["tok"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                            dtype=dtype, device=dev)
     if cfg.rope == "learned":
         params["embed"]["pos"] = embed_init(gen, cfg.max_seq, cfg.d_model,
                                             dtype=dtype, device=dev)
@@ -64,7 +73,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                                            lead=(cfg.n_layers,))
     params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype=dtype,
                                      device=dev)
-    if not cfg.tie_embeddings:
+    if not (cfg.tie_embeddings and "tok" in params["embed"]):
         params["head"] = embed_init(gen, cfg.d_model, cfg.vocab_size,
                                     dtype=dtype, device=dev)
     return params
@@ -75,12 +84,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 # ---------------------------------------------------------------------------
 def embed(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
           offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,T,D), positions (1,T))."""
+    """Returns (x (B,T,D), positions (1,T)). A vision batch's
+    ``patches`` (B, P, D) follow the cls token: T = P + 1."""
     emb = params["embed"]
-    tokens = batch["tokens"]
-    x = emb["tok"][tokens]
-    T = tokens.shape[1]
-    positions = torch.arange(T, device=tokens.device)[None] + offset
+    if cfg.modality == "vision":
+        patches = batch["patches"].to(_dtype(cfg))
+        cls = emb["cls"].expand(patches.shape[0], 1, cfg.d_model)
+        x = torch.cat([cls, patches], dim=1)
+    else:
+        x = emb["tok"][batch["tokens"]]
+    T = x.shape[1]
+    positions = torch.arange(T, device=x.device)[None] + offset
     if cfg.rope == "learned":
         x = x + emb["pos"][positions[0]]
     return x, positions

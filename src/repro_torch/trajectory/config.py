@@ -30,9 +30,9 @@ or name a registry arch. Every consecutive pair must pass
 ``check_growable``.
 
 Not ported yet, and refused with ``NotImplementedError``: ``"steps":
-"auto"`` and ``"policy"`` blocks (the adaptive controller, ROADMAP queue 1
-item 7), ``"grow": "moe"`` and the ``upcycle`` / ``gqa_merge`` methods (the
-other families, queue 1 item 6).
+"auto"`` and ``"policy"`` blocks (the adaptive controller, "autogrow" in
+ROADMAP.md), ``"grow": "moe"`` and the ``upcycle`` / ``gqa_merge`` methods
+("the other families" in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -47,8 +47,8 @@ from repro_torch.core import spec as S
 
 # Growth methods that understand a family-changing hop.
 CROSS_FAMILY_METHODS = ("upcycle", "ligo", "random")
-_LATER = {"upcycle": "the other families (ROADMAP queue 1 item 6)",
-          "gqa_merge": "the other families (ROADMAP queue 1 item 6)"}
+_LATER = {"upcycle": "ROADMAP, 'the other families'",
+          "gqa_merge": "ROADMAP, 'the other families'"}
 
 
 @dataclass(frozen=True)
@@ -94,7 +94,7 @@ class TrajectoryConfig:
             if st.steps is None:
                 raise NotImplementedError(
                     f"stage {i}: steps='auto' needs the adaptive growth "
-                    "controller, not ported yet (ROADMAP queue 1 item 7)")
+                    "controller, not ported yet (ROADMAP, 'autogrow')")
         for i in range(1, len(self.stages)):
             growth = self.stages[i].growth
             if growth is None:
@@ -176,7 +176,7 @@ class TrajectoryConfig:
             if tok == "moe":
                 raise NotImplementedError(
                     "'grow': 'moe' (dense->MoE upcycling) is not ported yet "
-                    "(the other families, ROADMAP queue 1 item 6)")
+                    "(ROADMAP, 'the other families')")
             raise ValueError(f"unknown grow token {tok!r} "
                              "(use '2x', 'moe', or an explicit 'arch')")
 
@@ -185,8 +185,8 @@ class TrajectoryConfig:
             if entry["steps"] == "auto" or "policy" in entry:
                 raise NotImplementedError(
                     f"stage {i}: steps='auto' and policy blocks need the "
-                    "adaptive growth controller, not ported yet (ROADMAP "
-                    "queue 1 item 7)")
+                    "adaptive growth controller, not ported yet (ROADMAP, "
+                    "'autogrow')")
             cfg = resolve(entry, prev)
             growth = None
             if i > 0:

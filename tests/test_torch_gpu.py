@@ -264,6 +264,101 @@ def test_vjp_backward_on_the_card_matches_plain_route(cuda):
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-5
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,dims", LIGO_SHAPES,
+                         ids=[f"{n}-{d}" for n, d, _ in LIGO_SHAPES])
+def test_k1_u_is_k2s_own_u_bit_for_bit(cuda, name, dtype, dims):
+    """K1's U (``keep_u``) and the U that K2 computes for itself come from
+    the same GEMM with the same arguments: equal bit for bit. So K2 fed
+    K1's U gives the bits of K2 on its own, and K2 without dW gives the
+    same dw and dB."""
+    G, L2, L1, E, I, A, Bd = dims
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((G, L2, L1), generator=gen, device=cuda) / L1 ** 0.5
+    B = (torch.randn((I, A), generator=gen, device=cuda) / A ** 0.5).to(dt)
+    W = torch.randn((G, L1, E, A, Bd), generator=gen, device=cuda).to(dt)
+    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device=cuda).to(dt)
+    P, U1 = ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    *own, U2 = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP,
+                                                     keep_u=True)
+    fed = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U1)
+    dw, dB, dW = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U1,
+                                                       need_dW=False)
+    torch.cuda.synchronize()
+    assert U1.dtype == torch.float32 and torch.equal(U1, U2)
+    assert torch.equal(P, ligo_expand.ligo_blend_expand_grouped(w, B, W))
+    assert all(torch.equal(a, b) for a, b in zip(own, fed))
+    assert dW is None and torch.equal(dw, own[0]) and torch.equal(dB, own[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,dims", LIGO_SHAPES,
+                         ids=[f"{n}-{d}" for n, d, _ in LIGO_SHAPES])
+def test_k1_and_k2_halves_match_plain(cuda, name, dtype, dims):
+    """K1's steps apart (U; the blend of a given U) and K2's halves (the dP
+    blend and dw; dB and dW from a given Q) against their plain versions,
+    at the card's tolerance; each launch counted once."""
+    G, L2, L1, E, I, A, Bd = dims
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    w = torch.randn((G, L2, L1), generator=gen, device=cuda) / L1 ** 0.5
+    B = (torch.randn((I, A), generator=gen, device=cuda) / A ** 0.5).to(dt)
+    W = torch.randn((G, L1, E, A, Bd), generator=gen, device=cuda).to(dt)
+    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device=cuda).to(dt)
+    ops.reset_launch_counts()
+    U = ligo_expand.ligo_expand(B, W)
+    P = ligo_expand.ligo_blend(w, U, dt)
+    dw, Q = ligo_expand_bwd.ligo_blend_bwd(w, dP, U)
+    dB, dW = ligo_expand_bwd.ligo_expand_bwd(B, W, Q)
+    assert ops.launch_counts() == {"ligo_blend_expand_grouped": 2,
+                                   "ligo_blend_expand_bwd_fused": 2,
+                                   "flash_attention": 0}
+    torch.cuda.synchronize()
+    assert torch.equal(U, ligo_expand.ligo_blend_expand_grouped(
+        w, B, W, keep_u=True)[1])
+    pdw, pQ = ref.ligo_blend_bwd_ref(w, dP, U)
+    pdB, pdW = ref.ligo_expand_bwd_ref(B, W, Q)
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+    for got, want in ((P, ref.ligo_blend_ref(w, U, dt)), (Q, pQ),
+                      (dB, pdB), (dW, pdW)):
+        assert got.dtype == want.dtype and err(got, want) <= TOL[dtype]
+    terms = torch.einsum("gkeib,gleib->gkl", dP.float().abs(), U.abs())
+    assert float(((dw - pdw).abs() / terms).max()) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_vjp_between_on_the_card_matches_plain_route(cuda):
+    """One backward through the right expansion between K1's U and its
+    blend: K1's two steps forward, K2's two halves backward on CUDA tensors
+    (2 launches each), against the plain versions on the same tensors,
+    float32, with a frozen W."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    w = torch.randn((2, 5, 3), generator=gen, device=cuda)
+    B = torch.randn((40, 30), generator=gen, device=cuda)
+    W = torch.randn((2, 3, 1, 30, 20), generator=gen, device=cuda)
+    R = torch.randn((28, 20), generator=gen, device=cuda)
+    proj = torch.randn((28, 7), generator=gen, device=cuda)
+    grads = []
+    for use_kernel in (None, False):
+        ops.reset_launch_counts()
+        xs = [x.clone().requires_grad_(True) for x in (w, B, R)]
+        P = ops.ligo_blend_expand_grouped_vjp(xs[0], xs[1], W, xs[2],
+                                              use_kernel=use_kernel)
+        (P[:, :, 0] @ proj).square().sum().backward()
+        n = 2 if use_kernel is None else 0
+        assert ops.launch_counts() == {"ligo_blend_expand_grouped": n,
+                                       "ligo_blend_expand_bwd_fused": n,
+                                       "flash_attention": 0}
+        grads.append([x.grad for x in xs])
+    torch.cuda.synchronize()
+    for g, r in zip(*grads):
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-5
+
+
 def _qkv(cuda, dtype, B, H, KV, T, S, dh, seed, pad=0):
     """q, k, v made in the model's (B, T, heads, dh) layout (``pad`` more
     elements a row) and handed over as (B, heads, T, dh) views, as

@@ -366,3 +366,105 @@ def test_k2_launch_geometry():
         chunk = ligo_expand_bwd.dw_chunk(L1)
         assert chunk % 32 == 0 and 4 * L1 * chunk <= 48 * 1024
     assert ligo_expand_bwd.dw_chunk(12) == 1024
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_plain_keeps_u_equal_to_b_times_w(shape):
+    """``keep_u`` hands back U = B W (float32, (G, L1, E, I, Bd)) beside the
+    same P, bit for bit, as without it."""
+    w, B, W = (torch.from_numpy(a) for a in _inputs(*shape))
+    P, U = ref.ligo_blend_expand_grouped_ref(w, B, W, keep_u=True)
+    assert torch.equal(P, ref.ligo_blend_expand_grouped_ref(w, B, W))
+    assert U.dtype == torch.float32
+    want = np.einsum("ia,gleab->gleib", B.double().numpy(),
+                     W.double().numpy())
+    assert U.shape == want.shape
+    assert_trees_close_normalized([U.numpy()], [want], rel=1e-6)
+    Pb, Ub = ref.ligo_blend_expand_grouped_ref(
+        w, B.to(torch.bfloat16), W.to(torch.bfloat16), keep_u=True)
+    assert (Pb.dtype, Ub.dtype) == (torch.bfloat16, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k2_plain_fed_k1s_u_is_bitwise_its_own(shape, dtype):
+    """The plain K2 fed the plain K1's U gives the bits of the plain K2
+    that computes U itself; without dW it gives the same dw and dB, bit for
+    bit, and no dW."""
+    w, B, W = _inputs(*shape)
+    dP = _cotangent(*shape)
+    w = torch.from_numpy(w)
+    B, W, dP = (torch.from_numpy(a).to(dtype) for a in (B, W, dP))
+    _, U = ref.ligo_blend_expand_grouped_ref(w, B, W, keep_u=True)
+    own = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+    fed = ref.ligo_blend_expand_bwd_ref(w, B, W, dP, U=U)
+    assert all(torch.equal(a, b) for a, b in zip(own, fed))
+    dw, dB, dW = ref.ligo_blend_expand_bwd_ref(w, B, W, dP, U=U,
+                                               need_dW=False)
+    assert dW is None and torch.equal(dw, own[0]) and torch.equal(dB, own[1])
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_and_k2_halves_compose_to_the_whole(shape):
+    """K1's two steps apart (U, then the blend of U) give K1's function,
+    and K2's two halves (the dP blend and dw; dB and dW from Q) give K2's,
+    all plain, in float32."""
+    w, B, W = (torch.from_numpy(a) for a in _inputs(*shape))
+    dP = torch.from_numpy(_cotangent(*shape))
+    U = ref.ligo_expand_ref(B, W)
+    assert_trees_close_normalized(
+        [ref.ligo_blend_ref(w, U, torch.float32).numpy()],
+        [ref.ligo_blend_expand_grouped_ref(w, B, W).numpy()], rel=1e-5)
+    dw, Q = ref.ligo_blend_bwd_ref(w, dP, U)
+    dB, dW = ref.ligo_expand_bwd_ref(B, W, Q)
+    whole = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+    assert all(torch.equal(a, b) for a, b in zip((dw, dB, dW), whole))
+
+
+def test_operation_counts_with_and_without_u_and_dW():
+    """K2's count drops one product for a given U and one for a skipped dW;
+    its halves add up to the whole; K1's steps add up to K1; and the custom
+    operators' flop formulas count exactly these on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    d = (2, 5, 3, 2, 40, 24, 16)
+    G, L2, L1, E, I, A, Bd = d
+    prod, blend = 2 * G * E * L1 * I * A * Bd, 2 * G * E * L2 * L1 * I * Bd
+    full = ligo_expand_bwd.operation_count(*d)
+    assert full == 3 * prod + 2 * blend
+    assert ligo_expand_bwd.operation_count(*d, u_given=True) == full - prod
+    assert ligo_expand_bwd.operation_count(*d, need_dW=False) == full - prod
+    assert ligo_expand_bwd.operation_count(
+        *d, u_given=True, need_dW=False) == prod + 2 * blend
+    halves = (ligo_expand_bwd.operation_count(*d, u_given=True,
+                                              need_dW=False, need_dB=False)
+              + ligo_expand_bwd.operation_count(*d, q_given=True,
+                                                need_dw=False))
+    assert halves == ligo_expand_bwd.operation_count(*d, u_given=True)
+    assert (ligo_expand.operation_count(*d, stage="expand")
+            + ligo_expand.operation_count(*d, stage="blend")
+            == ligo_expand.operation_count(*d) == prod + blend)
+    assert ligo_expand.least_operations(*d) <= prod + blend
+    assert ligo_expand_bwd.least_operations(*d) <= full
+
+    with FakeTensorMode():
+        w, B, W = (torch.empty(s) for s in ((G, L2, L1), (I, A),
+                                            (G, L1, E, A, Bd)))
+        dP, U = torch.empty((G, L2, E, I, Bd)), torch.empty((G, L1, E, I, Bd))
+        calls = [
+            (lambda: ops._k1(w, B, W, True),
+             ligo_expand.operation_count(*d)),
+            (lambda: ops._k1_expand(B, W), prod),
+            (lambda: ops._k1_blend(w, U, torch.float32), blend),
+            (lambda: ops._k2(w, B, W, dP, None, True), full),
+            (lambda: ops._k2(w, B, W, dP, U, False), prod + 2 * blend),
+            (lambda: ops._k2_blend(w, dP, U), 2 * blend),
+            (lambda: ops._k2_expand(B, W, U, False), prod),
+        ]
+        for fn, want in calls:
+            with FlopCounterMode(display=False) as counter:
+                fn()
+            assert counter.get_total_flops() == want

@@ -314,7 +314,8 @@ def test_kill_mid_ligo_phase_resumes_record_identical(tmp_path,
 def test_kernel_route_count_adds_the_kernels_operation_counts(monkeypatch):
     """The measured-cost pass on the kernel route launches nothing, and
     counts exactly K1's and K2's operation counts (their custom operators'
-    flop formulas) for every group the plan sends through them; its total
+    flop formulas) for every group the plan sends through them, K2 taking
+    K1's U and skipping dW where W takes no gradient; its total
     stays within [0.5, 2] of the 6ND model at the reference's CI shape. The
     CPU cannot launch the kernels, so the plan and the K1/K2 entry point are
     made to take the route they take on CUDA inputs; the pass's fake
@@ -332,9 +333,10 @@ def test_kernel_route_count_adds_the_kernels_operation_counts(monkeypatch):
     calls = []
     vjp, apply = ops.ligo_blend_expand_grouped_vjp, plan_mod.GrowthPlan.apply
 
-    def spy(w, B, W, **kw):
-        calls.append((*w.shape, W.shape[2], *B.shape, W.shape[4]))
-        return vjp(w, B, W, use_kernel=True)
+    def spy(w, B, W, R=None, **kw):
+        calls.append(((*w.shape, W.shape[2], *B.shape, W.shape[4]),
+                      None if R is None else R.shape[0], W.requires_grad))
+        return vjp(w, B, W, R, use_kernel=True)
     monkeypatch.setattr(ops, "ligo_blend_expand_grouped_vjp", spy)
     monkeypatch.setattr(plan_mod.GrowthPlan, "apply",
                         lambda self, *a, **kw: apply(
@@ -352,7 +354,23 @@ def test_kernel_route_count_adds_the_kernels_operation_counts(monkeypatch):
                            small,
                            modelled_flops=train_flops_per_step(T1, 4, 16))
     assert calls and set(ops.launch_counts().values()) == {0}
-    want = sum(ligo_expand.operation_count(*c)
-               + ligo_expand_bwd.operation_count(*c) for c in calls)
+    # K2 takes K1's U, and computes dW only where W takes a gradient; a
+    # right expansion between K1's U and its blend (width j) splits K1 and
+    # K2 into their halves
+    want = 0
+    for d, j, grad_W in calls:
+        if j is None:
+            want += (ligo_expand.operation_count(*d)
+                     + ligo_expand_bwd.operation_count(*d, u_given=True,
+                                                       need_dW=grad_W))
+            continue
+        dj = d[:6] + (j,)
+        want += (ligo_expand.operation_count(*d, stage="expand")
+                 + ligo_expand.operation_count(*dj, stage="blend")
+                 + ligo_expand_bwd.operation_count(
+                     *dj, u_given=True, need_dW=False, need_dB=False)
+                 + ligo_expand_bwd.operation_count(
+                     *d, q_given=True, need_dW=grad_W, need_dw=False))
+    assert any(j is not None for _, j, _ in calls)
     assert m["flops_kernels"] == want > 0 and m["flops_aten"] > 0
     assert 0.5 <= m["ratio"] <= 2.0, m["ratio"]

@@ -29,7 +29,7 @@ from repro_torch.core import (apply_ligo, compose_chain,     # noqa: E402
                               init_ligo_params, plan_for)
 from repro_torch.core.plan import _build_plan, _tree_signature  # noqa: E402
 from torch_parity import (TINY1, TINY2, TINY3, assert_close,  # noqa: E402
-                          jax_cfg)
+                          jax_cfg, to_numpy)
 
 GROUP_FIELDS = ("kind", "stacked", "paths", "shape", "in_ref", "out_ref",
                 "vec", "order")
@@ -83,24 +83,97 @@ def test_k1_eligibility_at_gpt2_width():
 
 @pytest.mark.parametrize("square", [False, True])
 def test_k1_route_places_the_right_expansion_by_cost(square):
-    """On the K1 route a group's right expansion runs before K1 (on the L1
-    source layers) where that needs fewer operations than after it (on the
-    L2 target layers): all six groups at gpt2-base -> gpt2-medium, some of
-    the quickstart's. Either place gives the plain route's tree."""
+    """On the K1 route a group's right expansion runs where its forward (and,
+    when the operator takes gradients, its backward) needs the fewest
+    operations: before K1 on the L1 source layers, between K1's U and its
+    blend, or after K1 on the L2 target layers. At gpt2-base ->
+    gpt2-medium mlp/w2 goes between and the other five groups before, with
+    or without gradients; the quickstart's pair likewise. Every place gives
+    the plain route's tree."""
     from repro_torch.examples import quickstart as qs
     from repro_torch.models.model import init_params
     g1, g2 = tc.get_config("gpt2-base"), tc.get_config("gpt2-medium")
     meta = init_params(g1, torch.Generator().manual_seed(0), device="meta")
-    assert all(g.out_first for g in plan_for(g1, g2, meta).groups
-               if g.kernel_ok)
+    places = {g.paths: (g.right, g.right_grad)
+              for g in plan_for(g1, g2, meta).groups if g.kernel_ok}
+    assert places == {("mlp/w2",): ("between", "between"),
+                      **{(p,): ("before", "before")
+                         for p in ("mlp/w1", "wq", "wk", "wv", "wo")}}
     gen = torch.Generator().manual_seed(0)
     sp = init_params(qs.SMALL, gen, device="cpu")
     op = init_ligo_params(gen, qs.SMALL, qs.BIG, device="cpu")
     plan = plan_for(qs.SMALL, qs.BIG, sp)
-    assert {g.out_first for g in plan.groups if g.kernel_ok} == {False, True}
+    assert {g.right for g in plan.groups if g.kernel_ok} == {"before",
+                                                             "between"}
     fused = plan.apply(op, sp, use_kernel=True, square=square)
     plain = plan.apply(op, sp, use_kernel=False, square=square)
     assert_close(fused, bridge.to_numpy(plain), rel=1e-5)
+
+
+def test_right_expansion_costs_at_gpt2_medium():
+    """The placement rule's operation counts for mlp/w2 at gpt2-base ->
+    gpt2-medium (L1 12, L2 24, a 3072, b 768, i 4096, j 1024): between K1's
+    U and its blend saves ~0.35e12 operations of a LiGO step's forward and
+    backward against the expansion before K1, and is cheapest for a forward
+    alone too."""
+    from repro_torch.core.plan import _right_costs
+    cost = _right_costs(1, 12, 24, 3072, 768, 4096, 1024)
+    fwd = {p: c[0] for p, c in cost.items()}
+    both = {p: sum(c) for p, c in cost.items()}
+    assert min(fwd, key=fwd.get) == min(both, key=both.get) == "between"
+    assert 0.33e12 < both["before"] - both["between"] < 0.37e12
+    # the expansion's own matmuls and K1's U at width b, by hand
+    mid = 2 * 12 * 4096 * 768 * 1024
+    assert fwd["between"] == (2 * 12 * 4096 * 3072 * 768 + mid
+                              + 2 * 24 * 12 * 4096 * 1024)
+
+
+def _forced(plan, place):
+    """``plan`` with the right expansion of every K1-route group put at
+    ``place``, with or without gradients."""
+    groups = tuple(dataclasses.replace(g, right=place, right_grad=place)
+                   if g.kernel_ok and g.out_ref else g for g in plan.groups)
+    return type(plan)(plan.cfg1, plan.cfg2, groups, plan.exprs)
+
+
+@pytest.mark.parametrize("place", ["before", "between", "after"])
+def test_each_right_placement_matches_jax_apply_and_gradients(
+        small, operator, place):
+    """Every place of the right expansion on the K1 route (K1's and K2's
+    plain versions on CPU tensors) gives the JAX package's apply (its plan
+    executor, Pallas K1 in interpret mode) and the gradient of a fixed
+    linear read-out of the grown tree with respect to the operator (JAX:
+    ``jax.grad`` through its legacy walk), f32, within 1e-5
+    scale-normalised per leaf."""
+    jp, tp = small
+    jop, top = operator
+    j1, j2 = jax_cfg(TINY1), jax_cfg(TINY2)
+    plan = _forced(plan_for(TINY1, TINY2, tp), place)
+    assert any(g.kernel_ok and g.out_ref for g in plan.groups)
+    want = jax_plan_for(j1, j2, jp).executor(mesh=None, use_kernel=True)(
+        jop, jp)
+    with torch.no_grad():
+        assert_close(plan.apply(top, tp, use_kernel=True), want, rel=1e-5)
+
+    rng = np.random.RandomState(11)
+    readout = jax.tree.map(lambda x: rng.randn(*x.shape).astype(np.float32),
+                           to_numpy(want))
+
+    def jax_readout(op):
+        grown = jax_apply_ligo(op, jp, j1, j2, engine="legacy")
+        return sum(jax.numpy.vdot(a, b) for a, b in zip(
+            jax.tree.leaves(grown), jax.tree.leaves(readout)))
+    jgrad = jax.grad(jax_readout)(jop)
+
+    from repro_torch.core.ligo import _flatten
+    from repro_torch.training import value_and_grad
+    tread = _flatten(bridge.to_torch(readout))
+
+    def torch_readout(op):
+        grown = _flatten(plan.apply(op, tp, use_kernel=True))
+        return sum((grown[k] * tread[k]).sum() for k in sorted(tread)), {}
+    _, tgrad = value_and_grad(torch_readout, top)
+    assert_close(tgrad, jgrad, rel=1e-5)
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

@@ -88,11 +88,6 @@ def test_remat_changes_nothing_but_memory(tiny_params):
     assert_close(out[1][1], to_numpy(bridge.to_numpy(out[0][1])), rel=1e-6)
 
 
-def test_cls_objective_is_refused():
-    with pytest.raises(NotImplementedError, match="cls"):
-        loss_fn({}, TINY1.scaled(objective="cls"), {})
-
-
 def test_bf16_cotangent_changes_only_the_gradient_dtype_path():
     cfg = TINY1.scaled(dtype="bfloat16")
     jp = jax_init_params(jax_cfg(cfg), jax.random.PRNGKey(3))

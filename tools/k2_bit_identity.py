@@ -37,7 +37,8 @@ def main() -> int:
     main_path = chip_smoke._k1_shapes(torch, get_config("gpt2-base"),
                                       get_config("gpt2-medium"))
     shapes = [(name, "bfloat16", dims, 200 + i)
-              for i, (name, *dims) in enumerate(main_path)]
+              for i, (name, dims, _, _) in enumerate(
+                  chip_smoke._k2_checks(main_path))]
     shapes += chip_smoke.K2_EXTRA_SHAPES
     other_dir = os.path.abspath(sys.argv[1])
     so = os.path.join(other_dir, "libligo_expand_bwd_other.so")
