@@ -94,6 +94,20 @@ sources are not beside it. Phases, each fatal on failure:
    route in bf16 and in float32, the kernel route's LiGO and target losses,
    eval loss and grown tree held against them; the vision LiGO step's
    measured / modelled FLOPs printed on both routes;
+9. drive the live serving engine at full width, bf16, under the
+   deterministic algorithms of phase 6: (a) ``serve --live-grow-at 8``,
+   gpt2-base -> gpt2-medium, 8 slots, 16 requests of 64-128 tokens, 32 new
+   tokens, paged KV, the grow (K1) in a background thread on its own
+   stream: the hop must complete on attempt 1 by re-prefill, every
+   request done, none dropped, K1 launched for ``warm()`` and the hop and
+   K3 once per layer of every prefill and re-prefill the engine counted;
+   (b) the same run with the hop synchronous on the kernel route and on
+   the plain route: first-token logits within the bf16 tolerance; (c)
+   paged against dense on the kernel route; (d) a LEMON hop gpt2-medium ->
+   gpt2-medium-ff2 (the cache grows in place) against a run with no hop;
+   (e) chaos at every hop stage at smoke size, each rollback's cause the
+   injected one; (f) llama3-8b (phase 3b's params) through the engine,
+   4 slots, prompts of 1024-2048 tokens, with a profiled decode step;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -153,6 +167,17 @@ K3_SHAPES = [
     ("deit-b eval", "bfloat16", (32, 12, 12, 197, 197, 64, False, 0)),
     ("deit-s", "bfloat16", (32, 6, 6, 197, 197, 64, False, 0)),
     ("cait-s eval", "bfloat16", (32, 8, 8, 197, 197, 48, False, 0)),
+    # phase 9's engine: one prefill per admitted request, right-padded to
+    # the prompt budget (gpt2-base before the hop, gpt2-medium after it,
+    # llama3-8b), and one re-prefill per live session at max_len = 160
+    # after the LiGO hop
+    ("engine prefill gpt2-base", "bfloat16", (1, 12, 12, 128, 128, 64, True, 0)),
+    ("engine prefill gpt2-medium", "bfloat16",
+     (1, 16, 16, 128, 128, 64, True, 0)),
+    ("engine re-prefill gpt2-medium", "bfloat16",
+     (1, 16, 16, 160, 160, 64, True, 0)),
+    ("engine prefill llama3-8b", "bfloat16",
+     (1, 32, 8, 2048, 2048, 128, True, 0)),
 ]
 
 # K1's and K2's shapes besides the main path's six groups (gpt2-base ->
@@ -1626,6 +1651,348 @@ def _vision_phase(torch):
     return launches, report
 
 
+# Phase 9: the live engine through serve --live-grow-at, at full width,
+# bf16: continuous batching over the paged KV cache, the zero-downtime hop
+# gpt2-base -> gpt2-medium (K1 on a side stream of a background thread,
+# re-prefill through K3), a LEMON hop, chaos at every stage, and llama3-8b
+# through the engine.
+LIVE_REQ, LIVE_GEN = 16, 32
+LIVE_ARGS = ["--arch", "gpt2-base", "--grow-to", "gpt2-medium",
+             "--live-grow-at", "8", "--batch", "8", "--requests",
+             str(LIVE_REQ), "--prompt-len", "128", "--gen", str(LIVE_GEN)]
+LEMON_ARGS = ["--arch", "gpt2-medium", "--hop-operator", "lemon",
+              "--live-grow-at", "8", "--batch", "8", "--requests",
+              str(LIVE_REQ), "--prompt-len", "128", "--gen", str(LIVE_GEN),
+              "--hop-sync"]
+# first-token logits, kernel route against plain route and LEMON hop
+# against no hop: _prefill_check's bf16 tolerance at gpt2-medium (phase 3);
+# paged against dense: the same functions on the same inputs but for the
+# gather, so held tighter
+LIVE_TOL = 2e-2
+LAYOUT_TOL = 1e-3
+# llama3-8b through the engine: slots, requests, prompt budget (prompts of
+# 1024-2048 tokens), new tokens
+LLAMA_LIVE = (4, 8, 2048, 32)
+
+
+def _logit_err(a, b):
+    import numpy as np
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
+
+
+def _live_check(res, n_req, gen):
+    """Every request of a live run done at ``gen`` tokens with finite
+    first- and last-token logits, none dropped or rejected."""
+    import numpy as np
+    eng = res["engine"]
+    c = eng.counts()
+    if not (c["done"] == n_req and c["dropped"] == 0 and c["rejected"] == 0
+            and len(eng.requests) == n_req
+            and all(len(r.tokens) == r.max_new == gen
+                    for r in eng.requests)):
+        raise AssertionError(f"live run: {c}, tokens "
+                             f"{[len(r.tokens) for r in eng.requests]}")
+    for r in eng.requests:
+        if not (np.isfinite(r.first_logits).all()
+                and np.isfinite(r.last_logits).all()):
+            raise AssertionError("live run: non-finite logits")
+    return eng, res["hop"]
+
+
+def _k3_want(eng, cfg1, cfg2):
+    """K3 launches of a live run by the engine's own prefill counters: one
+    per layer of every admission prefill and every re-prefill."""
+    pc = eng.prefill_counts
+    return (cfg1.n_layers * pc[(cfg1.name, "admit")]
+            + cfg2.n_layers * (pc[(cfg2.name, "admit")]
+                               + pc[(cfg2.name, "reprefill")]))
+
+
+def _decode_report(label, eng, hop=None):
+    """Decode tok/s (decode tokens over the decode steps' walls) and step
+    p50/p99, before, during and after the hop where there is one."""
+    ms = eng.decode_step_ms()
+    toks = sum(len(r.tokens) - 1 for r in eng.requests)
+    line = (f"[live] {label}: {len(ms)} decode steps, "
+            f"{toks / (sum(ms) / 1e3):.1f} decode tok/s")
+    spans = [("all", (0, None))]
+    if hop is not None and hop.completed:
+        spans = [("before", (0, hop.begin_at_step)),
+                 ("during", (hop.begin_at_step, hop.swap_at_step)),
+                 ("after", (hop.swap_at_step, None))]
+    for name, steps in spans:
+        p50, p99 = eng.decode_step_percentiles(50, 99, steps=steps)
+        n = len(eng.decode_step_ms(steps))
+        line += f" | {name} ({n} steps) p50 {p50:.2f} ms p99 {p99:.2f} ms"
+    print(line, flush=True)
+
+
+def _chaos_phase(torch, stage, device="cuda"):
+    """One hop gpt2-base-smoke -> 2x on the card with a one-shot failure
+    injected at ``stage``: it must roll back once, for the injected cause
+    alone (a watchdog HopError for "hang"), then complete on attempt 2 with
+    every request done and none dropped. For "hang" the watchdog's floor
+    is 0.25 s: the hung grow is aborted after 0.25 s, while 64 requests
+    still decode, and the retry, a background grow beside decode steps,
+    has as long."""
+    from repro_torch.configs import get_config, grow_target, smoke_config
+    from repro_torch.core import init_ligo_params
+    from repro_torch.launch.serve import live_prompts
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import HopController, HopError, ServingEngine
+    cfg = smoke_config(get_config("gpt2-base"))
+    cfg2 = grow_target(cfg)
+    params = init_params(cfg, torch.Generator(device).manual_seed(0),
+                         device=device)
+    op = init_ligo_params(torch.Generator(device).manual_seed(1), cfg, cfg2,
+                          device=device)
+    eng = ServingEngine(params, cfg, slots=4, prompt_budget=16,
+                        gen_budget=16, device=device)
+    n_req = 64
+    for p in live_prompts(n_req, 16, cfg.vocab_size):
+        eng.submit(p, max_new=16)
+    hop = HopController(eng, cfg2, op, fail_at=stage, backoff=0.01,
+                        background=stage == "hang",
+                        watchdog_floor=0.25 if stage == "hang" else 0.0)
+    hop.warm()
+
+    def on_step(e):
+        if e.decode_steps >= 2 and hop.attempts == 0:
+            hop.begin()
+        if hop.attempts:
+            hop.poll()
+
+    eng.run(on_step=on_step)
+    while not hop.poll():
+        time.sleep(0.002)
+    causes = [(where, type(err).__name__, str(err))
+              for where, err in hop.rollbacks]
+    want_where = "grow" if stage == "hang" else stage
+    want_text = "watchdog" if stage == "hang" else "injected"
+    c = eng.counts()
+    ok = (hop.completed and hop.attempts == 2 and len(hop.rollbacks) == 1
+          and hop.rollbacks[0][0] == want_where
+          and isinstance(hop.rollbacks[0][1], HopError)
+          and want_text in str(hop.rollbacks[0][1])
+          and c["done"] == n_req and c["dropped"] == 0
+          and all(len(r.tokens) == r.max_new for r in eng.requests))
+    print(f"[live] chaos at {stage!r}: attempts {hop.attempts}, rollbacks "
+          f"{causes}, {c['done']} done, {c['dropped']} dropped, cache "
+          f"{hop.cache_path}, swap at decode step {hop.swap_at_step} of "
+          f"{eng.decode_steps}", flush=True)
+    if not ok:
+        raise AssertionError(f"chaos at {stage!r}: the hop must roll back "
+                             f"once for the injected cause alone and land "
+                             f"on attempt 2 with 0 dropped; rollbacks "
+                             f"{causes}, attempts {hop.attempts}, {c}")
+
+
+def _live_phase(torch, shapes, llama):
+    """Phase 9 (a)-(f). Returns the kernel-route runs' launches by run, the
+    K3 launches by engine shape (for the JSON line's times) and the llama
+    profile's device busy share."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import live_prompts
+    from repro_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    k1_grow = _launches(shapes, False)[0]
+    n_req, gen = LIVE_REQ, LIVE_GEN
+    runs = {}
+
+    def serve_run(label, argv, use_kernel=None):
+        ops.reset_launch_counts()
+        res = serve.main(argv, use_kernel=use_kernel)
+        runs[label] = ops.launch_counts()
+        return res
+
+    # (a) the hop in the background, paged, on the kernel route
+    a = serve_run("live a", LIVE_ARGS)
+    cfg1, cfg2 = a["small_cfg"], a["cfg2"]
+    eng, hop = _live_check(a, n_req, gen)
+    if not (hop.completed and hop.attempts == 1 and not hop.rollbacks
+            and hop.cache_path == "reprefill" and eng.kv_layout == "paged"
+            and eng.cfg.name == cfg2.name):
+        raise AssertionError(f"(a): hop completed {hop.completed}, attempts "
+                             f"{hop.attempts}, rollbacks {hop.rollbacks}, "
+                             f"cache {hop.cache_path}, layout "
+                             f"{eng.kv_layout}")
+    pc = eng.prefill_counts
+    n_pre, n_post = pc[(cfg1.name, "admit")], pc[(cfg2.name, "admit")]
+    n_rep = pc[(cfg2.name, "reprefill")]
+    want = {"ligo_blend_expand_grouped": 2 * k1_grow,
+            "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": _k3_want(eng, cfg1, cfg2)}
+    print(f"[live] (a) launches {runs['live a']}, want {want} (K1: warm() "
+          f"and the hop, {k1_grow} each; K3: {n_pre} gpt2-base prefills x "
+          f"{cfg1.n_layers} + ({n_post} gpt2-medium prefills + {n_rep} "
+          f"re-prefills) x {cfg2.n_layers})", flush=True)
+    if runs["live a"] != want or not (n_pre and n_post and n_rep):
+        raise AssertionError(f"(a) launches {runs['live a']}, want {want}")
+    print(f"[live] (a) hop ms: warm grow {hop.timings['warm']:.2f}, live "
+          f"grow (grow thread) {hop.timings['grow']:.2f}, cache migration "
+          f"({n_rep} re-prefills) {hop.timings['cache-grow']:.2f}, swap "
+          f"{hop.timings['swap']:.3f}, begin to swap {hop.hop_ms:.2f}; "
+          f"steps {hop.begin_at_step} -> {hop.swap_at_step}; "
+          f"{a['tok_s']:.1f} tok/s over {a['wall_s']:.2f} s; paged "
+          f"{a['kib_per_slot']:.1f} KiB/slot at peak ({a['peak_blocks']} "
+          f"blocks) vs {a['dense_kib_per_slot']:.1f} dense", flush=True)
+    _decode_report("(a) gpt2-base -> gpt2-medium, background hop", eng, hop)
+    k3_engine = {"engine prefill gpt2-base": cfg1.n_layers * n_pre,
+                 "engine prefill gpt2-medium": cfg2.n_layers * n_post,
+                 "engine re-prefill gpt2-medium": cfg2.n_layers * n_rep}
+    # the tree the grow thread published from its side stream, against a
+    # grow of the same params and operator on the engine's stream: bit for
+    # bit (K1 is bit-deterministic), or the background hop served a tree
+    # it had not finished
+    from repro_torch.core.ligo import _flatten
+    from repro_torch.core.plan import plan_for
+    with torch.no_grad():
+        again = _flatten(plan_for(cfg1, cfg2, a["small"]).apply(
+            a["ligo"], a["small"]))
+    served = _flatten(eng.params)
+    if sorted(served) != sorted(again) or not all(
+            torch.equal(served[k], again[k]) for k in again):
+        raise AssertionError("(a) the background hop's grown tree differs "
+                             "from the same grow on the engine's stream")
+    print(f"[live] (a) the grown tree served after the background hop: "
+          f"bitwise equal to a grow on the engine's stream "
+          f"({len(again)} leaves)", flush=True)
+    first_a = [r.first_logits for r in eng.requests]
+    del a, eng, hop, again, served
+
+    # (b) kernel route against the plain route, the hop synchronous in both
+    kb = serve_run("live b", LIVE_ARGS + ["--hop-sync"])
+    pb = serve.main(LIVE_ARGS + ["--hop-sync"], use_kernel=False)
+    ekb, hkb = _live_check(kb, n_req, gen)
+    epb, hpb = _live_check(pb, n_req, gen)
+    plain_launch = ops.launch_counts()
+    if plain_launch != runs["live b"] or not (
+            hkb.completed and hpb.completed
+            and hkb.swap_at_step == hpb.swap_at_step):
+        raise AssertionError(f"(b): the plain route launched a kernel "
+                             f"({plain_launch} against {runs['live b']}) "
+                             f"or the hops differ ({hkb.swap_at_step}, "
+                             f"{hpb.swap_at_step})")
+    errs = [_logit_err(rk.first_logits, rp.first_logits)
+            for rk, rp in zip(ekb.requests, epb.requests)]
+    same = sum(rk.tokens == rp.tokens
+               for rk, rp in zip(ekb.requests, epb.requests))
+    print(f"[live] (b) first-token logits, kernel route vs plain route, "
+          f"normalised max error per request: max {max(errs):.2e} (tol "
+          f"{LIVE_TOL:.0e}); tokens equal in {same}/{n_req} requests", flush=True)
+    if max(errs) > LIVE_TOL:
+        raise AssertionError(f"(b) first-token logits {errs}")
+    # (a) hopped in the background, (b) synchronously: one step apart, but
+    # each request's first token comes from its prompt and the same model
+    bg = max(_logit_err(fa, r.first_logits)
+             for fa, r in zip(first_a, ekb.requests))
+    print(f"[live] (a) background vs (b) synchronous hop, first-token "
+          f"logits: {bg:.2e} (tol {LAYOUT_TOL:.0e})", flush=True)
+    if bg > LAYOUT_TOL:
+        raise AssertionError(f"(a) vs (b) first-token logits {bg:.3e}")
+    del pb, epb, hpb
+
+    # (c) paged against dense on the kernel route
+    kd = serve_run("live c", LIVE_ARGS + ["--hop-sync", "--kv-layout",
+                                          "dense"])
+    ekd, hkd = _live_check(kd, n_req, gen)
+    same = [rp.tokens == rd.tokens
+            for rp, rd in zip(ekb.requests, ekd.requests)]
+    first = max(_logit_err(rd.first_logits, rp.first_logits)
+                for rp, rd in zip(ekb.requests, ekd.requests))
+    last = max([_logit_err(rd.last_logits, rp.last_logits)
+                for rp, rd, s in zip(ekb.requests, ekd.requests, same)
+                if s] or [0.0])
+    bitwise = all(same) and all(
+        (rp.last_logits == rd.last_logits).all()
+        for rp, rd in zip(ekb.requests, ekd.requests))
+    print(f"[live] (c) paged vs dense: tokens equal in {sum(same)}/{n_req} "
+          f"requests, bitwise equal tokens and last logits: {bitwise}; "
+          f"first-token logits {first:.2e}, last-token logits {last:.2e} "
+          f"(tol {LAYOUT_TOL:.0e}); KiB/slot paged {kb['kib_per_slot']:.1f} "
+          f"at peak vs dense {kb['dense_kib_per_slot']:.1f}", flush=True)
+    if (not hkd.completed or hkd.swap_at_step != hkb.swap_at_step
+            or first > LAYOUT_TOL or last > LAYOUT_TOL):
+        raise AssertionError(f"(c) paged vs dense: first {first:.3e}, last "
+                             f"{last:.3e}, swap {hkd.swap_at_step} vs "
+                             f"{hkb.swap_at_step}")
+    del kb, ekb, hkb, kd, ekd, hkd
+
+    # (d) a LEMON hop gpt2-medium -> gpt2-medium-ff2: the cache grows in
+    # place; the served logits against a run of the same requests with no
+    # hop
+    d = serve_run("live d", LEMON_ARGS)
+    ed, hd = _live_check(d, n_req, gen)
+    if not (hd.completed and hd.attempts == 1
+            and hd.cache_path == "grow"):
+        raise AssertionError(f"(d) LEMON hop: completed {hd.completed}, "
+                             f"attempts {hd.attempts}, cache "
+                             f"{hd.cache_path}")
+    eng = d["engine"]
+    ref = ServingEngine(d["small"], d["small_cfg"], slots=eng.slots,
+                        prompt_budget=eng.prompt_budget,
+                        gen_budget=eng.max_len - eng.prompt_budget,
+                        device=eng.device)
+    for p in live_prompts(n_req, eng.prompt_budget,
+                          d["small_cfg"].vocab_size):
+        ref.submit(p, max_new=gen)
+    ref.run()
+    same = [r.tokens == q.tokens for r, q in zip(ed.requests, ref.requests)]
+    first = max(_logit_err(r.first_logits, q.first_logits)
+                for r, q in zip(ed.requests, ref.requests))
+    last = max([_logit_err(r.last_logits, q.last_logits)
+                for r, q, s in zip(ed.requests, ref.requests, same) if s]
+               or [0.0])
+    print(f"[live] (d) LEMON hop {d['small_cfg'].name} -> {d['cfg2'].name}: "
+          f"cache {hd.cache_path}, hop ms: warm grow "
+          f"{hd.timings['warm']:.2f}, grow {hd.timings['grow']:.2f}, cache "
+          f"growth {hd.timings['cache-grow']:.2f}, swap "
+          f"{hd.timings['swap']:.3f}; against no hop: tokens equal in "
+          f"{sum(same)}/{n_req} requests, first-token logits {first:.2e}, "
+          f"last-token logits {last:.2e} (tol {LIVE_TOL:.0e}); launches "
+          f"{runs['live d']}", flush=True)
+    if first > LIVE_TOL or last > LIVE_TOL:
+        raise AssertionError(f"(d) LEMON hop vs no hop: first {first:.3e}, "
+                             f"last {last:.3e}")
+    del d, ed, hd, ref, eng
+
+    # (e) chaos at every stage, at smoke size
+    for stage in ("grow", "cache-grow", "swap", "hang"):
+        _chaos_phase(torch, stage)
+
+    # (f) llama3-8b through the engine, no hop: phase 3b's params
+    lcfg, lparams = llama
+    slots, n_req, budget, gen = LLAMA_LIVE
+    ops.reset_launch_counts()
+    eng = ServingEngine(lparams, lcfg, slots=slots, prompt_budget=budget,
+                        gen_budget=gen, device=lparams["final_norm"][
+                            "scale"].device)
+    for p in live_prompts(n_req, budget, lcfg.vocab_size):
+        eng.submit(p, max_new=gen)
+    for _ in range(4):              # first wave admitted, 3 decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    ev = _profile(torch, "llama3-8b engine decode step (4 slots, paged)",
+                  eng.step)
+    eng.run()
+    runs["live f"] = ops.launch_counts()
+    _live_check({"engine": eng, "hop": None}, n_req, gen)
+    n_adm = eng.prefill_counts[(lcfg.name, "admit")]
+    want = {"ligo_blend_expand_grouped": 0, "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": lcfg.n_layers * n_adm}
+    if runs["live f"] != want or eng.kv_layout != "paged":
+        raise AssertionError(f"(f) launches {runs['live f']}, want {want}")
+    k3_engine["engine prefill llama3-8b"] = lcfg.n_layers * n_adm
+    _decode_report(f"(f) llama3-8b, {slots} slots, {n_req} requests of "
+                   f"{min(len(r.prompt) for r in eng.requests)}-"
+                   f"{max(len(r.prompt) for r in eng.requests)} tokens",
+                   eng)
+    del eng, ev
+    print(f"[live] phase 9 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3_engine
+
+
 def _quickstart_phase():
     """Phase 7: the quickstart twin at the script's own size; returns its
     kernel launches."""
@@ -1765,6 +2132,17 @@ def main() -> int:
                                  f"and must take the tensor cores")
         rows += vision[b][0]
         rows2 += vision[b][1]
+    # phase 9's LEMON hop gpt2-medium -> gpt2-medium-ff2 (its grow, bf16)
+    lemon_shapes = _k1_shapes(torch, cfg2, cfg2.scaled(
+        name=f"{cfg2.name}-ff2", d_ff=2 * cfg2.d_ff))
+    lemon_rows = [_check_k1(torch, f"lemon {sh['name']}", torch.bfloat16,
+                            *d, seed=160 + n)
+                  for n, sh in enumerate(lemon_shapes)
+                  for _, d in _k1_calls(sh, False)]
+    if not all(r["tensor_cores"] for r in lemon_rows):
+        raise AssertionError("the LEMON hop's bf16 K1 shapes must take the "
+                             "tensor cores")
+    rows += lemon_rows
 
     k3_rows = [_check_k3(torch, name, dtype, *dims, seed=300 + i)
                for i, (name, dtype, dims) in enumerate(K3_SHAPES)]
@@ -1866,6 +2244,8 @@ def main() -> int:
                       lambda: prefill(lres["params"], lres["cfg"],
                                       {"tokens": lres["prompts"]}))
     _check_k3_launches("llama3-8b prefill", ev, lres["cfg"].n_layers)
+    # phase 9 (f) serves these parameters again through the engine
+    llama = (lres["cfg"], lres["params"])
     del lres, ev
     torch.cuda.empty_cache()
 
@@ -1953,6 +2333,11 @@ def main() -> int:
               f"{vreport[b]['plain_ratio']:.3f}); phase "
               f"{vreport[b]['seconds']:.1f} s", flush=True)
 
+    # -- phase 9: the live engine at full width -----------------------------
+    live_runs, k3_engine = _live_phase(torch, shapes, llama)
+    del llama
+    traj["launches"].update(live_runs)
+
     # -- phase 5: report ------------------------------------------------------
     def entry(name, source, replaces, n, rows_, main_):
         t_ops = sum(r["gflop"] * 1e9 for r in main_) / PEAK_OPS["bfloat16"]
@@ -1982,12 +2367,15 @@ def main() -> int:
               "src/repro/kernels/ligo_expand_bwd.py:141",
               total("ligo_blend_expand_bwd_fused"), rows2, main_rows2),
         # K3's times: its work in one gpt2-medium prefill (24 launches at
-        # shape (a)) plus one llama3-8b prefill (32 launches at shape (b))
+        # shape (a)) plus one llama3-8b prefill (32 launches at shape (b)),
+        # plus the engine's prefills and re-prefills of phase 9 (a) and (f)
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:72",
               total("flash_attention"), k3_rows,
               [k3_rows[0]] * launches["flash_attention"]
-              + [k3_rows[1]] * llaunch["flash_attention"]),
+              + [k3_rows[1]] * llaunch["flash_attention"]
+              + [r for r in k3_rows for _ in range(k3_engine.get(
+                  r["shape"], 0))]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -26,9 +26,23 @@ the random init, e.g. the end of a trajectory::
 The run reports hot-grow ms, prefill ms, decode tok/s and the K1 and K3
 launches.
 
+**Zero-downtime live growth**: ``--live-grow-at N`` serves through the
+continuous-batching engine (``repro_torch.serving``) and hops to the
+``--grow-to`` target after N decode steps *while serving*: the grown params
+materialise double-buffered (through K1, on a side stream of a background
+thread unless ``--hop-sync``), live sessions' KV caches migrate (in place
+when the operator is lossless, ``--hop-operator lemon``; re-prefilled
+through K3 otherwise) and the buffers swap between decode steps. A failed
+hop (inject one with ``--fail-at-hop grow|cache-grow|swap|hang``) rolls
+back and retries with backoff; admitted requests never drop either way::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-base \\
+        --grow-to gpt2-medium --live-grow-at 8 --batch 8 --requests 16 \\
+        --prompt-len 128 --gen 32
+
 Runs on CUDA unless ``--device cpu`` is given, and raises when there is no
-CUDA device and no ``--device cpu``. The live engine, meshes,
-observability and speculative decoding come with later slices.
+CUDA device and no ``--device cpu``. Meshes, the rest of observability
+and speculative decoding come with later slices.
 """
 from __future__ import annotations
 
@@ -36,6 +50,7 @@ import argparse
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, grow_target, smoke_config
@@ -44,6 +59,7 @@ from repro_torch.data import gen_tokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, ops
 from repro_torch.models.model import decode_step, init_params, prefill
+from repro_torch.obs import attach_ledger, detach_ledger
 
 
 def _sync(dev: torch.device) -> None:
@@ -134,7 +150,133 @@ def _restore_ckpt(ckpt_dir: str, cfg, dev):
     return params
 
 
-def _serve(args) -> Dict[str, Any]:
+def live_prompts(n_req: int, prompt_len: int, vocab: int) -> List[List[int]]:
+    """The live path's requests: rows of ``gen_tokens(0, 0, ...)`` cut to
+    lengths drawn in ``[max(2, prompt_len // 2), prompt_len]`` from
+    ``RandomState(0)``, as the JAX package's live serve makes them."""
+    rng = np.random.RandomState(0)
+    rows = gen_tokens(0, 0, n_req, prompt_len, vocab)
+    out = []
+    for r in range(n_req):
+        plen = int(rng.randint(max(2, prompt_len // 2), prompt_len + 1))
+        out.append([int(t) for t in rows[r, :plen]])
+    return out
+
+
+def _live_operator(args, cfg, dev):
+    """(cfg2, operator) of the live hop that ``--hop-operator`` names."""
+    from repro_torch.core import compose_chain, init_ligo_params
+    if args.hop_operator == "lemon":
+        # lossless: double d_ff at fixed d_model, d_head and heads; the grown
+        # model is the same function, so the cache grows in place
+        # (--grow-to is ignored on this path)
+        from repro_torch.core.operators import lemon_operator
+        cfg2 = cfg.scaled(name=f"{cfg.name}-ff2", d_ff=cfg.d_ff * 2)
+        return cfg2, lemon_operator(cfg, cfg2, device=dev)
+    if args.hop_operator == "upcycle":
+        raise SystemExit("--hop-operator upcycle: dense -> MoE upcycling is "
+                         "not ported yet (ROADMAP item 'the other "
+                         "families')")
+    chain = [cfg] + _target_chain(cfg, args.grow_to or "2x",
+                                  smoke=args.smoke)
+    ops_ = [init_ligo_params(
+        torch.Generator(device=dev).manual_seed(args.seed + 1 + i), a, b,
+        device=dev) for i, (a, b) in enumerate(zip(chain[:-1], chain[1:]))]
+    return chain[-1], compose_chain(ops_, chain)
+
+
+def _serve_live(args, cfg, params, dev, *,
+                use_kernel: Optional[bool] = None) -> Dict[str, Any]:
+    """Engine-backed serving with a mid-serve hop (``--live-grow-at``).
+    ``use_kernel=False`` serves on the plain route (K1 and K3 off)."""
+    from repro_torch.serving import HopController, ServingEngine
+    if cfg.modality != "text":
+        raise SystemExit(f"--live-grow-at: {cfg.name} is not a token model")
+    cfg2, ligo = _live_operator(args, cfg, dev)
+    engine = ServingEngine(params, cfg, slots=args.batch,
+                           prompt_budget=args.prompt_len,
+                           gen_budget=args.gen,
+                           queue_capacity=args.queue_cap,
+                           kv_layout=args.kv_layout,
+                           block_size=args.block_size,
+                           pool_blocks=args.kv_pool_blocks,
+                           temperature=args.temperature, top_p=args.top_p,
+                           seed=args.seed, use_kernel=use_kernel, device=dev)
+    hop = HopController(engine, cfg2, ligo, cache_mode=args.cache_mode,
+                        fail_at=args.fail_at_hop, retries=args.hop_retries,
+                        timeout=args.hop_timeout,
+                        background=not args.hop_sync)
+    hop.warm()                     # build the kernels, seed the watchdog
+    n_req = args.requests or args.batch * 2
+    for prompt in live_prompts(n_req, args.prompt_len, cfg.vocab_size):
+        engine.submit(prompt, max_new=args.gen)
+
+    launches0 = ops.launch_counts()
+    t0 = time.perf_counter()
+
+    def on_step(eng):
+        if eng.decode_steps >= args.live_grow_at and hop.attempts == 0:
+            hop.begin()
+        if hop.attempts:
+            hop.poll()
+
+    engine.run(on_step=on_step)
+    if hop.attempts == 0:        # queue drained before the trigger step
+        hop.begin()
+    while not hop.poll():
+        time.sleep(0.002)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    launches = {k: counts[k] - launches0[k] for k in counts}
+
+    c = engine.counts()
+    total = sum(len(r.tokens) for r in engine.requests
+                if r.status == "done")
+    p50, p99 = engine.decode_step_percentiles(50, 99)
+    if np.isnan(p50):
+        p50 = p99 = 0.0
+    print(f"[serve] live-hop serve: arch={cfg.name} -> "
+          f"{cfg2.name if hop.completed else cfg.name} slots={args.batch} "
+          f"requests={n_req} device={dev}")
+    # the layout actually served: the engine falls back from a requested
+    # paged layout for windowed configs
+    fb = (f" (FALLBACK from requested "
+          f"'{engine.kv_layout_requested}': paged KV unsupported for "
+          f"family={cfg.family!r}, window={cfg.window})"
+          if engine.kv_fallback else "")
+    print(f"[serve] kv layout: {engine.kv_layout}{fb}")
+    print(f"[serve] {c['done']} done, {c['rejected']} rejected, "
+          f"{c['dropped']} dropped | hop "
+          f"{'complete' if hop.completed else 'FAILED (gave up)'} "
+          f"(cache: {hop.cache_path}, attempts {hop.attempts})")
+    print(f"[serve] {total} tokens in {wall:.2f} s | "
+          f"{total / max(wall, 1e-9):.1f} tok/s | decode p50 "
+          f"{p50:.1f} ms p99 {p99:.1f} ms (through the hop)")
+    print(f"[serve] hop stages ms: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in hop.timings.items())
+          + f" | kernel launches: K1 {launches['ligo_blend_expand_grouped']}"
+          f", K3 {launches['flash_attention']} (warm grow excluded)")
+    res: Dict[str, Any] = {"engine": engine, "hop": hop, "cfg2": cfg2,
+                           "ligo": ligo, "wall_s": wall,
+                           "tok_s": total / max(wall, 1e-9), "p50": p50,
+                           "p99": p99, "launches": launches}
+    if engine.alloc is not None:
+        a = engine.alloc
+        pool = engine.state["caches"]["k"]   # (L, n_blocks + 1, bs, KV, dh)
+        block_bytes = (2 * pool.shape[0] * int(np.prod(pool.shape[2:]))
+                       * pool.element_size())
+        dense_bytes = block_bytes // a.block_size * engine.cap
+        res.update(peak_blocks=a.peak_blocks,
+                   kib_per_slot=a.bytes_per_slot(block_bytes) / 1024,
+                   dense_kib_per_slot=dense_bytes / 1024)
+        print(f"[paged] peak {a.peak_blocks} blocks | "
+              f"{res['kib_per_slot']:.1f} KiB/slot vs "
+              f"{res['dense_kib_per_slot']:.1f} KiB/slot dense")
+    return res
+
+
+def _serve(args, use_kernel: Optional[bool] = None) -> Dict[str, Any]:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -152,6 +294,10 @@ def _serve(args) -> Dict[str, Any]:
             gen = torch.Generator(device=dev).manual_seed(args.seed)
             params = init_params(cfg, gen, device=dev)
         res["small_cfg"], res["small"] = cfg, params
+        if args.live_grow_at is not None:
+            res.update(_serve_live(args, cfg, params, dev,
+                                   use_kernel=use_kernel))
+            return res
         if args.grow_to:
             params, cfg, info = hot_grow(params, cfg, args.grow_to,
                                          smoke=args.smoke, seed=args.seed + 1,
@@ -221,12 +367,87 @@ def parse_args(argv: Optional[List[str]] = None):
                          "uses seed + 1 + i)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
+    live = ap.add_argument_group("live path (--live-grow-at)")
+    live.add_argument("--live-grow-at", type=int, default=None, metavar="N",
+                      help="serve through the continuous-batching engine and "
+                           "hop to the --grow-to target after N decode steps "
+                           "without stopping: params grow double-buffered in "
+                           "the background, live KV caches migrate, buffers "
+                           "swap between decode steps")
+    live.add_argument("--hop-operator", default="ligo",
+                      choices=["ligo", "lemon", "upcycle"],
+                      help="ligo: a seeded LiGO operator to the --grow-to "
+                           "target (default 2x); lemon: the lossless zero-pad "
+                           "d_ff doubling of the served arch (--grow-to "
+                           "ignored; the cache grows in place); upcycle: not "
+                           "ported yet")
+    live.add_argument("--hop-sync", action="store_true",
+                      help="grow synchronously in the engine thread instead "
+                           "of overlapped with decoding")
+    live.add_argument("--hop-retries", type=int, default=2)
+    live.add_argument("--hop-timeout", type=float, default=120.0,
+                      help="hop watchdog hard budget (seconds) for the grow")
+    live.add_argument("--fail-at-hop", default=None,
+                      choices=["grow", "cache-grow", "swap", "hang"],
+                      help="chaos hook: a one-shot failure at this hop stage "
+                           "(the hop rolls back, then retries clean; hang "
+                           "needs the background grow)")
+    live.add_argument("--cache-mode", default="auto",
+                      choices=["auto", "grow", "replay", "reprefill"],
+                      help="KV-cache migration: auto = in place iff the "
+                           "operator is provably lossless, else new-layer "
+                           "replay for a depth-append hop, else re-prefill")
+    live.add_argument("--temperature", type=float, default=0.0,
+                      help="sampling temperature (0 = greedy; a per-request "
+                           "Philox chain keyed by --seed)")
+    live.add_argument("--top-p", type=float, default=1.0,
+                      help="nucleus sampling mass (with --temperature > 0)")
+    live.add_argument("--speculative", type=int, default=0, metavar="K",
+                      help="speculative decoding after the hop: not ported "
+                           "yet, K > 0 raises")
+    live.add_argument("--kv-layout", default="paged",
+                      choices=["paged", "dense"],
+                      help="paged = fixed-size blocks + per-slot page tables "
+                           "over a shared pool; dense = one max_len row per "
+                           "slot")
+    live.add_argument("--kv-pool-blocks", type=int, default=None,
+                      help="paged pool size in blocks (default: every slot "
+                           "can reach max_len); smaller pools defer "
+                           "admissions, never drop them")
+    live.add_argument("--block-size", type=int, default=16,
+                      help="paged KV block size (tokens per block)")
+    live.add_argument("--queue-cap", type=int, default=64)
+    live.add_argument("--requests", type=int, default=None,
+                      help="requests to serve (default 2x --batch)")
+    ap.add_argument("--ledger", default=None, metavar="FILE",
+                    help="append the compute ledger to FILE: the hop's "
+                         "lifecycle events and the decode step's measured "
+                         "FLOPs against 2N a token")
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Serve once; returns the results (params, logits, tokens, times)."""
-    return _serve(parse_args(argv))
+def main(argv: Optional[List[str]] = None, *,
+         use_kernel: Optional[bool] = None) -> Dict[str, Any]:
+    """Serve once; returns the results (params, logits, tokens, times; on
+    the live path the engine and the hop controller). ``use_kernel=False``
+    runs the live path on the plain route, K1 and K3 off (``chip_smoke.py``
+    holds the kernel route against it)."""
+    args = parse_args(argv)
+    if args.speculative > 0:
+        raise SystemExit(f"--speculative {args.speculative}: speculative "
+                         "decoding is not ported yet (ROADMAP item "
+                         "'speculative decoding')")
+    if args.ledger:
+        # the serve launcher owns no checkpoint cursor: start the file clean
+        attach_ledger(args.ledger).restore(None)
+    try:
+        return _serve(args, use_kernel)
+    finally:
+        if args.ledger:
+            led = detach_ledger()
+            if led is not None:
+                print(f"[ledger] compute ledger written to {led.path} "
+                      f"({led.n_records} records)")
 
 
 if __name__ == "__main__":

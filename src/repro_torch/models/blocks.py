@@ -12,7 +12,11 @@ layer in three modes:
 - ``decode``: a single-token step against the dense cache
   ``{"k", "v"}: (B, S, KV, dh)``, which it updates **in place** (the JAX
   package returns a new cache; writing into the old one saves a copy of
-  every layer's cache per token).
+  every layer's cache per token). ``cur_len`` is an int (the batch in lock
+  step) or a (B,) tensor (each row writes at its own position: continuous
+  batching). With a page table ``pages`` (B, P) the cache leaves are
+  block pools ``(n_blocks + 1, block_size, KV, dh)`` the slots share
+  (``serving.kv_pages``), written through the table, also in place.
 
 The MoE, xLSTM and Mamba2 blocks come with their model families.
 """
@@ -25,7 +29,9 @@ import torch
 
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        decode_attention, dense_init,
-                                       full_attention, init_mlp, init_norm)
+                                       full_attention, init_mlp, init_norm,
+                                       paged_decode_attention,
+                                       write_token_paged)
 
 
 def _use_bias(cfg) -> bool:
@@ -74,20 +80,38 @@ def _qkv(p, h, cfg, positions):
 
 
 def apply_attn(p, x, cfg, positions, *, mode: str = "train",
-               cache: Optional[dict] = None, cur_len: Optional[int] = None,
-               use_kernel: Optional[bool] = None):
+               cache: Optional[dict] = None, cur_len=None,
+               use_kernel: Optional[bool] = None,
+               pages: Optional[torch.Tensor] = None):
     """Returns (x_out, new_cache_or_None). ``use_kernel`` picks the train
-    and prefill attention route (``layers.full_attention``)."""
+    and prefill attention route (``layers.full_attention``).
+
+    ``pages`` (decode only): the (B, P) int64 page table of the paged
+    layout, which needs a (B,) int64 ``cur_len`` and full-context
+    attention. A row whose page is unmapped (-1: a free slot) writes into
+    the pool's spare block (``layers.write_token_paged``)."""
     B, T, D = x.shape
     h = apply_norm(p["ln1"], x, cfg.norm)
     new_cache = None
     q, k, v = _qkv(p, h, cfg, positions)
-    if mode == "decode":
+    if mode == "decode" and pages is not None:
+        if cfg.window:
+            raise ValueError("paged KV requires full-context attention")
+        write_token_paged(cache["k"], pages, cur_len - 1, k)
+        write_token_paged(cache["v"], pages, cur_len - 1, v)
+        o = paged_decode_attention(q, cache["k"], cache["v"], pages, cur_len)
+        new_cache = cache
+    elif mode == "decode":
         S = cache["k"].shape[1]
         ring = bool(cfg.window) and S == cfg.window
         slot = (cur_len - 1) % S if ring else cur_len - 1
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
+        if isinstance(slot, torch.Tensor) and slot.dim():
+            rows = torch.arange(B, device=x.device)
+            cache["k"][rows, slot] = k[:, 0]
+            cache["v"][rows, slot] = v[:, 0]
+        else:
+            cache["k"][:, slot] = k[:, 0]
+            cache["v"][:, slot] = v[:, 0]
         o = decode_attention(q, cache["k"], cache["v"], cur_len,
                              window=cfg.window, ring=ring)
         new_cache = cache

@@ -205,13 +205,15 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_len: int, *, window: int = 0,
+                     v_cache: torch.Tensor, cur_len, *, window: int = 0,
                      ring: bool = False) -> torch.Tensor:
     """Single-step attention over a KV cache.
 
     q: (B, 1, H, dh); k_cache/v_cache: (B, S, KV, dh); cur_len: number of
-    valid cache entries *including* the current token. With ``ring=True``
-    the cache is a ring buffer of size S == window (masking by validity only).
+    valid cache entries *including* the current token, an int (every row
+    of the batch at one length) or a (B,) integer tensor (each row at its
+    own length: continuous batching). With ``ring=True`` the cache is a ring
+    buffer of size S == window (masking by validity only).
     """
     B, _, H, dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
@@ -221,13 +223,64 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                      k_cache.float()) * scale                    # (B,KV,G,S)
     idx = torch.arange(S, device=q.device)
-    valid = idx < cur_len
-    if window and not ring:
-        valid &= idx > cur_len - 1 - window
+    if isinstance(cur_len, torch.Tensor) and cur_len.dim():
+        cl = cur_len.reshape(-1, 1)                              # (B, 1)
+        valid = idx[None, :] < cl                                # (B, S)
+        if window and not ring:
+            valid &= idx[None, :] > cl - 1 - window
+        valid = valid[:, None, None, :]
+    else:
+        valid = idx < cur_len
+        if window and not ring:
+            valid &= idx > cur_len - 1 - window
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return o.reshape(B, 1, H, dh).to(q.dtype)
+
+
+def paged_targets(pages: torch.Tensor, n_pool: int) -> torch.Tensor:
+    """Block ids of ``pages`` with every unmapped (-1) page sent to the
+    spare block, the last of a pool of ``n_pool`` blocks: the paged
+    layout's write targets (``serving.kv_pages``). The JAX package sends
+    such a write one past the pool, where XLA drops it; on CUDA an index
+    past the pool is a device-side assert."""
+    return torch.where(pages >= 0, pages, n_pool - 1)
+
+
+def write_token_paged(pool: torch.Tensor, pages: torch.Tensor,
+                      pos: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """Write one token per slot at its own position through the page table,
+    in place, and return the pool.
+
+    pool: (n_blocks + 1, bs, KV, dh), the spare block last; pages: (B, P)
+    int64; pos: (B,) int64; kv: (B, 1, KV, dh). A write through an
+    unmapped page lands in the spare block.
+    """
+    bs = pool.shape[1]
+    page = torch.gather(pages, 1, (pos // bs)[:, None])[:, 0]
+    pool[paged_targets(page, pool.shape[0]), pos % bs] = kv[:, 0]
+    return pool
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, pages: torch.Tensor,
+                           cur_len: torch.Tensor) -> torch.Tensor:
+    """Single-step attention over a *paged* KV cache.
+
+    q: (B, 1, H, dh); k_pool/v_pool: (n_blocks, block_size, KV, dh), the
+    block pool the slots share; pages: (B, P) integer page table (-1 =
+    unmapped); cur_len: (B,). The gather materialises each slot's
+    (P * block_size) view, then the math is :func:`decode_attention`'s
+    (full context only: windowed caches stay on the dense ring layout).
+    An unmapped page indexes -1, the pool's last block, as the JAX gather
+    wraps it: every position it covers is ``>= cur_len``, so masked.
+    """
+    B, P = pages.shape
+    bs = k_pool.shape[1]
+    k = k_pool[pages].reshape(B, P * bs, *k_pool.shape[2:])
+    v = v_pool[pages].reshape(B, P * bs, *v_pool.shape[2:])
+    return decode_attention(q, k, v, cur_len)
 
 
 # ---------------------------------------------------------------------------

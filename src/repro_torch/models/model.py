@@ -10,9 +10,12 @@ weights ``(in, out)``. ``forward`` loops over that dim in Python where the
 JAX package scans; ``remat=True`` checkpoints each layer in training (the
 JAX package's ``jax.checkpoint``). Decode caches are
 ``{"k", "v"}: (L, B, S, KV, dh)``;
-``decode_step`` writes each new token into them in place, and the decode
-position ``state["pos"]`` is a Python int (all rows of a batch step in lock
-step).
+``decode_step`` writes each new token into them in place. The decode
+position ``state["pos"]`` is a Python int when all rows of a batch step in
+lock step (``prefill`` and ``init_decode_state`` make it so), or a (B,)
+int64 tensor when each row is at its own position (the serving engine's
+continuous batching); a ``state["pages"]`` (B, P) page table switches the
+caches to the paged block pools of ``serving.kv_pages``.
 """
 from __future__ import annotations
 
@@ -83,9 +86,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 def embed(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-          offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,T,D), positions (1,T)). A vision batch's
-    ``patches`` (B, P, D) follow the cls token: T = P + 1."""
+          offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,T,D), positions). A vision batch's ``patches`` (B, P,
+    D) follow the cls token: T = P + 1. ``offset`` is an int (positions
+    (1, T), every row from the same start) or a (B,) tensor (positions
+    (B, T), each row from its own start: continuous batching)."""
     emb = params["embed"]
     if cfg.modality == "vision":
         patches = batch["patches"].to(_dtype(cfg))
@@ -94,6 +99,11 @@ def embed(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     else:
         x = emb["tok"][batch["tokens"]]
     T = x.shape[1]
+    if isinstance(offset, torch.Tensor) and offset.dim():
+        positions = torch.arange(T, device=x.device)[None] + offset[:, None]
+        if cfg.rope == "learned":
+            x = x + emb["pos"][positions]
+        return x, positions
     positions = torch.arange(T, device=x.device)[None] + offset
     if cfg.rope == "learned":
         x = x + emb["pos"][positions[0]]
@@ -114,7 +124,7 @@ def _train_layer(p, x, cfg, positions):
 
 
 def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
-                     remat, use_kernel):
+                     remat, use_kernel, pages=None):
     stack = params["layers"]["attn"]
     new = []
     for i in range(cfg.n_layers):
@@ -126,7 +136,8 @@ def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
             continue
         c = _index(caches, i) if caches is not None else None
         x, nc = B.apply_attn(_index(stack, i), x, cfg, positions, mode=mode,
-                             cache=c, cur_len=cur_len, use_kernel=use_kernel)
+                             cache=c, cur_len=cur_len, use_kernel=use_kernel,
+                             pages=pages)
         new.append(nc)
     if mode == "train":
         return x, None
@@ -136,22 +147,32 @@ def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            mode: str = "train", caches=None, cur_len: Optional[int] = None,
-            remat: bool = False, use_kernel: Optional[bool] = None):
-    """Returns (hidden (B,T,D), new_caches).
+            mode: str = "train", caches=None, cur_len=None,
+            remat: bool = False, use_kernel: Optional[bool] = None,
+            pages: Optional[torch.Tensor] = None,
+            return_prenorm: bool = False):
+    """Returns (hidden (B,T,D), new_caches), plus the pre-final-norm
+    residual stream as a third element when ``return_prenorm=True`` (the
+    serving engine keeps it, so a depth-only hop can replay just the new
+    layers; ``core.grow_cache.replay_grow_state``).
 
     ``remat`` (train mode only) recomputes each layer's activations in the
     backward pass instead of keeping them, one layer at a time.
     ``use_kernel`` picks the train and prefill attention route: ``None``
     takes kernel K3 on CUDA where autograd records nothing, ``False`` the
-    chunked attention (``layers.full_attention``)."""
+    chunked attention (``layers.full_attention``). ``pages`` (decode mode):
+    the (B, P) page table of the paged cache layout."""
     _check_ported(cfg)
     offset = cur_len - 1 if mode == "decode" else 0
     x, positions = embed(params, cfg, batch, offset=offset)
     x, new_caches = _fwd_homogeneous(params, x, cfg, positions, mode=mode,
                                      caches=caches, cur_len=cur_len,
-                                     remat=remat, use_kernel=use_kernel)
+                                     remat=remat, use_kernel=use_kernel,
+                                     pages=pages)
+    prenorm = x
     x = apply_norm(params["final_norm"], x, cfg.norm)
+    if return_prenorm:
+        return x, new_caches, prenorm
     return x, new_caches
 
 
@@ -170,15 +191,24 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int, *,
     return {"caches": caches, "pos": 0}
 
 
-def decode_step(params, cfg: ModelConfig, state, batch: Dict[str, torch.Tensor]
-                ) -> Tuple[torch.Tensor, Any]:
+def decode_step(params, cfg: ModelConfig, state, batch: Dict[str, torch.Tensor],
+                *, return_prenorm: bool = False) -> Tuple[torch.Tensor, Any]:
     """One-token decode: batch["tokens"]: (B, 1). Returns (logits (B,V),
-    state); the state's caches are updated in place."""
+    state); the state's caches are updated in place. A ``state["pages"]``
+    entry switches to the paged layout and rides through unchanged (the
+    host owns the table). With ``return_prenorm`` the result is (logits,
+    state, prenorm (B, 1, D))."""
     cur_len = state["pos"] + 1
-    hidden, caches = forward(params, cfg, batch, mode="decode",
-                             caches=state["caches"], cur_len=cur_len)
-    logits = unembed(params, cfg, hidden[:, -1])
-    return logits, {"caches": caches, "pos": cur_len}
+    out = forward(params, cfg, batch, mode="decode", caches=state["caches"],
+                  cur_len=cur_len, pages=state.get("pages"),
+                  return_prenorm=return_prenorm)
+    logits = unembed(params, cfg, out[0][:, -1])
+    new_state = {"caches": out[1], "pos": cur_len}
+    if "pages" in state:
+        new_state["pages"] = state["pages"]
+    if return_prenorm:
+        return logits, new_state, out[2]
+    return logits, new_state
 
 
 def _pad_attn_caches(caches, S_target: int):

@@ -1,25 +1,32 @@
-"""The metrics the compute ledger and the measured-cost pass publish: a
-copy of the gauges, fixed-bucket histograms and bucket edges of the JAX
-package's ``obs/metrics.py``, in a process-global registry.
+"""The metrics the compute ledger, the measured-cost pass and the serving
+engine publish: a copy of the gauges, counter groups, fixed-bucket
+histograms and bucket edges of the JAX package's ``obs/metrics.py``, in a
+process-global registry.
 
-Host-side pure Python. Counters, counter groups, the Prometheus text and
-the rest of observability are not ported.
+Host-side pure Python. Plain counters, the Prometheus text and the rest of
+observability are not ported.
 """
 from __future__ import annotations
 
 import bisect
 import math
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["Gauge", "Histogram", "REGISTRY", "gauge", "histogram",
-           "MS_BUCKETS", "LOG10_BUCKETS"]
+__all__ = ["CounterGroup", "Gauge", "Histogram", "REGISTRY",
+           "counter_group", "gauge", "histogram", "MS_BUCKETS",
+           "RATE_BUCKETS", "LOG10_BUCKETS"]
 
 # Wall-time buckets in milliseconds.
 MS_BUCKETS: Tuple[float, ...] = (
     0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
     500.0, 1000.0, 2500.0, 5000.0, 10_000.0, 30_000.0, 60_000.0,
     120_000.0, 300_000.0,
+)
+# Rates (tokens/s and friends).
+RATE_BUCKETS: Tuple[float, ...] = (
+    1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0,
+    2500.0, 5000.0, 10_000.0, 25_000.0, 100_000.0,
 )
 # Half-decade edges for count-scale quantities (per-step FLOPs, tokens):
 # 1 … ~3e18 at a constant relative resolution of sqrt(10) a bucket.
@@ -114,6 +121,34 @@ class Histogram:
             self._max = -math.inf
 
 
+class CounterGroup:
+    """A locked family of named counters: ``inc(key)``, ``group[key]`` (a
+    missing key reads 0), ``items()`` and ``clear()``. The lock keeps
+    increments from a background thread (the hop's grow) and the engine
+    thread apart."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._values: Dict[str, int] = {}
+
+    def inc(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._values[key] = self._values.get(key, 0) + n
+
+    def __getitem__(self, key: str) -> int:
+        with self._lock:
+            return self._values.get(key, 0)
+
+    def items(self) -> List[Tuple[str, int]]:
+        with self._lock:
+            return list(self._values.items())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._values.clear()
+
+
 class MetricsRegistry:
     """Get-or-create store of named metrics; asking for a name as another
     type raises ``TypeError``."""
@@ -140,6 +175,9 @@ class MetricsRegistry:
                   buckets: Sequence[float] = MS_BUCKETS) -> Histogram:
         return self._get_or_create(name, Histogram, buckets)
 
+    def counter_group(self, name: str) -> CounterGroup:
+        return self._get_or_create(name, CounterGroup)
+
 
 REGISTRY = MetricsRegistry()
 
@@ -150,3 +188,7 @@ def gauge(name: str) -> Gauge:
 
 def histogram(name: str, buckets: Sequence[float] = MS_BUCKETS) -> Histogram:
     return REGISTRY.histogram(name, buckets)
+
+
+def counter_group(name: str) -> CounterGroup:
+    return REGISTRY.counter_group(name)

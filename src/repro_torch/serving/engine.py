@@ -1,0 +1,481 @@
+"""Continuous-batching serving engine with a hot-swappable model (the port of
+the JAX package's ``serving/engine.py``).
+
+One fixed block of ``slots`` batch rows shares a single decode step; every
+row carries its own position (``state["pos"]``: (slots,) int64), so
+sessions prefill into free rows and decode in lock-step regardless of where
+each one is in its sequence. Scheduling per step: admit waiting requests
+into free slots (one prefill each, kernel K3 on the card), then advance
+every live slot by one token.
+
+**KV layout.** The default is *paged*: slots share a pool of fixed-size
+blocks through per-slot page tables (``serving.kv_pages``), so a slot pays
+for the pages its sequence actually covers instead of a dense ``max_len``
+row. The dense layout survives behind ``kv_layout="dense"`` as the
+correctness oracle (and for windowed configs, which the paged path does
+not cover). The engine owns positions host-side (``self.pos_host``) and
+re-asserts them into the device state before every launch.
+
+The engine's serving buffers, ``(cfg, params, state)`` plus the prefill,
+decode and insert functions, are swapped as a unit by :meth:`install`,
+which the hop controller (``repro_torch.serving.hotswap``) calls between
+two decode steps. Decode and insert write the live state in place, but a
+hop builds its migrated state into new tensors, so a hop aborted at any
+stage leaves the engine decoding the old weights untouched.
+
+Speculative decoding (``spec_k > 0``, the pre-hop model kept as a drafter)
+is the ROADMAP item "speculative decoding": the engine refuses it.
+"""
+from __future__ import annotations
+
+import functools
+import time
+import warnings
+from collections import Counter, deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import (_pad_attn_caches, decode_step, forward,
+                                      init_decode_state, unembed)
+from repro_torch.serving import speculative as spec
+from repro_torch.serving.admission import AdmissionQueue, Request
+from repro_torch.serving.kv_pages import (PageAllocator, init_paged_caches,
+                                          paged_supported, scatter_row_blocks)
+
+_RECENT_STEPS = 4096  # exact-window size behind decode_step_percentiles
+
+
+@functools.lru_cache(maxsize=16)
+def make_serving_fns(cfg: ModelConfig, cap: int, layout: str = "dense",
+                     want_hidden: bool = False,
+                     use_kernel: Optional[bool] = None):
+    """(prefill_one, decode_many, insert) for one architecture.
+
+    Memoised on the arguments (configs are frozen dataclasses), so a hop
+    back to an architecture already served, or a second engine on the same
+    config, reuses them. ``cap`` is the cache row capacity: the
+    (window-clamped) ``max_len`` for the dense layout, the page-aligned
+    ``padded_len`` for the paged one. With ``layout="paged"`` the state
+    carries ``{"caches": pools, "pos", "pages"}`` and ``insert`` scatters
+    the prefilled row into the slot's pages; decode gathers through the
+    table. ``want_hidden`` also returns the pre-final-norm residual stream
+    (prefill: (1, Tp, D); decode: (B, 1, D)), which the engine keeps per
+    slot so a depth-only hop can replay just the new layers.
+    ``use_kernel`` picks the prefill attention route
+    (``models.layers.full_attention``: ``None`` is K3 on the card).
+
+    ``prefill_one`` takes a right-padded (1, Tp) prompt plus its true
+    length and returns the logits at ``true_len - 1``; padding positions
+    write garbage cache entries *beyond* the session's position, and
+    decode overwrites each one exactly when it becomes valid, so they are
+    never attended to.
+    """
+    if layout not in ("dense", "paged"):
+        raise ValueError(f"unknown KV layout {layout!r}")
+
+    @torch.no_grad()
+    def prefill_one(params, tokens, true_len: int):
+        out = forward(params, cfg, {"tokens": tokens}, mode="prefill",
+                      use_kernel=use_kernel, return_prenorm=want_hidden)
+        caches = _pad_attn_caches(out[1], cap)
+        logits = unembed(params, cfg, out[0][0, true_len - 1])
+        if want_hidden:
+            return logits, caches, out[2]
+        return logits, caches
+
+    @torch.no_grad()
+    def decode_many(params, state, tokens):
+        return decode_step(params, cfg, state, {"tokens": tokens},
+                           return_prenorm=want_hidden)
+
+    @torch.no_grad()
+    def insert(state, caches1, pos1: int, slot: int):
+        if layout == "dense":
+            for kk in ("k", "v"):
+                state["caches"][kk][:, slot] = caches1[kk][:, 0]
+        else:
+            for kk in ("k", "v"):
+                scatter_row_blocks(state["caches"][kk], state["pages"][slot],
+                                   caches1[kk][:, 0])
+        pos = state["pos"].clone()
+        pos[slot] = pos1
+        return {**state, "pos": pos}
+
+    return prefill_one, decode_many, insert
+
+
+class ServingEngine:
+    """Continuous batching over ``slots`` sessions with admission control.
+
+    ``prompt_budget`` bounds admissible prompt length (longer: rejected at
+    the door); ``max_len = prompt_budget + gen_budget`` is each slot's cache
+    budget, and a request's ``max_new`` is clamped so it can never outrun
+    its slot.
+
+    ``kv_layout``/``block_size``/``pool_blocks`` control the paged cache
+    (``pool_blocks=None`` sizes the pool so admission never blocks; smaller
+    pools create real backpressure: admission reserves a request's worst
+    case up front, so admitted requests always finish);
+    ``temperature``/``top_p``/``seed`` select sampling on the logits with a
+    reproducible per-request Philox chain, greedy by default. ``device`` is
+    where ``params`` must lie: the card unless the caller asks for the CPU.
+    ``use_kernel`` as in :func:`make_serving_fns` (the hop's grow takes it
+    too: ``False`` is the plain route, K1 and K3 off).
+    """
+
+    def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
+                 prompt_budget: int = 64, gen_budget: int = 32,
+                 queue_capacity: int = 64, kv_layout: str = "paged",
+                 block_size: int = 16, pool_blocks: Optional[int] = None,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: int = 0, spec_k: int = 0,
+                 keep_residual: Optional[bool] = None,
+                 use_kernel: Optional[bool] = None, device="cuda"):
+        if kv_layout not in ("paged", "dense"):
+            raise ValueError(f"unknown KV layout {kv_layout!r}")
+        if spec_k > 0:
+            raise NotImplementedError(
+                f"spec_k={spec_k}: speculative decoding is not ported yet "
+                "(ROADMAP item 'speculative decoding')")
+        self.device = resolve_device(device)
+        leaf = params["final_norm"]["scale"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params lie on {leaf.device}, the engine was "
+                             f"asked to serve on {self.device}")
+        self.slots = slots
+        self.prompt_budget = prompt_budget
+        self.max_len = prompt_budget + gen_budget
+        self.use_kernel = use_kernel
+        self.queue = AdmissionQueue(queue_capacity)
+        self.requests: List[Request] = []
+        self.slot_req: List[Optional[Request]] = [None] * slots
+        # decode-step walls: a bounded recent window (exact percentiles for
+        # the report) + a histogram (full-run p50/p99 in O(buckets) memory)
+        self._recent_steps: deque = deque(maxlen=_RECENT_STEPS)
+        self._h_step = obs.histogram("serve.decode.step_ms")
+        self._h_queue_wait = obs.histogram("serve.request.queue_wait_ms")
+        self._h_ttft = obs.histogram("serve.request.ttft_ms")
+        self._h_tok_s = obs.histogram("serve.request.tokens_per_s",
+                                      buckets=obs.RATE_BUCKETS)
+        self._c_req = obs.counter_group("serve.requests")
+        for k in ("submitted", "done", "rejected", "dropped", "deferred"):
+            self._c_req.inc(k, 0)       # declare: explicit zeros
+        # prefills this engine ran, keyed (config name, "admit"|"reprefill"):
+        # each is one K3 launch per layer on the card
+        self.prefill_counts: Counter = Counter()
+        self.decode_steps = 0
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.seed = int(seed)
+        self.spec_k = int(spec_k)
+        self.kv_layout_requested = kv_layout
+        self.kv_fallback = False
+        if kv_layout == "paged" and not paged_supported(cfg):
+            # windowed: dense ring cache. Fall back loudly: a silent switch
+            # would make the serve report lie about the layout.
+            kv_layout = "dense"
+            self.kv_fallback = True
+            warnings.warn(
+                f"{cfg.name}: paged KV layout unsupported "
+                f"(family={cfg.family!r}, window={cfg.window}); serving "
+                "with the dense ring cache instead", stacklevel=2)
+        self.kv_layout = kv_layout
+        self.alloc: Optional[PageAllocator] = None
+        if kv_layout == "paged":
+            self.alloc = PageAllocator(slots, self.max_len, block_size,
+                                       pool_blocks, device=self.device)
+        if keep_residual is None:
+            keep_residual = paged_supported(cfg)
+        self.keep_residual = bool(keep_residual) and paged_supported(cfg)
+        self.pos_host = np.zeros((slots,), np.int64)
+        self.resid: Optional[np.ndarray] = None
+        self.resid_from = np.zeros((slots,), np.int64)
+        self.install(cfg, params, None)
+
+    # -- serving buffers ----------------------------------------------------
+    def _cap_for(self, cfg: ModelConfig) -> int:
+        if self.kv_layout == "paged":
+            return self.alloc.padded_len
+        return min(cfg.window, self.max_len) if cfg.window else self.max_len
+
+    def _fns(self, cfg: ModelConfig):
+        return make_serving_fns(cfg, self._cap_for(cfg), self.kv_layout,
+                                self.keep_residual, self.use_kernel)
+
+    def fresh_state(self, cfg: ModelConfig):
+        pos = torch.zeros((self.slots,), dtype=torch.long, device=self.device)
+        if self.kv_layout == "paged":
+            return {"caches": init_paged_caches(cfg, self.alloc.n_blocks,
+                                                self.alloc.block_size,
+                                                device=self.device),
+                    "pos": pos, "pages": self.alloc.device_table()}
+        st = init_decode_state(cfg, self.slots, self.max_len,
+                               device=self.device)
+        return {"caches": st["caches"], "pos": pos}
+
+    def install(self, cfg: ModelConfig, params, state) -> None:
+        """Swap the serving buffers (the final act of a hop). The new
+        functions are made first, so the visible mutation is reference
+        assignment between two decode steps."""
+        if self.kv_layout == "paged" and not paged_supported(cfg):
+            raise ValueError(f"{cfg.name}: paged KV unsupported; use "
+                             "kv_layout='dense'")
+        cap = self._cap_for(cfg)
+        fns = self._fns(cfg)
+        if state is None:
+            state = self.fresh_state(cfg)
+        if obs.active_ledger() is not None:
+            # the measured-cost pass, on fake tensors (no launch, no state
+            # change): the decode step's counted FLOPs against 2N a token
+            from repro_torch.obs import costs
+            costs.measure_step(
+                f"decode_step[{cfg.name}]", fns[1], params, state,
+                torch.zeros((self.slots, 1), dtype=torch.long,
+                            device=self.device),
+                modelled_flops=2.0 * cfg.active_param_count() * self.slots,
+                per_call_units=self.slots)
+        hopped = hasattr(self, "cfg")
+        self.cfg, self.params, self.state = cfg, params, state
+        self.cap = cap
+        self._prefill, self._decode, self._insert = fns
+        if self.keep_residual:
+            if (self.resid is None
+                    or self.resid.shape != (self.slots, cap, cfg.d_model)):
+                self.resid = np.zeros((self.slots, cap, cfg.d_model),
+                                      np.float32)
+                self.resid_from[:] = self.pos_host
+            elif hopped:
+                # pre-hop residuals describe the old model's function
+                self.resid_from[:] = self.pos_host
+
+    # -- speculative drafter -------------------------------------------------
+    def adopt_drafter(self, cfg1: ModelConfig, params1, state1) -> bool:
+        """Keep the pre-hop model resident as a speculative drafter: only
+        with ``spec_k > 0``, which this engine refuses (ROADMAP item
+        "speculative decoding"), so it never drafts."""
+        if self.spec_k <= 0:
+            return False
+        raise NotImplementedError("speculative decoding is not ported yet")
+
+    # -- request lifecycle --------------------------------------------------
+    def submit(self, prompt, max_new: int) -> Request:
+        req = Request(prompt=[int(t) for t in prompt], max_new=max_new)
+        req.sample_key = len(self.requests)
+        req.t_submit = time.perf_counter()
+        self.requests.append(req)
+        self._c_req.inc("submitted")
+        if not (0 < len(req.prompt) <= self.prompt_budget):
+            req.status = "rejected"
+            self.queue.rejected += 1
+            self._c_req.inc("rejected")
+            return req
+        req.max_new = min(max_new, self.max_len - len(req.prompt))
+        self.queue.submit(req)
+        return req
+
+    @property
+    def live(self) -> List[Request]:
+        return [r for r in self.slot_req if r is not None]
+
+    def counts(self) -> Dict[str, int]:
+        c = {"done": 0, "running": 0, "queued": 0, "rejected": 0,
+             "dropped": 0}
+        for r in self.requests:
+            c[r.status] = c.get(r.status, 0) + 1
+        return c
+
+    def has_work(self) -> bool:
+        return bool(len(self.queue)) or any(
+            r is not None for r in self.slot_req)
+
+    # -- decode-step timing ---------------------------------------------------
+    def _observe_step(self, ms: float) -> None:
+        self._recent_steps.append(ms)
+        self._h_step.observe(ms)
+
+    def decode_step_ms(self, steps: Optional[Tuple[int, int]] = None
+                       ) -> List[float]:
+        """The recent window's decode-step walls (ms); ``steps=(a, b)``
+        takes decode steps a..b-1 of the window alone (b None: to the
+        end)."""
+        arr = list(self._recent_steps)
+        return arr if steps is None else arr[steps[0]:steps[1]]
+
+    def decode_step_percentiles(self, *qs: float,
+                                steps: Optional[Tuple[int, int]] = None
+                                ) -> Tuple[float, ...]:
+        """Exact percentiles over the recent decode-step window (ms), or
+        over ``steps`` of it as in :meth:`decode_step_ms`."""
+        arr = self.decode_step_ms(steps)
+        if not arr:
+            return tuple(float("nan") for _ in qs)
+        return tuple(float(np.percentile(np.asarray(arr), q)) for q in qs)
+
+    # -- host-side sampling --------------------------------------------------
+    def _pick_token(self, req: Request, logits_row: np.ndarray) -> int:
+        if self.temperature <= 0:
+            return int(np.argmax(logits_row))
+        p = spec.adjust_probs(logits_row, self.temperature, self.top_p)
+        rng = spec.philox(self.seed, req.sample_key, req.n_draws)
+        req.n_draws += 1
+        return int(rng.choice(len(p), p=p))
+
+    # -- scheduling ---------------------------------------------------------
+    def _sync_state(self, state):
+        """Re-assert host truth into a device state before a launch: the
+        per-slot positions and the current page table."""
+        out = {**state, "pos": torch.as_tensor(self.pos_host,
+                                               device=self.device)}
+        if self.alloc is not None:
+            out["pages"] = self.alloc.device_table()
+        return out
+
+    def _worst_len(self, req: Request) -> int:
+        """Worst-case backed length: prompt + full budget."""
+        return min(len(req.prompt) + req.max_new + max(self.spec_k, 0),
+                   self.cap)
+
+    def _tokens(self, rows) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+
+    def _admit(self) -> None:
+        for slot in range(self.slots):
+            if self.slot_req[slot] is not None:
+                continue
+            if self.alloc is not None:
+                head = self.queue.peek()
+                if head is None:
+                    return
+                if not self.alloc.can_admit(self._worst_len(head)):
+                    self._c_req.inc("deferred")
+                    return              # stays queued: deferred, never dropped
+            req = self.queue.pop()
+            if req is None:
+                return
+            self._h_queue_wait.observe(
+                (time.perf_counter() - req.t_submit) * 1e3)
+            req.true_len = len(req.prompt)
+            if self.alloc is not None:
+                self.alloc.admit(slot, req.true_len, self._worst_len(req))
+            toks = np.zeros((1, self.prompt_budget), np.int64)
+            toks[0, :req.true_len] = req.prompt
+            out = self._prefill(self.params, self._tokens(toks), req.true_len)
+            self.prefill_counts[(self.cfg.name, "admit")] += 1
+            self.state = self._insert(self._sync_state(self.state), out[1],
+                                      req.true_len, slot)
+            self.pos_host[slot] = req.true_len
+            if self.keep_residual:
+                h = out[2][0].float().cpu().numpy()
+                self.resid[slot, :req.true_len] = h[:req.true_len]
+                self.resid_from[slot] = 0
+            req.first_logits = out[0].float().cpu().numpy()
+            req.tokens.append(self._pick_token(req, req.first_logits))
+            req.t_first = time.perf_counter()
+            self._h_ttft.observe((req.t_first - req.t_submit) * 1e3)
+            req.status, req.slot = "running", slot
+            self.slot_req[slot] = req
+            self._finish_if_done(req)
+            if req.status == "done":
+                req.last_logits = req.first_logits
+
+    def _finish_if_done(self, req: Request) -> None:
+        if (len(req.tokens) >= req.max_new
+                or req.true_len + len(req.tokens) >= self.max_len):
+            req.status = "done"
+            req.t_done = time.perf_counter()
+            self._c_req.inc("done")
+            dt = req.t_done - req.t_submit
+            if dt > 0:
+                self._h_tok_s.observe(len(req.tokens) / dt)
+            self.slot_req[req.slot] = None
+            if self.alloc is not None:
+                self.alloc.release(req.slot)
+            self.pos_host[req.slot] = 0
+        else:
+            self.pos_host[req.slot] = req.true_len + len(req.tokens) - 1
+
+    def step(self) -> bool:
+        """One scheduling iteration. Returns True while work remains."""
+        self._admit()
+        active = [(i, r) for i, r in enumerate(self.slot_req)
+                  if r is not None]
+        if active:
+            self._plain_round(active)
+        return self.has_work()
+
+    def _plain_round(self, active) -> None:
+        if self.alloc is not None:
+            for i, _ in active:
+                self.alloc.ensure(i, int(self.pos_host[i]) + 1)
+        last = np.zeros((self.slots, 1), np.int64)
+        for i, r in active:
+            last[i, 0] = r.tokens[-1]
+        state = self._sync_state(self.state)
+        t0 = time.perf_counter()
+        out = self._decode(self.params, state, self._tokens(last))
+        L = out[0].float().cpu().numpy()         # waits for the step
+        self._observe_step((time.perf_counter() - t0) * 1e3)
+        self.decode_steps += 1
+        self.state = out[1]
+        if self.keep_residual:
+            h = out[2][:, 0].float().cpu().numpy()
+        for i, r in active:
+            if self.keep_residual:
+                self.resid[i, self.pos_host[i]] = h[i]
+            r.tokens.append(self._pick_token(r, L[i]))
+            self._finish_if_done(r)
+            if r.status == "done":
+                r.last_logits = L[i].copy()
+
+    def run(self, *, on_step=None, max_steps: int = 100_000) -> None:
+        """Drain the queue; ``on_step(engine)`` runs between decode steps:
+        the hop controller's ``poll`` hooks in here."""
+        for _ in range(max_steps):
+            more = self.step()
+            if on_step is not None:
+                on_step(self)
+            if not more:
+                return
+        raise RuntimeError(f"engine did not drain in {max_steps} steps")
+
+    # -- cache migration fallback -------------------------------------------
+    def reprefill_state(self, params, cfg: ModelConfig):
+        """The universal cache-migration fallback: rebuild every live
+        session's decode state by re-running prefill over its token history
+        under ``params``/``cfg``, into a fresh state. Exact by construction
+        (it *is* the grown model's own prefill), at the cost of one
+        ``max_len`` forward per live session."""
+        prefill_one, _, insert = self._fns(cfg)
+        state = self.fresh_state(cfg)
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            # the cache holds prompt + every generated token but the newest
+            # (decode writes its *input* token); the same layout here
+            hist = (list(req.prompt) + list(req.tokens))[:-1]
+            toks = np.zeros((1, self.max_len), np.int64)
+            toks[0, :len(hist)] = hist
+            out = prefill_one(params, self._tokens(toks), len(hist))
+            self.prefill_counts[(cfg.name, "reprefill")] += 1
+            state = insert(self._sync_paged(state), out[1], len(hist), slot)
+        return state
+
+    def _sync_paged(self, state):
+        if self.alloc is not None:
+            return {**state, "pages": self.alloc.device_table()}
+        return state
+
+    # -- depth-replay fast path ---------------------------------------------
+    def replay_ready(self) -> bool:
+        """True when every live slot's preserved residual stream covers its
+        whole history (a post-hop slot only recovers coverage once it is
+        re-admitted, since pre-hop residuals describe the old model)."""
+        return (self.keep_residual and self.resid is not None
+                and all(self.resid_from[i] == 0
+                        for i, r in enumerate(self.slot_req)
+                        if r is not None))

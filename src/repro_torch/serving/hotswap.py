@@ -1,0 +1,421 @@
+"""The live hop: grow the serving model without dropping a session (the
+port of the JAX package's ``serving/hotswap.py``).
+
+Stage machine (driven by :meth:`HopController.poll` between decode steps):
+
+1. **grow**: materialise the grown params double-buffered through the
+   port's ``GrowthPlan`` (kernel K1 on the card). Runs in a background
+   thread by default, so the old weights keep decoding; a ``HopWatchdog``
+   aborts a stuck grow.
+2. **cache-grow**: migrate live sessions' decode state: in place via
+   ``core.grow_cache`` when the operator is LEMON-lossless (bit-exact),
+   by replaying only the new layers for a depth-append hop, otherwise by
+   re-prefilling each session's token history under the grown weights
+   (exact by construction; kernel K3 on the card).
+3. **swap**: ``engine.install`` flips the serving buffers between two
+   decode steps.
+
+Nothing touches the engine before stage 3, so any failure rolls back by
+discarding buffers: the engine keeps decoding the old weights and zero
+admitted requests are dropped. Failures retry (bounded, exponential
+backoff); ``fail_at`` injects a one-shot chaos failure at a named stage
+("grow" / "cache-grow" / "swap", or "hang" to wedge the grow thread and
+exercise the watchdog). Every rollback's stage and cause is kept in
+:attr:`HopController.rollbacks`, so a caller can tell an injected failure
+from a real one.
+
+**The background grow on the card.** Grad mode and the current CUDA stream
+are per thread in PyTorch. The grow thread enters ``torch.no_grad()``
+itself and launches on a side stream of its own (K1 launches on the
+current stream), so it does not serialise with decode on the engine's
+stream. It first waits for the engine stream's queued work, then waits
+for its own work to finish before it publishes the grown tree, and marks
+every grown tensor as used on the engine's stream (``record_stream``), so
+that the caching allocator cannot hand the memory back to the side stream
+while decode still reads it. :meth:`HopController.warm` runs one grow on
+the same side stream in the engine thread: the kernels build and load
+there, and the real hop reuses the side stream's cached blocks.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch import obs
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.grow_cache import (CacheGrowthError, can_grow_cache,
+                                         depth_replay_plan, grow_decode_state,
+                                         is_lossless_operator,
+                                         replay_grow_state)
+from repro_torch.core.plan import plan_for
+from repro_torch.serving.kv_pages import paged_supported
+from repro_torch.tree import tree_leaves
+
+STAGES = ("grow", "cache-grow", "swap")
+
+
+def _ledger_event(name: str, **attrs) -> None:
+    """Mirror a hop lifecycle event into the attached compute ledger (if
+    any), so the durable loss-vs-FLOPs record shows *where* the hops and
+    rollbacks landed between the step records. No-op without a ledger."""
+    led = obs.active_ledger()
+    if led is not None:
+        led.record_event(name, **attrs)
+
+
+class HopError(RuntimeError):
+    """A hop stage failed (injected or real); the hop rolls back."""
+
+
+@dataclass
+class HopWatchdog:
+    """Deadline for the grow stage, tightened by what hops actually cost: an
+    EWMA of observed durations sets the abort threshold, bounded by a hard
+    ``timeout``.
+
+    ``seed`` primes the EWMA *before the first hop* with the grow wall time
+    measured at engine start (``HopController.warm``) and raises ``floor``
+    to that measurement, so a cold watchdog does not judge the first live
+    hop against a bare ``timeout``.
+    """
+    timeout: float = 120.0
+    mult: float = 5.0
+    alpha: float = 0.5
+    ewma: Optional[float] = None
+    floor: float = 0.0
+
+    def budget(self) -> float:
+        if self.ewma is None:
+            return max(self.floor, self.timeout)
+        return max(self.floor,
+                   min(self.timeout, max(0.05, self.mult * self.ewma)))
+
+    def observe(self, dt: float) -> None:
+        self.ewma = dt if self.ewma is None else (
+            self.alpha * dt + (1 - self.alpha) * self.ewma)
+        self.publish()
+
+    def seed(self, dt: float) -> None:
+        """Prime a cold watchdog with a measured (or configured) first-hop
+        cost. No-op once real observations exist."""
+        self.floor = max(self.floor, dt)
+        if self.ewma is None:
+            self.ewma = dt
+        self.publish()
+
+    def publish(self) -> None:
+        """Expose EWMA, deadline and floor as gauges."""
+        if self.ewma is not None:
+            obs.gauge("hop.watchdog.ewma_s").set(self.ewma)
+        obs.gauge("hop.watchdog.budget_s").set(self.budget())
+        obs.gauge("hop.watchdog.floor_s").set(self.floor)
+
+
+class HopController:
+    """Drives one live hop ``engine.cfg -> cfg2`` with operator ``ligo``.
+
+    ``begin()`` launches the grow; the engine's step loop calls ``poll()``
+    between decode steps, which advances the stage machine and performs
+    cache migration + swap synchronously once the grown buffer is ready.
+    ``cache_mode``: "auto" grows the cache in place iff the operator is
+    provably lossless, replays only the new layers for a depth-only hop
+    (when the engine kept the residual stream), else re-prefills;
+    "grow"/"replay"/"reprefill" force a path. The grow and the migration
+    take the engine's ``use_kernel`` route.
+
+    ``timings`` holds the last attempt's stage walls in ms (``grow``: the
+    grow thread's own wall; ``cache-grow``; ``swap``) and ``warm``'s.
+    """
+
+    def __init__(self, engine, cfg2: ModelConfig, ligo, *,
+                 cache_mode: str = "auto", fail_at: Optional[str] = None,
+                 retries: int = 2, backoff: float = 0.05,
+                 timeout: float = 120.0, background: bool = True,
+                 watchdog_floor: float = 0.0):
+        if cache_mode not in ("auto", "grow", "replay", "reprefill"):
+            raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if fail_at not in (None, "hang") + STAGES:
+            raise ValueError(f"unknown chaos stage {fail_at!r}")
+        if fail_at == "hang" and not background:
+            raise ValueError("fail_at='hang' wedges the grow thread until "
+                             "the watchdog aborts it: it needs a background "
+                             "grow")
+        self.engine = engine
+        self.cfg2 = cfg2
+        self.ligo = ligo
+        self.cache_mode = cache_mode
+        self.fail_at = fail_at
+        self.retries = retries
+        self.backoff = backoff
+        self.background = background
+        self.watchdog = HopWatchdog(timeout=timeout, floor=watchdog_floor)
+        self.attempts = 0
+        self.completed = False
+        self.failed = False
+        self.cache_path: Optional[str] = None
+        self.begin_at_step: Optional[int] = None
+        self.swap_at_step: Optional[int] = None
+        self.hop_ms: Optional[float] = None
+        self.timings = {}
+        self.rollbacks: List[Tuple[str, BaseException]] = []
+        self._gen = 0
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._buf = None
+        self._err: Optional[BaseException] = None
+        self._abort = threading.Event()
+        self._retry_at: Optional[float] = None
+        self._t_begin: Optional[float] = None
+        self._t_launch: Optional[float] = None
+        dev = engine.device
+        self._cuda = dev.type == "cuda"
+        # the engine's stream (the current one of the thread that made the
+        # controller) and the grow's own
+        self._main_stream = (torch.cuda.current_stream(dev) if self._cuda
+                             else None)
+        self._side_stream = torch.cuda.Stream(dev) if self._cuda else None
+
+    # -- chaos ---------------------------------------------------------------
+    def _chaos(self, stage: str) -> None:
+        if self.fail_at == stage:
+            self.fail_at = None        # one-shot: the retry gets through
+            raise HopError(f"injected failure at hop stage {stage!r}")
+
+    # -- stage 1: grow (double-buffered, optionally backgrounded) -----------
+    def _side(self):
+        if not self._cuda:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._side_stream)
+
+    def _build_kernels(self) -> None:
+        """Compile the kernels in the engine thread, before any grow thread
+        runs: a first build inside the grow would stall it for as long as
+        nvcc runs, and the watchdog would judge that stall."""
+        if self._cuda and self.engine.use_kernel is not False:
+            from repro_torch.kernels import _build
+            _build.build()
+
+    def _grow_once(self):
+        """One grow on the side stream, finished on the device before it
+        returns; safe to call from any thread."""
+        eng = self.engine
+        t0 = time.perf_counter()
+        with torch.no_grad(), self._side():
+            if self._cuda:
+                self._side_stream.wait_stream(self._main_stream)
+            plan = plan_for(eng.cfg, self.cfg2, eng.params)
+            grown = plan.apply(self.ligo, eng.params,
+                               use_kernel=eng.use_kernel)
+            if self._cuda:
+                done = torch.cuda.Event()
+                done.record(self._side_stream)
+                done.synchronize()
+        if self._cuda:
+            for leaf in tree_leaves(grown):
+                leaf.record_stream(self._main_stream)
+        return grown, (time.perf_counter() - t0) * 1e3
+
+    def _stage_grow(self, abort: threading.Event):
+        self._chaos("grow")
+        if self.fail_at == "hang":     # wedge until the watchdog aborts us
+            self.fail_at = None
+            abort.wait()
+            raise HopError("grow thread aborted by watchdog")
+        return self._grow_once()
+
+    def warm(self) -> float:
+        """Run one synchronous grow at engine start (off the hop path,
+        chaos-free, result discarded) and seed the watchdog with its wall
+        time, so the first *live* hop is judged against a measured budget.
+        On the card it builds and loads the kernels here, in the engine
+        thread, and leaves the grow's blocks cached on the side stream."""
+        self._build_kernels()
+        t0 = time.perf_counter()
+        buf, _ = self._grow_once()
+        dt = time.perf_counter() - t0
+        del buf
+        self.timings["warm"] = dt * 1e3
+        self.watchdog.seed(dt)
+        print(f"[hop] warmed grow path in {dt * 1e3:.1f} ms "
+              f"(watchdog seeded: budget {self.watchdog.budget():.2f}s)")
+        return dt
+
+    def _launch(self) -> None:
+        self.attempts += 1
+        self._gen += 1
+        gen = self._gen
+        self._buf, self._err = None, None
+        self._retry_at = None
+        self._abort = threading.Event()
+        abort = self._abort
+        self._t_launch = time.perf_counter()
+
+        if not self.background:
+            try:
+                buf = self._stage_grow(abort)
+                with self._lock:
+                    self._buf = buf
+            except Exception as e:                     # noqa: BLE001
+                # any grow failure rolls the hop back; poll() records it
+                with self._lock:
+                    self._err = e
+            return
+
+        def run():
+            try:
+                buf = self._stage_grow(abort)
+                with self._lock:
+                    if gen == self._gen:
+                        self._buf = buf
+            except Exception as e:                     # noqa: BLE001
+                with self._lock:
+                    if gen == self._gen:
+                        self._err = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name=f"hop-grow-{gen}")
+        self._thread.start()
+
+    def begin(self) -> None:
+        eng = self.engine
+        print(f"[hop] beginning live hop {eng.cfg.name} -> {self.cfg2.name} "
+              f"({'background' if self.background else 'synchronous'} grow, "
+              f"{len(eng.live)} live sessions)")
+        _ledger_event("hop.begin", src=eng.cfg.name, dst=self.cfg2.name,
+                      live=len(eng.live))
+        self._build_kernels()
+        self._t_begin = time.perf_counter()
+        self.begin_at_step = eng.decode_steps
+        self._launch()
+
+    # -- stages 2+3, failure handling (engine thread) ------------------------
+    def _fail(self, stage: str, err: BaseException) -> None:
+        eng = self.engine
+        with self._lock:
+            self._gen += 1             # orphan any in-flight grow thread
+            self._buf, self._err = None, None
+        self._abort.set()
+        self.rollbacks.append((stage, err))
+        print(f"[hop] hop FAILED at stage={stage}: {err!r}; rolled back — "
+              f"engine keeps serving {eng.cfg.name} "
+              f"({len(eng.live)} in-flight sessions intact, 0 dropped)")
+        _ledger_event("hop.rollback", stage=stage, cause=str(err),
+                      attempt=self.attempts, dropped=0)
+        if self.attempts <= self.retries:
+            delay = self.backoff * (2 ** (self.attempts - 1))
+            self._retry_at = time.perf_counter() + delay
+            print(f"[hop] retrying hop in {delay * 1e3:.0f} ms "
+                  f"(attempt {self.attempts + 1}/{self.retries + 1})")
+        else:
+            self.failed = True
+            print(f"[hop] giving up after {self.attempts} attempts; "
+                  f"engine continues on {eng.cfg.name}")
+
+    def _migrate_state(self, grown):
+        self._chaos("cache-grow")
+        eng = self.engine
+        if eng.kv_layout == "paged" and not paged_supported(self.cfg2):
+            raise CacheGrowthError(
+                f"{self.cfg2.name}: paged KV unsupported by the target "
+                "architecture; serve with kv_layout='dense' to hop there")
+        mode = self.cache_mode
+        if mode == "auto":
+            if (can_grow_cache(eng.cfg, self.cfg2)
+                    and is_lossless_operator(self.ligo, eng.cfg, self.cfg2)):
+                mode = "grow"
+            elif (depth_replay_plan(self.ligo, eng.cfg, self.cfg2)
+                    is not None and eng.replay_ready()):
+                mode = "replay"
+            else:
+                mode = "reprefill"
+        with torch.no_grad():
+            if mode == "grow":
+                state = grow_decode_state(eng.state, self.ligo, eng.cfg,
+                                          self.cfg2)
+            elif mode == "replay":
+                if depth_replay_plan(self.ligo, eng.cfg, self.cfg2) is None:
+                    raise CacheGrowthError(
+                        "cache_mode='replay': the operator is not a "
+                        "depth-append (identity width + identity-prefix "
+                        "depth)")
+                if not eng.replay_ready():
+                    raise CacheGrowthError(
+                        "cache_mode='replay': the engine has no complete "
+                        "residual stream for the live slots")
+                state = replay_grow_state(eng.state, grown, eng.cfg,
+                                          self.cfg2, eng.resid,
+                                          use_kernel=eng.use_kernel)
+            else:
+                state = eng.reprefill_state(grown, self.cfg2)
+        if self._cuda:
+            torch.cuda.synchronize(eng.device)
+        return state, mode
+
+    def poll(self) -> bool:
+        """Advance the hop between decode steps; True once settled
+        (completed or given up)."""
+        if self.completed or self.failed:
+            return True
+        if self._t_launch is None:     # begin() not called yet
+            return False
+        if self._retry_at is not None:
+            if time.perf_counter() < self._retry_at:
+                return False
+            self._launch()
+        with self._lock:
+            buf, err = self._buf, self._err
+        if err is not None:
+            self._fail("grow", err)
+            return self.failed
+        if buf is None:
+            elapsed = time.perf_counter() - self._t_launch
+            if elapsed > self.watchdog.budget():
+                self._fail("grow", HopError(
+                    f"watchdog: grow stage exceeded "
+                    f"{self.watchdog.budget():.2f}s budget"))
+            return self.failed
+        grown, grow_ms = buf
+        self.timings["grow"] = grow_ms
+        self.watchdog.observe(time.perf_counter() - self._t_launch)
+        eng = self.engine
+        old_name = eng.cfg.name
+        live = len(eng.live)
+        t0 = time.perf_counter()
+        try:
+            state, mode = self._migrate_state(grown)
+        except (HopError, CacheGrowthError) as e:
+            self._fail("cache-grow", e)
+            return self.failed
+        t1 = time.perf_counter()
+        old = (eng.cfg, eng.params, eng.state)
+        try:
+            self._chaos("swap")
+            eng.install(self.cfg2, grown, state)
+        except HopError as e:
+            self._fail("swap", e)
+            return self.failed
+        t2 = time.perf_counter()
+        self.timings["cache-grow"] = (t1 - t0) * 1e3
+        self.timings["swap"] = (t2 - t1) * 1e3
+        drafting = eng.adopt_drafter(*old)
+        self.completed = True
+        self.cache_path = mode
+        self.swap_at_step = eng.decode_steps
+        self.hop_ms = (time.perf_counter() - self._t_begin) * 1e3
+        obs.histogram("hop.total_ms").observe(self.hop_ms)
+        _ledger_event("hop.complete", src=old_name, dst=self.cfg2.name,
+                      cache=mode, attempt=self.attempts)
+        wd = self.watchdog
+        print(f"[hop] hop complete: {old_name} -> {self.cfg2.name} in "
+              f"{self.hop_ms:.1f} ms (cache: {mode}, {live} live sessions "
+              f"migrated, attempt {self.attempts}/{self.retries + 1}) | "
+              f"watchdog ewma {wd.ewma:.2f}s budget {wd.budget():.2f}s "
+              f"floor {wd.floor:.2f}s")
+        if drafting:
+            print(f"[spec] drafter resident: {old_name}")
+        return True

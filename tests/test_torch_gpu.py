@@ -22,7 +22,12 @@ summation order differs. K2's ``dw`` is a long sum that cancels: its error
 is normalised entry by entry by the sum of the absolute values of its terms.
 K3 takes the JAX kernel test's elementwise tolerance,
 ``|kernel - plain| <= tol + tol |plain|`` with tol 2e-2 (bf16), 2e-5 (f32).
+The live engine runs on the card too: paged and dense give the same
+tokens, and a background hop on its side stream completes while decode
+steps land.
 """
+import time
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -524,3 +529,80 @@ def test_measured_flops_of_a_kernel_route_ligo_step(cuda):
     assert set(ops.launch_counts().values()) == {0}
     assert m["flops_kernels"] > 0 and m["flops_aten"] > 0
     assert 0.5 <= m["ratio"] <= 2.0, m
+
+
+# ---------------------------------------------------------------------------
+# The live engine on the card
+# ---------------------------------------------------------------------------
+# bf16 at dh 64: every prefill's attention takes K3's tensor-core kernel
+ENGINE_CFG = {"n_layers": 2, "d_model": 256, "n_heads": 4, "n_kv_heads": 4,
+              "d_head": 64, "d_ff": 512, "vocab_size": 512, "max_seq": 256}
+
+
+def _engine_run(params, cfg, layout, n_req=6):
+    from repro_torch.launch.serve import live_prompts
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(params, cfg, slots=3, prompt_budget=32,
+                        gen_budget=16, kv_layout=layout, device="cuda")
+    reqs = [eng.submit(p, max_new=16)
+            for p in live_prompts(n_req, 32, cfg.vocab_size)]
+    return eng, reqs
+
+
+@pytest.mark.gpu
+def test_engine_paged_and_dense_tokens_equal_on_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config("gpt2-base").scaled(name="gpt2-engine", **ENGINE_CFG)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    out = {}
+    for layout in ("paged", "dense"):
+        ops.reset_launch_counts()
+        eng, reqs = _engine_run(params, cfg, layout)
+        eng.run()
+        assert all(r.status == "done" and len(r.tokens) == 16 for r in reqs)
+        assert ops.launch_counts()["flash_attention"] == cfg.n_layers * 6
+        out[layout] = [r.tokens for r in reqs]
+    assert out["paged"] == out["dense"]
+
+
+@pytest.mark.gpu
+def test_background_hop_on_a_side_stream_completes_while_decoding(cuda):
+    """The grow runs in a thread on its own stream while the engine keeps
+    decoding: decode steps land between the hop's begin and its swap, K1
+    launches for warm() and the hop, and every request finishes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_ligo_params
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import HopController
+    cfg = get_config("gpt2-base").scaled(name="gpt2-engine", **ENGINE_CFG)
+    cfg2 = cfg.scaled(name="gpt2-engine-grown", n_layers=4, d_model=384,
+                      n_heads=6, n_kv_heads=6, d_ff=768)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    op = init_ligo_params(torch.Generator(cuda).manual_seed(1), cfg, cfg2,
+                          device=cuda)
+    eng, reqs = _engine_run(params, cfg, "paged", n_req=9)
+    hop = HopController(eng, cfg2, op, background=True)
+    assert hop._side_stream != torch.cuda.current_stream(cuda)
+    ops.reset_launch_counts()
+    hop.warm()
+    k1_warm = ops.launch_counts()["ligo_blend_expand_grouped"]
+    assert k1_warm > 0
+
+    def on_step(e):
+        if e.decode_steps >= 3 and hop.attempts == 0:
+            hop.begin()
+        if hop.attempts:
+            hop.poll()
+
+    eng.run(on_step=on_step)
+    while not hop.poll():
+        time.sleep(0.002)
+    assert hop.completed and hop.attempts == 1 and not hop.rollbacks
+    assert hop.cache_path == "reprefill"
+    assert hop.swap_at_step > hop.begin_at_step      # decode ran meanwhile
+    assert ops.launch_counts()["ligo_blend_expand_grouped"] == 2 * k1_warm
+    assert all(r.status == "done" and len(r.tokens) == 16 for r in reqs)
+    assert eng.cfg.name == cfg2.name

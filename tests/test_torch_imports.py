@@ -42,7 +42,10 @@ def test_scan_covers_the_port():
                 ("checkpoint", "io.py"), ("checkpoint", "manager.py"),
                 ("obs", "ledger.py"), ("obs", "costs.py"),
                 ("trajectory", "runner.py"), ("distributed", "supervisor.py"),
-                ("examples", "quickstart.py")):
+                ("examples", "quickstart.py"), ("core", "grow_cache.py"),
+                ("serving", "admission.py"), ("serving", "kv_pages.py"),
+                ("serving", "speculative.py"), ("serving", "engine.py"),
+                ("serving", "hotswap.py"), ("serving", "__init__.py")):
         assert os.path.join("src", "repro_torch", *mod) in names
     assert len(names) >= 20
 
@@ -62,6 +65,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.optim, repro_torch.bridge, repro_torch.checkpoint, "
             "repro_torch.obs.costs, repro_torch.trajectory, "
             "repro_torch.distributed, repro_torch.examples.quickstart, "
+            "repro_torch.serving, repro_torch.core.grow_cache, "
             "repro_torch.kernels._build as b; "
             "assert not any(m in ('jax', 'ml_dtypes') "
             "or m.startswith(('jax.', 'repro.', 'ml_dtypes.')) "
