@@ -108,6 +108,19 @@ sources are not beside it. Phases, each fatal on failure:
    (e) chaos at every hop stage at smoke size, each rollback's cause the
    injected one; (f) llama3-8b (phase 3b's params) through the engine,
    4 slots, prompts of 1024-2048 tokens, with a profiled decode step;
+10. speculative decoding through the live hop, under phase 9's settings
+   (auto-disable off): (a) ``serve --live-grow-at 8 --hop-sync
+   --speculative 4`` (9 (b)'s run, gpt2-base drafting 4 tokens a round for
+   gpt2-medium): every request's tokens equal 9 (b)'s, one draft and one
+   verify build, K1 14 and K3 9 (b)'s plus one a layer for every drafter
+   prefill; the acceptance, the speedup estimate, draft and verify ms a
+   round and decode tok/s after the hop with and without speculation
+   printed; (b) the same dense, tokens equal 9 (c)'s; (c) the LEMON hop
+   with speculation (first-round acceptance printed) and the reference
+   test's float32 pair on the card (first round 1.0); (d) sampled,
+   temperature 0.8, top-p 0.9: one seed repeats, another differs; (e) a
+   second hop failing at swap while the smoke pair drafts: rolled back for
+   the injected cause, 0 dropped, 0 rejected, the retry landing;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -1701,9 +1714,11 @@ def _live_check(res, n_req, gen):
 
 def _k3_want(eng, cfg1, cfg2):
     """K3 launches of a live run by the engine's own prefill counters: one
-    per layer of every admission prefill and every re-prefill."""
+    per layer of every admission prefill, every drafter prefill (a request
+    admitted while the pre-hop model drafts) and every re-prefill."""
     pc = eng.prefill_counts
-    return (cfg1.n_layers * pc[(cfg1.name, "admit")]
+    return (cfg1.n_layers * (pc[(cfg1.name, "admit")]
+                             + pc[(cfg1.name, "draft")])
             + cfg2.n_layers * (pc[(cfg2.name, "admit")]
                                + pc[(cfg2.name, "reprefill")]))
 
@@ -1789,8 +1804,9 @@ def _chaos_phase(torch, stage, device="cuda"):
 
 def _live_phase(torch, shapes, llama):
     """Phase 9 (a)-(f). Returns the kernel-route runs' launches by run, the
-    K3 launches by engine shape (for the JSON line's times) and the llama
-    profile's device busy share."""
+    K3 launches by engine shape (for the JSON line's times), and what phase
+    10 holds its speculative runs against: (b)'s and (c)'s tokens, (b)'s
+    swap step, K3 launches and decode rate after the swap."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.launch.serve import live_prompts
@@ -1883,6 +1899,12 @@ def _live_phase(torch, shapes, llama):
           f"{LIVE_TOL:.0e}); tokens equal in {same}/{n_req} requests", flush=True)
     if max(errs) > LIVE_TOL:
         raise AssertionError(f"(b) first-token logits {errs}")
+    vanilla = {"paged": [list(r.tokens) for r in ekb.requests],
+               "swap": hkb.swap_at_step,
+               "k3": runs["live b"]["flash_attention"],
+               "tok_s_after": ekb.decode_tok_s((hkb.swap_at_step, None)),
+               "p50_after": ekb.decode_step_percentiles(
+                   50, steps=(hkb.swap_at_step, None))[0]}
     # (a) hopped in the background, (b) synchronously: one step apart, but
     # each request's first token comes from its prompt and the same model
     bg = max(_logit_err(fa, r.first_logits)
@@ -1917,6 +1939,7 @@ def _live_phase(torch, shapes, llama):
         raise AssertionError(f"(c) paged vs dense: first {first:.3e}, last "
                              f"{last:.3e}, swap {hkd.swap_at_step} vs "
                              f"{hkb.swap_at_step}")
+    vanilla["dense"] = [list(r.tokens) for r in ekd.requests]
     del kb, ekb, hkb, kd, ekd, hkd
 
     # (d) a LEMON hop gpt2-medium -> gpt2-medium-ff2: the cache grows in
@@ -1990,7 +2013,292 @@ def _live_phase(torch, shapes, llama):
                    eng)
     del eng, ev
     print(f"[live] phase 9 {time.perf_counter() - t0:.1f} s", flush=True)
-    return runs, k3_engine
+    return runs, k3_engine, vanilla
+
+
+# Phase 10: speculative decoding through the live hop at full width, under
+# phase 9's settings: the pre-hop model drafts K tokens a slot each round
+# and the grown model verifies them. (a) greedy through phase 9 (b)'s hop,
+# paged; (b) the same, dense; (c) the LEMON hop, and the float32 smoke pair;
+# (d) sampled; (e) a hop failing at swap while drafting, at smoke size.
+SPEC_K = 4
+SPEC_ARGS = LIVE_ARGS + ["--hop-sync", "--speculative", str(SPEC_K)]
+# request counts cut for time (the widths stay full): (b), (c) and (d) take
+# the first 8 requests, the first wave, which the hop meets in every slot,
+# so each request decodes as it did among 16
+SPEC_REQ = 8
+LEMON_SPEC_ARGS = ["--arch", "gpt2-medium", "--hop-operator", "lemon",
+                   "--live-grow-at", "8", "--batch", "8", "--requests",
+                   str(SPEC_REQ), "--prompt-len", "128", "--gen",
+                   str(LIVE_GEN), "--hop-sync", "--speculative", str(SPEC_K)]
+SAMPLED = dict(temperature=0.8, top_p=0.9)
+
+
+def _spec_smoke_cfgs():
+    """The reference speculative test's float32 pair (its TINY and WIDE,
+    ``tests/test_spec_decode.py``) and a third width for a second hop."""
+    from repro_torch.configs.paper_models import BERT_SMALL
+    tiny = BERT_SMALL.scaled(
+        name="spec-tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
+        d_head=8, d_ff=64, vocab_size=64, max_seq=96, dtype="float32",
+        objective="clm", encoder_only=False, causal=True)
+    wide = tiny.scaled(name="spec-wide", n_heads=8, n_kv_heads=8, d_ff=96)
+    wider = wide.scaled(name="spec-wider", n_heads=16, n_kv_heads=16,
+                        d_ff=128)
+    return tiny, wide, wider
+
+
+def _hop_drive(eng, hops, hop_at):
+    """Drain ``eng`` through synchronous hops: ``hops[0]`` begins at decode
+    step ``hop_at``, each later one two decode steps (rounds) after the one
+    before it completed, every begun one polled between steps."""
+    for _ in range(100_000):
+        if not eng.has_work():
+            return
+        eng.step()
+        for prev, h in zip([None] + hops[:-1], hops):
+            if h.attempts == 0 and (
+                    eng.decode_steps >= hop_at if prev is None
+                    else prev.completed
+                    and eng.decode_steps >= prev.swap_at_step + 2):
+                h.begin()
+            if h.attempts:
+                h.poll()
+    raise AssertionError("engine did not drain")
+
+
+def _spec_report(label, eng, hop, walls, vanilla=None):
+    """The speculative run's acceptance, speedup estimate, draft and verify
+    ms per round (p50 of the walls each round measured) and decode tok/s
+    after the swap, beside the same requests' without speculation where
+    given."""
+    import numpy as np
+    st = eng.spec_stats
+    if not st.get("rounds") or len(walls) != st["rounds"]:
+        raise AssertionError(f"{label}: {len(walls)} round walls, {st}")
+    d50, v50 = np.percentile(np.asarray(walls), 50, axis=0)
+    tok_s = eng.decode_tok_s((hop.swap_at_step, None))
+    p50 = eng.decode_step_percentiles(50, steps=(hop.swap_at_step, None))[0]
+    acc = st["accepted"] / max(1, st["drafted"])
+    line = (f"[spec] {label}: acceptance {st['accepted']}/{st['drafted']} "
+            f"({acc:.3f}) in {st['rounds']} rounds, first round "
+            f"{st['first_round_acc']:.3f}, est_speedup "
+            f"{st['est_speedup']:.3f}x | a round: draft p50 {d50:.2f} ms, "
+            f"verify p50 {v50:.2f} ms, wall p50 {p50:.2f} ms | after the "
+            f"swap {tok_s:.1f} decode tok/s")
+    if vanilla is not None:
+        line += (f"; without speculation {vanilla['tok_s_after']:.1f} "
+                 f"decode tok/s, step p50 {vanilla['p50_after']:.2f} ms: "
+                 f"measured {tok_s / vanilla['tok_s_after']:.3f}x against "
+                 f"est {st['est_speedup']:.3f}x")
+    print(line, flush=True)
+
+
+def _spec_phase(torch, shapes, vanilla, device="cuda"):
+    """Phase 10 (a)-(e). Returns the launches of its full-width runs by run
+    and (a)'s K3 launches by engine shape."""
+    from repro_torch.core.operators import lemon_operator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import live_prompts
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import HopController, HopError, ServingEngine
+    from repro_torch.serving import speculative as spec
+    t0 = time.perf_counter()
+    k1_grow = _launches(shapes, False)[0]
+    dev = torch.device(device)
+    runs, walls = {}, []
+    # each round's draft and verify walls, as the engine measures them
+    telemetry = ServingEngine._spec_telemetry
+
+    def recorded(self, n_active, acc_total, t_draft, t_verify):
+        walls.append((t_draft * 1e3, t_verify * 1e3))
+        return telemetry(self, n_active, acc_total, t_draft, t_verify)
+
+    def serve_run(label, argv):
+        ops.reset_launch_counts()
+        walls.clear()
+        # deterministic rounds: the auto-disable reads wall clocks
+        res = serve.main(argv, spec_autodisable=False)
+        runs[label] = ops.launch_counts()
+        return res
+
+    ServingEngine._spec_telemetry = recorded
+    try:
+        # (a) greedy speculation through phase 9 (b)'s hop, paged
+        for fn in (spec.make_draft_fn, spec.make_sampled_draft_fn,
+                   spec.make_verify_fn):
+            fn.cache_clear()
+        spec.BUILD_COUNTS.clear()
+        a = serve_run("spec a", SPEC_ARGS)
+        eng, hop = _live_check(a, LIVE_REQ, LIVE_GEN)
+        builds = dict(spec.BUILD_COUNTS.items())
+        cfg1, cfg2 = a["small_cfg"], a["cfg2"]
+        st, pc = eng.spec_stats, eng.prefill_counts
+        n_draft = pc[(cfg1.name, "draft")]
+        toks = [list(r.tokens) for r in eng.requests]
+        same = sum(t == v for t, v in zip(toks, vanilla["paged"]))
+        want = {"ligo_blend_expand_grouped": 2 * k1_grow,
+                "ligo_blend_expand_bwd_fused": 0,
+                "flash_attention": vanilla["k3"] + cfg1.n_layers * n_draft}
+        print(f"[spec] (a) {cfg1.name} drafts K={SPEC_K} for {cfg2.name}, "
+              f"paged: tokens equal to phase 9 (b) in {same}/{LIVE_REQ} "
+              f"requests; swap at step {hop.swap_at_step} (9 (b): "
+              f"{vanilla['swap']}); {n_draft} drafter prefills; launches "
+              f"{runs['spec a']}, want {want} (K3: 9 (b)'s "
+              f"{vanilla['k3']} + {cfg1.n_layers} x {n_draft}); "
+              f"serve.spec.builds {builds}", flush=True)
+        if not (hop.completed and hop.attempts == 1
+                and hop.cache_path == "reprefill"
+                and hop.swap_at_step == vanilla["swap"]
+                and st["rounds"] > 0 and st["drafter"] == cfg1.name
+                and st["disabled"] is None
+                and n_draft == pc[(cfg2.name, "admit")] > 0):
+            raise AssertionError(f"(a): hop {hop.completed}/{hop.attempts} "
+                                 f"{hop.cache_path} at {hop.swap_at_step}, "
+                                 f"spec {st}, prefills {dict(pc)}")
+        if same != LIVE_REQ:
+            raise AssertionError(f"(a) greedy speculation differs from "
+                                 f"greedy decoding in {LIVE_REQ - same} "
+                                 f"requests")
+        if builds != {"draft": 1, "verify": 1}:
+            raise AssertionError(f"(a) serve.spec.builds {builds}: one "
+                                 f"draft and one verify build")
+        if runs["spec a"] != want:
+            raise AssertionError(f"(a) launches {runs['spec a']}, want "
+                                 f"{want}")
+        _spec_report("(a) paged", eng, hop, walls, vanilla)
+        _decode_report("(a) speculative, gpt2-base -> gpt2-medium", eng,
+                       hop)
+        k3_spec = {"engine prefill gpt2-base": cfg1.n_layers * (
+                       pc[(cfg1.name, "admit")] + n_draft),
+                   "engine prefill gpt2-medium":
+                       cfg2.n_layers * pc[(cfg2.name, "admit")],
+                   "engine re-prefill gpt2-medium":
+                       cfg2.n_layers * pc[(cfg2.name, "reprefill")]}
+        small, ligo = a["small"], a["ligo"]
+        del a, eng, hop
+
+        # (b) the same, dense, the first SPEC_REQ requests
+        b = serve_run("spec b", SPEC_ARGS + ["--kv-layout", "dense",
+                                             "--requests", str(SPEC_REQ)])
+        eb, hb = _live_check(b, SPEC_REQ, LIVE_GEN)
+        same = sum(list(r.tokens) == v
+                   for r, v in zip(eb.requests, vanilla["dense"]))
+        print(f"[spec] (b) dense, the first {SPEC_REQ} requests: tokens "
+              f"equal to phase 9 (c) (dense, no speculation) in "
+              f"{same}/{SPEC_REQ}; swap at step {hb.swap_at_step}; "
+              f"{eb.spec_stats['rounds']} rounds; launches {runs['spec b']}",
+              flush=True)
+        if (same != SPEC_REQ or hb.swap_at_step != vanilla["swap"]
+                or eb.kv_layout != "dense" or not eb.spec_stats["rounds"]
+                or runs["spec b"]["flash_attention"]
+                != _k3_want(eb, cfg1, cfg2)):
+            raise AssertionError(f"(b) dense speculation differs from dense "
+                                 f"decoding: {same}/{SPEC_REQ}, swap "
+                                 f"{hb.swap_at_step}, {runs['spec b']}")
+        _spec_report("(b) dense", eb, hb, walls)
+        del b, eb, hb
+
+        # (c) the LEMON hop with speculation, bf16 at full width (no bound
+        # on its acceptance: bf16 GEMMs at the doubled d_ff sum in another
+        # order) ...
+        c = serve_run("spec c", LEMON_SPEC_ARGS)
+        ec, hc = _live_check(c, SPEC_REQ, LIVE_GEN)
+        if not (hc.completed and hc.cache_path == "grow"
+                and ec.spec_stats["rounds"] > 0
+                and runs["spec c"]["flash_attention"]
+                == _k3_want(ec, c["small_cfg"], c["cfg2"])):
+            raise AssertionError(f"(c) LEMON: hop {hc.completed}, cache "
+                                 f"{hc.cache_path}, spec {ec.spec_stats}, "
+                                 f"launches {runs['spec c']}")
+        _spec_report(f"(c) LEMON {c['small_cfg'].name} -> "
+                     f"{c['cfg2'].name}", ec, hc, walls)
+        del c, ec, hc
+        # ... and the float32 smoke pair: the first round accepts every draft
+        tiny, wide, wider = _spec_smoke_cfgs()
+        tp = init_params(tiny, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+        prompts = live_prompts(6, 8, tiny.vocab_size)
+
+        def smoke_run(hop_list, gen=24):
+            e = ServingEngine(tp, tiny, slots=2, prompt_budget=8,
+                              gen_budget=gen, spec_k=SPEC_K,
+                              spec_autodisable=False, device=dev)
+            for p in prompts:
+                e.submit(p, max_new=gen)
+            hs = [HopController(e, c2, op, backoff=0.01, background=False,
+                                **hkw) for c2, op, hkw in hop_list]
+            _hop_drive(e, hs, 3)
+            return e, hs
+
+        es, hs = smoke_run([(wide, lemon_operator(tiny, wide, device=dev),
+                             {})])
+        print(f"[spec] (c) float32 smoke pair {tiny.name} -> {wide.name}: "
+              f"first round {es.spec_stats['first_round_acc']}, acceptance "
+              f"{es.spec_stats['accepted']}/{es.spec_stats['drafted']}",
+              flush=True)
+        if not (hs[0].completed and es.spec_stats["first_round_acc"] == 1.0):
+            raise AssertionError("(c) float32 LEMON: the first round must "
+                                 "accept every draft")
+
+        # (d) sampled speculation through (a)'s hop: one seed twice gives
+        # the same tokens, another seed others
+        sampled = {}
+        for label, seed in (("42", 42), ("42 again", 42), ("7", 7)):
+            ops.reset_launch_counts()
+            walls.clear()
+            e = ServingEngine(small, cfg1, slots=8, prompt_budget=128,
+                              gen_budget=LIVE_GEN, spec_k=SPEC_K,
+                              spec_autodisable=False, seed=seed, device=dev,
+                              **SAMPLED)
+            for p in live_prompts(SPEC_REQ, 128, cfg1.vocab_size):
+                e.submit(p, max_new=LIVE_GEN)
+            h = HopController(e, cfg2, ligo, background=False)
+            _hop_drive(e, [h], 8)
+            runs[f"spec d seed {label}"] = ops.launch_counts()
+            _live_check({"engine": e, "hop": h}, SPEC_REQ, LIVE_GEN)
+            sampled[label] = [list(r.tokens) for r in e.requests]
+            _spec_report(f"(d) sampled, seed {label}", e, h, walls)
+            del e, h
+        print(f"[spec] (d) seed 42 twice: tokens equal "
+              f"{sampled['42'] == sampled['42 again']}; seed 7 differs: "
+              f"{sampled['42'] != sampled['7']}", flush=True)
+        if (sampled["42"] != sampled["42 again"]
+                or sampled["42"] == sampled["7"]):
+            raise AssertionError("(d) sampled speculation must repeat under "
+                                 "one seed and change under another")
+        del small, ligo
+
+        # (e) a second hop failing at swap while the first hop's drafter
+        # drafts: rolled back for the injected cause, nothing dropped or
+        # rejected, and the retry lands while drafting
+        e, hs = smoke_run([
+            (wide, lemon_operator(tiny, wide, device=dev), {}),
+            (wider, lemon_operator(wide, wider, device=dev),
+             {"fail_at": "swap"})], gen=32)
+        rb = [(w, type(err).__name__, str(err)) for w, err in hs[1].rollbacks]
+        cnt = e.counts()
+        print(f"[spec] (e) second hop failing at 'swap' while drafting: "
+              f"rollbacks {rb}, attempts {hs[1].attempts}, serving "
+              f"{e.cfg.name}, drafter {e.spec_stats['drafter']} "
+              f"({e.spec_stats['rounds']} rounds since), {cnt}", flush=True)
+        if not (hs[0].completed and hs[1].completed and hs[1].attempts == 2
+                and len(rb) == 1 and rb[0][0] == "swap"
+                and isinstance(hs[1].rollbacks[0][1], HopError)
+                and "injected" in rb[0][2] and e.cfg.name == wider.name
+                and e.spec_stats["drafter"] == wide.name
+                and e.spec_stats["rounds"] > 0
+                and cnt["dropped"] == 0 and cnt["rejected"] == 0
+                and cnt["done"] == len(prompts)):
+            raise AssertionError("(e) a hop failing at swap while drafting "
+                                 "must roll back for the injected cause "
+                                 "with 0 dropped and land on its retry")
+        del e, hs
+    finally:
+        ServingEngine._spec_telemetry = telemetry
+    print(f"[spec] phase 10 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3_spec
 
 
 def _quickstart_phase():
@@ -2334,9 +2642,15 @@ def main() -> int:
               f"{vreport[b]['seconds']:.1f} s", flush=True)
 
     # -- phase 9: the live engine at full width -----------------------------
-    live_runs, k3_engine = _live_phase(torch, shapes, llama)
+    live_runs, k3_engine, vanilla = _live_phase(torch, shapes, llama)
     del llama
     traj["launches"].update(live_runs)
+
+    # -- phase 10: speculative decoding through the live hop -----------------
+    spec_runs, k3_spec = _spec_phase(torch, shapes, vanilla)
+    traj["launches"].update(spec_runs)
+    for shape, n in k3_spec.items():
+        k3_engine[shape] += n
 
     # -- phase 5: report ------------------------------------------------------
     def entry(name, source, replaces, n, rows_, main_):
@@ -2369,6 +2683,7 @@ def main() -> int:
         # K3's times: its work in one gpt2-medium prefill (24 launches at
         # shape (a)) plus one llama3-8b prefill (32 launches at shape (b)),
         # plus the engine's prefills and re-prefills of phase 9 (a) and (f)
+        # and phase 10 (a) (its drafter prefills too)
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:72",
               total("flash_attention"), k3_rows,

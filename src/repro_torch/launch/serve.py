@@ -40,9 +40,18 @@ back and retries with backoff; admitted requests never drop either way::
         --grow-to gpt2-medium --live-grow-at 8 --batch 8 --requests 16 \\
         --prompt-len 128 --gen 32
 
+``--speculative K`` keeps the pre-hop model resident after the live hop as
+a drafter: each round it drafts K tokens a slot and the grown model
+verifies them (greedy output bit-equal to vanilla greedy); the run prints
+the ``[spec]`` acceptance line::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-base \
+        --grow-to gpt2-medium --live-grow-at 8 --speculative 4 --batch 8 \
+        --requests 16 --prompt-len 128 --gen 32
+
 Runs on CUDA unless ``--device cpu`` is given, and raises when there is no
-CUDA device and no ``--device cpu``. Meshes, the rest of observability
-and speculative decoding come with later slices.
+CUDA device and no ``--device cpu``. Meshes and the rest of observability
+come with later slices.
 """
 from __future__ import annotations
 
@@ -186,9 +195,11 @@ def _live_operator(args, cfg, dev):
 
 
 def _serve_live(args, cfg, params, dev, *,
-                use_kernel: Optional[bool] = None) -> Dict[str, Any]:
+                use_kernel: Optional[bool] = None,
+                spec_autodisable: bool = True) -> Dict[str, Any]:
     """Engine-backed serving with a mid-serve hop (``--live-grow-at``).
-    ``use_kernel=False`` serves on the plain route (K1 and K3 off)."""
+    ``use_kernel=False`` serves on the plain route (K1 and K3 off);
+    ``spec_autodisable`` as in :class:`ServingEngine`."""
     from repro_torch.serving import HopController, ServingEngine
     if cfg.modality != "text":
         raise SystemExit(f"--live-grow-at: {cfg.name} is not a token model")
@@ -201,7 +212,9 @@ def _serve_live(args, cfg, params, dev, *,
                            block_size=args.block_size,
                            pool_blocks=args.kv_pool_blocks,
                            temperature=args.temperature, top_p=args.top_p,
-                           seed=args.seed, use_kernel=use_kernel, device=dev)
+                           seed=args.seed, spec_k=args.speculative,
+                           spec_autodisable=spec_autodisable,
+                           use_kernel=use_kernel, device=dev)
     hop = HopController(engine, cfg2, ligo, cache_mode=args.cache_mode,
                         fail_at=args.fail_at_hop, retries=args.hop_retries,
                         timeout=args.hop_timeout,
@@ -257,6 +270,19 @@ def _serve_live(args, cfg, params, dev, *,
           + ", ".join(f"{k} {v:.1f}" for k, v in hop.timings.items())
           + f" | kernel launches: K1 {launches['ligo_blend_expand_grouped']}"
           f", K3 {launches['flash_attention']} (warm grow excluded)")
+    if args.speculative > 0:
+        st = engine.spec_stats
+        if st.get("rounds"):
+            print(f"[spec] acceptance {st['accepted']}/{st['drafted']} "
+                  f"drafted ({st['accepted'] / max(1, st['drafted']):.0%}, "
+                  f"first round {st.get('first_round_acc', 0.0):.0%}) | "
+                  f"K={engine.spec_k} drafter={st.get('drafter')} | est "
+                  f"speedup {st.get('est_speedup', 0.0):.2f}x"
+                  + (f" | disabled: {st['disabled']}" if st.get("disabled")
+                     else ""))
+        else:
+            print("[spec] acceptance n/a (no speculative rounds ran: "
+                  "drafter never adopted or queue drained pre-hop)")
     res: Dict[str, Any] = {"engine": engine, "hop": hop, "cfg2": cfg2,
                            "ligo": ligo, "wall_s": wall,
                            "tok_s": total / max(wall, 1e-9), "p50": p50,
@@ -276,7 +302,8 @@ def _serve_live(args, cfg, params, dev, *,
     return res
 
 
-def _serve(args, use_kernel: Optional[bool] = None) -> Dict[str, Any]:
+def _serve(args, use_kernel: Optional[bool] = None,
+           spec_autodisable: bool = True) -> Dict[str, Any]:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -296,7 +323,8 @@ def _serve(args, use_kernel: Optional[bool] = None) -> Dict[str, Any]:
         res["small_cfg"], res["small"] = cfg, params
         if args.live_grow_at is not None:
             res.update(_serve_live(args, cfg, params, dev,
-                                   use_kernel=use_kernel))
+                                   use_kernel=use_kernel,
+                                   spec_autodisable=spec_autodisable))
             return res
         if args.grow_to:
             params, cfg, info = hot_grow(params, cfg, args.grow_to,
@@ -403,8 +431,12 @@ def parse_args(argv: Optional[List[str]] = None):
     live.add_argument("--top-p", type=float, default=1.0,
                       help="nucleus sampling mass (with --temperature > 0)")
     live.add_argument("--speculative", type=int, default=0, metavar="K",
-                      help="speculative decoding after the hop: not ported "
-                           "yet, K > 0 raises")
+                      help="after the live hop, keep the pre-hop model "
+                           "resident as a drafter: draft K tokens a slot per "
+                           "round with the small model, verify them with the "
+                           "grown one (greedy output is bit-equal to vanilla "
+                           "greedy; drafting stops when the measured speedup "
+                           "estimate drops below 1)")
     live.add_argument("--kv-layout", default="paged",
                       choices=["paged", "dense"],
                       help="paged = fixed-size blocks + per-slot page tables "
@@ -427,21 +459,21 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None, *,
-         use_kernel: Optional[bool] = None) -> Dict[str, Any]:
+         use_kernel: Optional[bool] = None,
+         spec_autodisable: bool = True) -> Dict[str, Any]:
     """Serve once; returns the results (params, logits, tokens, times; on
     the live path the engine and the hop controller). ``use_kernel=False``
     runs the live path on the plain route, K1 and K3 off (``chip_smoke.py``
-    holds the kernel route against it)."""
+    holds the kernel route against it); ``spec_autodisable=False`` keeps
+    drafting whatever the wall-clock speedup estimate says, so that
+    speculative rounds are deterministic (``chip_smoke.py`` compares them
+    token for token with greedy decoding)."""
     args = parse_args(argv)
-    if args.speculative > 0:
-        raise SystemExit(f"--speculative {args.speculative}: speculative "
-                         "decoding is not ported yet (ROADMAP item "
-                         "'speculative decoding')")
     if args.ledger:
         # the serve launcher owns no checkpoint cursor: start the file clean
         attach_ledger(args.ledger).restore(None)
     try:
-        return _serve(args, use_kernel)
+        return _serve(args, use_kernel, spec_autodisable)
     finally:
         if args.ledger:
             led = detach_ledger()

@@ -6,7 +6,10 @@ row carries its own position (``state["pos"]``: (slots,) int64), so
 sessions prefill into free rows and decode in lock-step regardless of where
 each one is in its sequence. Scheduling per step: admit waiting requests
 into free slots (one prefill each, kernel K3 on the card), then advance
-every live slot by one token.
+every live slot: one token through the vanilla decode step, or up to
+``spec_k + 1`` tokens through a draft/verify speculative round when a
+drafter is resident (the pre-hop model, handed over by the hop controller
+after a successful swap; ``serving.speculative``).
 
 **KV layout.** The default is *paged*: slots share a pool of fixed-size
 blocks through per-slot page tables (``serving.kv_pages``), so a slot pays
@@ -14,7 +17,9 @@ for the pages its sequence actually covers instead of a dense ``max_len``
 row. The dense layout survives behind ``kv_layout="dense"`` as the
 correctness oracle (and for windowed configs, which the paged path does
 not cover). The engine owns positions host-side (``self.pos_host``) and
-re-asserts them into the device state before every launch.
+re-asserts them into the device state before every launch; that single
+convention is also what makes speculative rollback free: a rejected draft
+just means the position does not advance over it.
 
 The engine's serving buffers, ``(cfg, params, state)`` plus the prefill,
 decode and insert functions, are swapped as a unit by :meth:`install`,
@@ -22,9 +27,6 @@ which the hop controller (``repro_torch.serving.hotswap``) calls between
 two decode steps. Decode and insert write the live state in place, but a
 hop builds its migrated state into new tensors, so a hop aborted at any
 stage leaves the engine decoding the old weights untouched.
-
-Speculative decoding (``spec_k > 0``, the pre-hop model kept as a drafter)
-is the ROADMAP item "speculative decoding": the engine refuses it.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import functools
 import time
 import warnings
 from collections import Counter, deque
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +49,7 @@ from repro_torch.serving.admission import AdmissionQueue, Request
 from repro_torch.serving.kv_pages import (PageAllocator, init_paged_caches,
                                           paged_supported, scatter_row_blocks)
 
+_EMA = 0.3          # telemetry smoothing for acceptance and launch costs
 _RECENT_STEPS = 4096  # exact-window size behind decode_step_percentiles
 
 
@@ -121,11 +124,16 @@ class ServingEngine:
     (``pool_blocks=None`` sizes the pool so admission never blocks; smaller
     pools create real backpressure: admission reserves a request's worst
     case up front, so admitted requests always finish);
-    ``temperature``/``top_p``/``seed`` select sampling on the logits with a
-    reproducible per-request Philox chain, greedy by default. ``device`` is
-    where ``params`` must lie: the card unless the caller asks for the CPU.
-    ``use_kernel`` as in :func:`make_serving_fns` (the hop's grow takes it
-    too: ``False`` is the plain route, K1 and K3 off).
+    ``temperature``/``top_p``/``seed`` select sampling on the (verifier's)
+    logits with a reproducible per-request Philox chain, greedy by default;
+    ``spec_k`` arms speculative decoding: drafting starts when a hop hands
+    the pre-hop model over through :meth:`adopt_drafter`, and stops for good
+    when the measured speedup estimate drops below 1, unless
+    ``spec_autodisable=False`` (the estimate reads wall clocks, so
+    deterministic runs turn it off). ``device`` is where ``params`` must
+    lie: the card unless the caller asks for the CPU. ``use_kernel`` as in
+    :func:`make_serving_fns` (the hop's grow takes it too: ``False`` is the
+    plain route, K1 and K3 off).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
@@ -134,14 +142,11 @@ class ServingEngine:
                  block_size: int = 16, pool_blocks: Optional[int] = None,
                  temperature: float = 0.0, top_p: float = 1.0,
                  seed: int = 0, spec_k: int = 0,
+                 spec_autodisable: bool = True,
                  keep_residual: Optional[bool] = None,
                  use_kernel: Optional[bool] = None, device="cuda"):
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown KV layout {kv_layout!r}")
-        if spec_k > 0:
-            raise NotImplementedError(
-                f"spec_k={spec_k}: speculative decoding is not ported yet "
-                "(ROADMAP item 'speculative decoding')")
         self.device = resolve_device(device)
         leaf = params["final_norm"]["scale"]
         if leaf.device.type != self.device.type:
@@ -154,25 +159,31 @@ class ServingEngine:
         self.queue = AdmissionQueue(queue_capacity)
         self.requests: List[Request] = []
         self.slot_req: List[Optional[Request]] = [None] * slots
-        # decode-step walls: a bounded recent window (exact percentiles for
-        # the report) + a histogram (full-run p50/p99 in O(buckets) memory)
+        # decode steps as (wall ms, tokens emitted): a bounded recent window
+        # (exact percentiles and tok/s for the report) + a histogram of the
+        # walls (full-run p50/p99 in O(buckets) memory)
         self._recent_steps: deque = deque(maxlen=_RECENT_STEPS)
         self._h_step = obs.histogram("serve.decode.step_ms")
         self._h_queue_wait = obs.histogram("serve.request.queue_wait_ms")
         self._h_ttft = obs.histogram("serve.request.ttft_ms")
         self._h_tok_s = obs.histogram("serve.request.tokens_per_s",
                                       buckets=obs.RATE_BUCKETS)
+        self._h_draft = obs.histogram("serve.spec.draft_ms")
+        self._h_verify = obs.histogram("serve.spec.verify_ms")
+        self._g_acc = obs.gauge("serve.spec.acc_ema")
+        self._g_est = obs.gauge("serve.spec.est_speedup")
         self._c_req = obs.counter_group("serve.requests")
         for k in ("submitted", "done", "rejected", "dropped", "deferred"):
             self._c_req.inc(k, 0)       # declare: explicit zeros
-        # prefills this engine ran, keyed (config name, "admit"|"reprefill"):
-        # each is one K3 launch per layer on the card
+        # prefills this engine ran, keyed (config name, "admit" | "draft" |
+        # "reprefill"): each is one K3 launch per layer on the card
         self.prefill_counts: Counter = Counter()
         self.decode_steps = 0
         self.temperature = float(temperature)
         self.top_p = float(top_p)
         self.seed = int(seed)
         self.spec_k = int(spec_k)
+        self.spec_autodisable = bool(spec_autodisable)
         self.kv_layout_requested = kv_layout
         self.kv_fallback = False
         if kv_layout == "paged" and not paged_supported(cfg):
@@ -195,6 +206,12 @@ class ServingEngine:
         self.pos_host = np.zeros((slots,), np.int64)
         self.resid: Optional[np.ndarray] = None
         self.resid_from = np.zeros((slots,), np.int64)
+        # drafter (speculative decoding): installed by adopt_drafter
+        self.d_cfg: Optional[ModelConfig] = None
+        self.d_params = None
+        self.d_state = None
+        self.spec_enabled = False
+        self.spec_stats: Dict[str, Any] = {}
         self.install(cfg, params, None)
 
     # -- serving buffers ----------------------------------------------------
@@ -255,12 +272,51 @@ class ServingEngine:
 
     # -- speculative drafter -------------------------------------------------
     def adopt_drafter(self, cfg1: ModelConfig, params1, state1) -> bool:
-        """Keep the pre-hop model resident as a speculative drafter: only
-        with ``spec_k > 0``, which this engine refuses (ROADMAP item
-        "speculative decoding"), so it never drafts."""
-        if self.spec_k <= 0:
+        """Keep the pre-hop model resident as a speculative drafter. Its
+        decode state is the live pre-hop state (a hop builds the grown
+        state into new tensors, so the old one is intact and shares no
+        storage with it): its caches already hold every slot's history, so
+        drafting starts on the next round, and with a lossless (LEMON) hop
+        the first round's acceptance is 100% by construction. With the
+        paged layout the drafter keeps its own block pool (its widths, its
+        own spare block) behind the engine's page table.
+
+        Declined (returns False, nothing kept) without ``spec_k > 0``, for a
+        windowed config on either side (a ring cache cannot take positional
+        rollback), a vocabulary mismatch, a drafter the paged layout does
+        not support, or a different cache capacity.
+        """
+        if self.spec_k <= 0 or cfg1.window or self.cfg.window:
             return False
-        raise NotImplementedError("speculative decoding is not ported yet")
+        if cfg1.vocab_size != self.cfg.vocab_size:
+            return False
+        if self.kv_layout == "paged" and not paged_supported(cfg1):
+            return False
+        if self._cap_for(cfg1) != self.cap:
+            return False
+        self.d_cfg, self.d_params, self.d_state = cfg1, params1, state1
+        self._d_prefill, _, self._d_insert = make_serving_fns(
+            cfg1, self.cap, self.kv_layout, False, self.use_kernel)
+        if self.temperature > 0:
+            self._draft = spec.make_sampled_draft_fn(
+                cfg1, self.spec_k, self.temperature, self.top_p)
+        else:
+            self._draft = spec.make_draft_fn(cfg1, self.spec_k)
+        self._verify = spec.make_verify_fn(self.cfg, self.spec_k + 1,
+                                           self.keep_residual)
+        self.spec_enabled = True
+        self.spec_stats = {"rounds": 0, "accepted": 0, "drafted": 0,
+                           "acc_ema": None, "first_round_acc": None,
+                           "c_draft": None, "c_verify": None,
+                           "est_speedup": None, "drafter": cfg1.name,
+                           "disabled": None}
+        return True
+
+    def drop_drafter(self, reason: str = "dropped") -> None:
+        self.d_cfg = self.d_params = self.d_state = None
+        if self.spec_enabled:
+            self.spec_stats["disabled"] = reason
+        self.spec_enabled = False
 
     # -- request lifecycle --------------------------------------------------
     def submit(self, prompt, max_new: int) -> Request:
@@ -294,8 +350,8 @@ class ServingEngine:
             r is not None for r in self.slot_req)
 
     # -- decode-step timing ---------------------------------------------------
-    def _observe_step(self, ms: float) -> None:
-        self._recent_steps.append(ms)
+    def _observe_step(self, ms: float, n_tokens: int) -> None:
+        self._recent_steps.append((ms, n_tokens))
         self._h_step.observe(ms)
 
     def decode_step_ms(self, steps: Optional[Tuple[int, int]] = None
@@ -303,7 +359,7 @@ class ServingEngine:
         """The recent window's decode-step walls (ms); ``steps=(a, b)``
         takes decode steps a..b-1 of the window alone (b None: to the
         end)."""
-        arr = list(self._recent_steps)
+        arr = [ms for ms, _ in self._recent_steps]
         return arr if steps is None else arr[steps[0]:steps[1]]
 
     def decode_step_percentiles(self, *qs: float,
@@ -315,6 +371,16 @@ class ServingEngine:
         if not arr:
             return tuple(float("nan") for _ in qs)
         return tuple(float(np.percentile(np.asarray(arr), q)) for q in qs)
+
+    def decode_tok_s(self, steps: Optional[Tuple[int, int]] = None) -> float:
+        """Tokens the decode steps (or speculative rounds) of the recent
+        window emitted, over their walls, per second; ``steps`` as in
+        :meth:`decode_step_ms`."""
+        win = list(self._recent_steps)
+        if steps is not None:
+            win = win[steps[0]:steps[1]]
+        ms = sum(m for m, _ in win)
+        return sum(n for _, n in win) / (ms / 1e3) if ms > 0 else float("nan")
 
     # -- host-side sampling --------------------------------------------------
     def _pick_token(self, req: Request, logits_row: np.ndarray) -> int:
@@ -336,7 +402,8 @@ class ServingEngine:
         return out
 
     def _worst_len(self, req: Request) -> int:
-        """Worst-case backed length: prompt + full budget."""
+        """Worst-case backed length: prompt + full budget + the farthest a
+        speculative verify can write ahead of the final position."""
         return min(len(req.prompt) + req.max_new + max(self.spec_k, 0),
                    self.cap)
 
@@ -373,6 +440,13 @@ class ServingEngine:
                 h = out[2][0].float().cpu().numpy()
                 self.resid[slot, :req.true_len] = h[:req.true_len]
                 self.resid_from[slot] = 0
+            if self.d_cfg is not None:
+                # the drafter's cache needs every admitted prompt too
+                d_out = self._d_prefill(self.d_params, self._tokens(toks),
+                                        req.true_len)
+                self.prefill_counts[(self.d_cfg.name, "draft")] += 1
+                self.d_state = self._d_insert(self._sync_state(self.d_state),
+                                              d_out[1], req.true_len, slot)
             req.first_logits = out[0].float().cpu().numpy()
             req.tokens.append(self._pick_token(req, req.first_logits))
             req.t_first = time.perf_counter()
@@ -399,13 +473,23 @@ class ServingEngine:
         else:
             self.pos_host[req.slot] = req.true_len + len(req.tokens) - 1
 
+    def _spec_ready(self, active) -> bool:
+        if not (self.spec_enabled and self.d_cfg is not None
+                and self.spec_k > 0):
+            return False
+        K = self.spec_k
+        return all(self.pos_host[i] + K + 1 <= self.cap for i, _ in active)
+
     def step(self) -> bool:
         """One scheduling iteration. Returns True while work remains."""
         self._admit()
         active = [(i, r) for i, r in enumerate(self.slot_req)
                   if r is not None]
         if active:
-            self._plain_round(active)
+            if self._spec_ready(active):
+                self._spec_round(active)
+            else:
+                self._plain_round(active)
         return self.has_work()
 
     def _plain_round(self, active) -> None:
@@ -419,7 +503,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         out = self._decode(self.params, state, self._tokens(last))
         L = out[0].float().cpu().numpy()         # waits for the step
-        self._observe_step((time.perf_counter() - t0) * 1e3)
+        self._observe_step((time.perf_counter() - t0) * 1e3, len(active))
         self.decode_steps += 1
         self.state = out[1]
         if self.keep_residual:
@@ -431,6 +515,112 @@ class ServingEngine:
             self._finish_if_done(r)
             if r.status == "done":
                 r.last_logits = L[i].copy()
+
+    def _append_tokens(self, req: Request, toks) -> int:
+        """Append until the request's budget stops it; returns #appended."""
+        n = 0
+        for t in toks:
+            req.tokens.append(int(t))
+            n += 1
+            if (len(req.tokens) >= req.max_new
+                    or req.true_len + len(req.tokens) >= self.max_len):
+                break
+        return n
+
+    def _spec_round(self, active) -> None:
+        K = self.spec_k
+        if self.alloc is not None:
+            # every draft and verify write at pos..pos+K lands on a block of
+            # its own slot, none in the spare block (the admission reserve
+            # covers the K extra rows)
+            for i, _ in active:
+                self.alloc.ensure(i, int(self.pos_host[i]) + K + 1)
+        last = np.zeros((self.slots, 1), np.int64)
+        for i, r in active:
+            last[i, 0] = r.tokens[-1]
+        d_state = self._sync_state(self.d_state)
+        state = self._sync_state(self.state)
+        last_t = self._tokens(last)
+        t0 = time.perf_counter()
+        if self.temperature > 0:
+            noise = spec.draft_noise(self.seed, self.spec_stats["rounds"],
+                                     K + 1, self.slots, self.cfg.vocab_size,
+                                     self.device)
+            toks, probs, d_state2 = self._draft(self.d_params, d_state,
+                                                last_t, noise)
+        else:
+            toks, probs, d_state2 = self._draft(self.d_params, d_state,
+                                                last_t)
+        draft_toks = toks.cpu().numpy()              # waits for the drafts
+        t1 = time.perf_counter()
+        inputs = np.concatenate([last, draft_toks.astype(np.int64)], axis=1)
+        v_out = self._verify(self.params, state, self._tokens(inputs))
+        L = v_out[0].float().cpu().numpy()            # (slots, K+1, V)
+        t2 = time.perf_counter()
+        self.decode_steps += 1
+        hid = (v_out[1].float().cpu().numpy() if self.keep_residual
+               else None)
+        self.d_state = d_state2
+        self.state = v_out[-1]
+        draft_probs = (probs.cpu().numpy() if self.temperature > 0
+                       else None)
+        acc_total = n_emitted = 0
+        for i, r in active:
+            if self.temperature > 0:
+                emit, a, draws = spec.accept_sampled(
+                    draft_toks[i], draft_probs[i], L[i],
+                    temperature=self.temperature, top_p=self.top_p,
+                    seed=self.seed, uid=r.sample_key, counter=r.n_draws)
+                r.n_draws += draws
+            else:
+                emit, a = spec.accept_greedy(draft_toks[i], L[i])
+            acc_total += a
+            r.acc_ema = (a / K if r.acc_ema is None
+                         else _EMA * (a / K) + (1 - _EMA) * r.acc_ema)
+            if hid is not None:
+                p0 = int(self.pos_host[i])
+                self.resid[i, p0:p0 + K + 1] = hid[i]
+            n = self._append_tokens(r, emit)
+            n_emitted += n
+            self._finish_if_done(r)
+            if r.status == "done":
+                r.last_logits = L[i, n - 1].copy()
+        self._observe_step((t2 - t0) * 1e3, n_emitted)
+        self._spec_telemetry(len(active), acc_total, t1 - t0, t2 - t1)
+
+    def _spec_telemetry(self, n_active: int, acc_total: int,
+                        t_draft: float, t_verify: float) -> None:
+        """Acceptance and launch-cost EMAs, and the speedup estimate
+        ``(acc * K + 1) / (1 + K * c_draft / c_verify)``, with ``c_draft``
+        the drafting wall per drafted token and ``c_verify`` the wall of
+        one verify: the JAX package's formula, where a verify is one launch
+        costing about one vanilla step. Here a verify is K+1 decode steps,
+        so the estimate overstates the speedup a round really gives."""
+        st = self.spec_stats
+        K = self.spec_k
+        mean_a = acc_total / max(1, n_active)
+        if st["rounds"] == 0:
+            st["first_round_acc"] = mean_a / K
+        st["rounds"] += 1
+        st["accepted"] += acc_total
+        st["drafted"] += n_active * K
+        ema = lambda old, new: (new if old is None                  # noqa: E731
+                                else _EMA * new + (1 - _EMA) * old)
+        st["acc_ema"] = ema(st["acc_ema"], mean_a / K)
+        st["c_draft"] = ema(st["c_draft"], t_draft / K)   # per drafted token
+        st["c_verify"] = ema(st["c_verify"], t_verify)    # per verify
+        est = ((st["acc_ema"] * K + 1)
+               / (1 + K * st["c_draft"] / max(st["c_verify"], 1e-9)))
+        st["est_speedup"] = est
+        self._h_draft.observe(t_draft * 1e3)
+        self._h_verify.observe(t_verify * 1e3)
+        self._g_acc.set(st["acc_ema"])
+        self._g_est.set(est)
+        if self.spec_autodisable and st["rounds"] >= 3 and est < 1.0:
+            self.spec_enabled = False
+            st["disabled"] = (f"est speedup {est:.2f}x < 1 after "
+                              f"{st['rounds']} rounds")
+            print(f"[spec] drafting auto-disabled: {st['disabled']}")
 
     def run(self, *, on_step=None, max_steps: int = 100_000) -> None:
         """Drain the queue; ``on_step(engine)`` runs between decode steps:

@@ -13,7 +13,9 @@ Stage machine (driven by :meth:`HopController.poll` between decode steps):
    re-prefilling each session's token history under the grown weights
    (exact by construction; kernel K3 on the card).
 3. **swap**: ``engine.install`` flips the serving buffers between two
-   decode steps.
+   decode steps; then the pre-hop model, with its live decode state, is
+   handed to the engine as a speculative-decoding drafter
+   (``engine.adopt_drafter``, a no-op unless the engine has ``spec_k > 0``).
 
 Nothing touches the engine before stage 3, so any failure rolls back by
 discarding buffers: the engine keeps decoding the old weights and zero
@@ -417,5 +419,7 @@ class HopController:
               f"watchdog ewma {wd.ewma:.2f}s budget {wd.budget():.2f}s "
               f"floor {wd.floor:.2f}s")
         if drafting:
-            print(f"[spec] drafter resident: {old_name}")
+            print(f"[spec] drafter resident: {old_name} drafts "
+                  f"K={eng.spec_k} tokens/round for {self.cfg2.name} "
+                  f"to verify")
         return True

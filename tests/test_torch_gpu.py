@@ -24,7 +24,10 @@ K3 takes the JAX kernel test's elementwise tolerance,
 ``|kernel - plain| <= tol + tol |plain|`` with tol 2e-2 (bf16), 2e-5 (f32).
 The live engine runs on the card too: paged and dense give the same
 tokens, and a background hop on its side stream completes while decode
-steps land.
+steps land. Speculative decoding through a hop, at smoke size: greedy
+speculation gives greedy decoding's tokens (paged and dense, deterministic
+algorithms on), and a round maps every live slot's pages up to pos + K + 1
+before its drafter launches.
 """
 import time
 
@@ -606,3 +609,135 @@ def test_background_hop_on_a_side_stream_completes_while_decoding(cuda):
     assert ops.launch_counts()["ligo_blend_expand_grouped"] == 2 * k1_warm
     assert all(r.status == "done" and len(r.tokens) == 16 for r in reqs)
     assert eng.cfg.name == cfg2.name
+
+
+def _spec_run(params, cfg, cfg2, op, *, spec_k, layout="paged", gen=16,
+              block_size=16, spy=None):
+    """The engine on the card, a synchronous hop at decode step 3, drained;
+    ``spy(eng)`` runs after the engine is made. Returns (engine,
+    requests)."""
+    from repro_torch.launch.serve import live_prompts
+    from repro_torch.serving import HopController, ServingEngine
+    eng = ServingEngine(params, cfg, slots=3, prompt_budget=32,
+                        gen_budget=gen, kv_layout=layout, spec_k=spec_k,
+                        block_size=block_size, spec_autodisable=False,
+                        device="cuda")
+    if spy is not None:
+        spy(eng)
+    reqs = [eng.submit(p, max_new=gen)
+            for p in live_prompts(8, 32, cfg.vocab_size)]
+    hop = HopController(eng, cfg2, op, background=False)
+    while eng.has_work():
+        eng.step()
+        if eng.decode_steps >= 3 and hop.attempts == 0:
+            hop.begin()
+        if hop.attempts:
+            hop.poll()
+    assert hop.completed and all(r.status == "done" for r in reqs)
+    return eng, reqs
+
+
+def _spec_models(cuda, lemon):
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_ligo_params
+    from repro_torch.core.operators import lemon_operator
+    from repro_torch.models.model import init_params
+    cfg = get_config("gpt2-base").scaled(name="gpt2-engine", **ENGINE_CFG)
+    if lemon:                                   # float32: exact acceptance
+        cfg = cfg.scaled(dtype="float32")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    if lemon:
+        cfg2 = cfg.scaled(name="gpt2-engine-ff2", d_ff=2 * cfg.d_ff)
+        return cfg, cfg2, params, lemon_operator(cfg, cfg2, device=cuda)
+    cfg2 = cfg.scaled(name="gpt2-engine-grown", n_layers=4, d_model=384,
+                      n_heads=6, n_kv_heads=6, d_ff=768)
+    op = init_ligo_params(torch.Generator(cuda).manual_seed(1), cfg, cfg2,
+                          device=cuda)
+    return cfg, cfg2, params, op
+
+
+@pytest.mark.gpu
+def test_greedy_speculation_equals_greedy_decoding_on_the_card(cuda):
+    """Through a LiGO hop (re-prefill), bf16, deterministic algorithms on:
+    greedy speculative tokens equal greedy tokens, paged and dense, and K3
+    launches once per layer of every prefill, drafter prefill and
+    re-prefill."""
+    cfg, cfg2, params, op = _spec_models(cuda, lemon=False)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = {}
+        for layout in ("paged", "dense"):
+            for k in (0, 3):
+                ops.reset_launch_counts()
+                eng, reqs = _spec_run(params, cfg, cfg2, op, spec_k=k,
+                                      layout=layout)
+                pc = eng.prefill_counts
+                assert ops.launch_counts()["flash_attention"] == (
+                    cfg.n_layers * (pc[(cfg.name, "admit")]
+                                    + pc[(cfg.name, "draft")])
+                    + cfg2.n_layers * (pc[(cfg2.name, "admit")]
+                                       + pc[(cfg2.name, "reprefill")]))
+                assert (eng.spec_stats.get("rounds", 0) > 0) == (k > 0)
+                assert (pc[(cfg.name, "draft")] > 0) == (k > 0)
+                out[layout, k] = [r.tokens for r in reqs]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert out["paged", 3] == out["paged", 0]
+    assert out["dense", 3] == out["dense", 0]
+
+
+@pytest.mark.gpu
+def test_spec_round_maps_pos_k_1_before_it_launches(cuda):
+    """Paged, blocks of 4: when the drafter launches, every live slot's
+    pages back positions up to pos + K + 1, and with every slot live no
+    draft or verify write lands in either pool's spare block. Neither the
+    draft's nor the verify's K+1 steps synchronise with the host (as far
+    as CUDA's sync debug mode sees). The float32 LEMON hop also accepts
+    every draft of the first round."""
+    cfg, cfg2, params, op = _spec_models(cuda, lemon=True)
+    K, checked = 4, []
+
+    def spy(eng):
+        round_ = eng._spec_round
+
+        def watched(active):
+            draft, verify = eng._draft, eng._verify
+
+            def no_sync(fn, *a):
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+
+            def checking(*a):
+                a_ = eng.alloc
+                checked.append(all(
+                    a_.allocated[i] * a_.block_size
+                    >= min(int(eng.pos_host[i]) + K + 1, eng.cap)
+                    for i, _ in active))
+                return no_sync(draft, *a)
+
+            pools = [st["caches"][kk] for st in (eng.state, eng.d_state)
+                     for kk in ("k", "v")]
+            for pool in pools:
+                pool[:, -1] = 0.0
+            eng._draft = checking
+            eng._verify = lambda *a: no_sync(verify, *a)
+            try:
+                round_(active)
+            finally:
+                eng._draft, eng._verify = draft, verify
+            if len(active) == eng.slots:
+                checked.append(all(bool((pool[:, -1] == 0).all())
+                                   for pool in pools))
+        eng._spec_round = watched
+
+    eng, reqs = _spec_run(params, cfg, cfg2, op, spec_k=K, block_size=4,
+                          spy=spy)
+    assert eng.spec_stats["rounds"] >= 3 and checked and all(checked)
+    assert eng.spec_stats["first_round_acc"] == 1.0
+

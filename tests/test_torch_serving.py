@@ -155,8 +155,6 @@ def test_admission_control(tparams):
 
 
 def test_engine_refuses_what_is_not_ported(tparams):
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        ServingEngine(tparams, TINY, spec_k=2, device="cpu")
     with pytest.raises(ValueError, match="lie on cpu"):
         ServingEngine(tparams, TINY, device="meta")
     win = TINY.scaled(name="srv-win", window=4)
@@ -368,8 +366,6 @@ def test_serve_live_grow_cli_on_cpu(capsys):
 def test_serve_live_refuses_without_cuda_and_unported_options():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(LIVE)
-    with pytest.raises(SystemExit, match="speculative decoding"):
-        serve.main(LIVE + ["--speculative", "2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="the other families"):
         serve.main(LIVE + ["--hop-operator", "upcycle", "--device", "cpu"])
 
