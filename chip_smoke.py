@@ -121,6 +121,29 @@ sources are not beside it. Phases, each fatal on failure:
    temperature 0.8, top-p 0.9: one seed repeats, another differs; (e) a
    second hop failing at swap while the smoke pair drafts: rolled back for
    the injected cause, 0 dropped, 0 rejected, the retry landing;
+11. the observability layer through both launchers' flags, under phase
+   9's settings: (a) 9 (a)'s background-hop serve with ``--fail-at-hop
+   cache-grow --obs-log --obs-report --timeline --metrics-port 0``: the
+   log opens and closes with its meta lines and holds ``hop.warm``,
+   ``hop.begin``, two ``hop.grow`` spans on ``hop-grow-N`` threads,
+   ``hop.cache-grow`` failing on attempt 1 and re-prefilling on attempt 2,
+   one ``hop.rollback`` (cache-grow, 0 dropped), one ``hop.retry``,
+   ``hop.swap``, ``serve.install``, ``hop.complete`` and one
+   ``serve.prefill`` span per admission; exactly one
+   ``flightrec-*-hop-cache-grow.jsonl``; the timeline's ``B``/``E``
+   matched on every tid, one async pair per ``hop.*`` span; a scrape of
+   ``/metrics`` before shutdown counts the engine's decode steps; the
+   report prints the hop stages; K1 21 (``warm()`` and two grows) and K3
+   by the engine's prefill counters; (b) ``train --trajectory`` (gpt2-base
+   2 steps, LiGO into gpt2-medium 2 steps in chunks of 1, gpt2-medium 2
+   steps, batch 8 x 128) with ``--ledger --obs-log --timeline
+   --obs-report``: 2 ``ligo.chunk``, at least 1 ``ligo.checkpoint``, 2
+   ``traj.train`` and 1 ``traj.grow`` spans, the histograms' counts the
+   same, the timeline's ledger track one loss point a step; (d) (a)'s
+   serve without the obs flags and with ``obs.set_enabled(False)``, decode
+   step p50/p99 printed beside (a)'s (not gated); (c) last, (a)'s serve cut
+   to 4 requests with ``--obs-profile``: the Chrome trace names K1's
+   tensor-core GEMM and ``flash_fwd_wgmma``;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -136,6 +159,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
@@ -1162,12 +1186,12 @@ class _Tee:
         self.out.flush()
 
 
-def _train_main(train, argv):
-    """``train.main(argv)`` with its stdout printed and returned."""
+def _main_teed(launcher, argv):
+    """``launcher.main(argv)`` with its stdout printed and returned."""
     import contextlib
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        res = train.main(argv)
+        res = launcher.main(argv)
     return res, "".join(tee.text)
 
 
@@ -1288,7 +1312,7 @@ def _trajectory_phase(torch, tmp, shapes):
     costs.clear_measurements()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res_a, _ = _train_main(train, args("A", "traj"))
+    res_a, _ = _main_teed(train, args("A", "traj"))
     launches["A"] = ops.launch_counts()
     sec_a = time.perf_counter() - t0
     # K2 on every eligible group of every LiGO step; K1 on every LiGO
@@ -1308,7 +1332,7 @@ def _trajectory_phase(torch, tmp, shapes):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        _train_main(train, args("B", "traj", "--fail-at-ligo-step",
+        _main_teed(train, args("B", "traj", "--fail-at-ligo-step",
                                 str(FAIL_AT)))
     except RuntimeError as e:
         if f"injected LiGO-phase failure at step {FAIL_AT}/" not in str(e):
@@ -1316,7 +1340,7 @@ def _trajectory_phase(torch, tmp, shapes):
         print(f"[traj] B died as asked: {e}", flush=True)
     else:
         raise AssertionError("trajectory B ran through its injected failure")
-    res_b, out_b = _train_main(train, args("B", "traj"))
+    res_b, out_b = _main_teed(train, args("B", "traj"))
     launches["B"] = ops.launch_counts()
     sec_b = time.perf_counter() - t0
     if f"resumed LiGO phase at step {FAIL_AT}/{LIGO_STEPS}" not in out_b:
@@ -1365,7 +1389,7 @@ def _trajectory_phase(torch, tmp, shapes):
     # -- the scratch baseline and the savings report --------------------------
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res_s, _ = _train_main(train, args("S", "scratch"))
+    res_s, _ = _main_teed(train, args("S", "scratch"))
     launches["S"] = ops.launch_counts()
     sec_s = time.perf_counter() - t0
     del res_s
@@ -2301,6 +2325,278 @@ def _spec_phase(torch, shapes, vanilla, device="cuda"):
     return runs, k3_spec
 
 
+# Phase 11: the observability layer at full width, on phase 9's live serve
+# and a cut-down phase 6 trajectory, through the launchers' obs flags.
+OBS_TRAJ = {"arch": "gpt2-base", "batch": 8, "seq": 128, "lr": 1e-3,
+            "checkpoint_every": 2, "seed": 0,
+            "stages": [{"steps": 2},
+                       {"steps": 2, "arch": "gpt2-medium", "method": "ligo",
+                        "ligo_steps": 2, "ligo_scan_chunk": 1}]}
+OBS_PROFILE_REQ = 4
+
+
+def _obs_log(path):
+    """The records of an ``--obs-log`` file, which must open and close with
+    its meta lines."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    if not (recs and recs[0].get("event") == "obs-log-open"
+            and recs[-1].get("event") == "obs-log-close"):
+        raise AssertionError(f"{path}: the log does not open and close with "
+                             f"its meta lines")
+    return recs
+
+
+def _timeline_balanced(label, events):
+    """Every ``B`` matched by an ``E`` on its tid, one async pair per
+    ``hop.*`` span; returns the number of duration spans."""
+    stacks, n = {}, 0
+    for e in events:
+        if e["ph"] == "B":
+            stacks.setdefault(e["tid"], []).append(e["name"])
+            n += 1
+        elif e["ph"] == "E":
+            st = stacks.get(e["tid"])
+            if not st or st.pop() != e["name"]:
+                raise AssertionError(f"{label}: an E without its B: {e}")
+    hop_b = sorted(e["name"] for e in events
+                   if e["ph"] == "B" and e["name"].startswith("hop."))
+    pairs = [sorted(e["name"] for e in events if e["ph"] == ph)
+             for ph in ("b", "e")]
+    if any(stacks.values()) or pairs != [hop_b, hop_b]:
+        raise AssertionError(f"{label}: unmatched B/E {stacks} or async "
+                             f"pairs {pairs} against hop spans {hop_b}")
+    return n
+
+
+def _live_launch_check(label, launches, eng, cfg1, cfg2, k1_grows, k1_grow):
+    want = {"ligo_blend_expand_grouped": k1_grows * k1_grow,
+            "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": _k3_want(eng, cfg1, cfg2)}
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, want {want}")
+
+
+def _k3_by_shape(eng, cfg1, cfg2):
+    pc = eng.prefill_counts
+    return {"engine prefill gpt2-base": cfg1.n_layers * pc[(cfg1.name,
+                                                            "admit")],
+            "engine prefill gpt2-medium": cfg2.n_layers * pc[(cfg2.name,
+                                                              "admit")],
+            "engine re-prefill gpt2-medium": cfg2.n_layers * pc[
+                (cfg2.name, "reprefill")]}
+
+
+def _obs_phase(torch, shapes):
+    """Phase 11 (a)-(d). Returns the launches of its runs by run and their
+    K3 launches by engine shape."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    t0 = time.perf_counter()
+    k1_grow = _launches(shapes, False)[0]
+    k1_grad, k2_grad = _launches(shapes, True)
+    runs, k3 = {}, {}
+    steps = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    chaos = LIVE_ARGS + ["--fail-at-hop", "cache-grow"]
+
+    def serve_run(label, argv, n_req=LIVE_REQ):
+        ops.reset_launch_counts()
+        res, out = _main_teed(serve, argv)
+        runs[label] = ops.launch_counts()
+        eng, hop = _live_check(res, n_req, LIVE_GEN)
+        cfg1, cfg2 = res["small_cfg"], res["cfg2"]
+        for shape, n in _k3_by_shape(eng, cfg1, cfg2).items():
+            k3[shape] = k3.get(shape, 0) + n
+        steps[label] = (eng.decode_steps,) + eng.decode_step_percentiles(
+            50, 99)
+        return res, out, eng, hop, cfg1, cfg2
+
+    try:
+        # (a) phase 9 (a)'s serve with the hop failing once at cache-grow,
+        # and every obs flag but the profiler
+        d = os.path.join(tmp, "a")
+        obs.REGISTRY.reset()
+        obs.FLIGHT.clear()
+        res, out, eng, hop, cfg1, cfg2 = serve_run("obs a", chaos + [
+            "--obs-log", os.path.join(d, "run.jsonl"), "--obs-report",
+            "--timeline", os.path.join(d, "timeline.json"),
+            "--metrics-port", "0"])
+        srv = res["metrics_server"]
+        try:
+            url = f"http://127.0.0.1:{srv.server_address[1]}/metrics"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                scrape = r.read().decode()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        obs.set_dump_dir(None)
+        _live_launch_check("(a)", runs["obs a"], eng, cfg1, cfg2, 3, k1_grow)
+        if not (hop.completed and hop.attempts == 2
+                and [s for s, _ in hop.rollbacks] == ["cache-grow"]):
+            raise AssertionError(f"(a): attempts {hop.attempts}, rollbacks "
+                                 f"{hop.rollbacks}")
+        recs = _obs_log(os.path.join(d, "run.jsonl"))
+        spans = [r for r in recs if r["type"] == "span"]
+        events = [r for r in recs if r["type"] == "event"]
+
+        def named(rs, name):
+            return [r for r in rs if r["name"] == name]
+
+        grows = named(spans, "hop.grow")
+        caches = named(spans, "hop.cache-grow")
+        (rb,) = named(events, "hop.rollback")
+        n_pre = sum(n for (_, kind), n in eng.prefill_counts.items()
+                    if kind == "admit")
+        dumps = [f for f in os.listdir(d) if f.startswith("flightrec-")]
+        with open(os.path.join(d, dumps[0]) if dumps else os.devnull) as f:
+            dump = [json.loads(line) for line in f]
+        with open(os.path.join(d, "timeline.json")) as f:
+            tl = json.load(f)["traceEvents"]
+        n_tl = _timeline_balanced("(a) timeline", tl)
+        m = re.search(r"^serve_decode_step_ms_count (\d+)$", scrape, re.M)
+        checks = {
+            "hop.warm": len(named(spans, "hop.warm")) == 1,
+            "hop.begin": len(named(events, "hop.begin")) == 1,
+            "hop.grow on hop-grow-N": len(grows) == 2 and all(
+                g["thread"].startswith("hop-grow-") for g in grows),
+            "hop.cache-grow error, then reprefill": len(caches) == 2
+            and "error" in caches[0] and caches[0]["attrs"]["attempt"] == 1
+            and "error" not in caches[1]
+            and caches[1]["attrs"]["mode"] == "reprefill",
+            "hop.rollback": rb["attrs"]["stage"] == "cache-grow"
+            and rb["attrs"]["dropped"] == 0,
+            "hop.retry": len(named(events, "hop.retry")) == 1,
+            "hop.swap": len(named(spans, "hop.swap")) == 1,
+            "serve.install": len(named(events, "serve.install")) == 1,
+            "hop.complete": len(named(events, "hop.complete")) == 1,
+            "one dump": len(dumps) == 1
+            and dumps[0].endswith("-hop-cache-grow.jsonl")
+            and dump[0]["type"] == "dump",
+            "serve.prefill = admissions": len(named(spans, "serve.prefill"))
+            == n_pre,
+            "scrape": m is not None and int(m.group(1)) == eng.decode_steps,
+            "report": "[obs] hop stages:" in out
+            and "rollback at stage=cache-grow" in out,
+        }
+        by_stage = {f"{s['name']}#{s['attrs']['attempt']}": s["dur_ms"]
+                    for s in spans if s["name"] in (
+                        "hop.grow", "hop.cache-grow", "hop.swap")}
+        print(f"[obs] (a) serve with --fail-at-hop cache-grow: "
+              f"{len(recs)} log lines ({len(spans)} spans, {len(events)} "
+              f"events), {len(tl)} timeline events ({n_tl} spans), dump "
+              f"{dumps}, /metrics decode steps {m and m.group(1)} of "
+              f"{eng.decode_steps}, serve.prefill spans "
+              f"{len(named(spans, 'serve.prefill'))} = admissions {n_pre}; "
+              f"launches {runs['obs a']}; hop span ms {by_stage}, hop.warm "
+              f"{named(spans, 'hop.warm')[0]['dur_ms']}", flush=True)
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"(a) obs checks failed: {failed}")
+        del res, eng, hop
+
+        # (b) a trajectory through the train launcher with its obs flags
+        d = os.path.join(tmp, "b")
+        os.makedirs(d)
+        sched = os.path.join(d, "traj.json")
+        with open(sched, "w") as f:
+            json.dump(OBS_TRAJ, f)
+        obs.REGISTRY.reset()
+        obs.FLIGHT.clear()
+        ops.reset_launch_counts()
+        tb = time.perf_counter()
+        tres, out = _main_teed(train, [
+            "--trajectory", sched, "--ckpt-dir", os.path.join(d, "ck"),
+            "--keep-checkpoints", "1", "--ledger",
+            os.path.join(d, "ledger.jsonl"), "--obs-log",
+            os.path.join(d, "run.jsonl"), "--timeline",
+            os.path.join(d, "timeline.json"), "--obs-report"])
+        runs["obs b"] = ops.launch_counts()
+        n_ligo = OBS_TRAJ["stages"][1]["ligo_steps"]
+        want = {"ligo_blend_expand_grouped": k1_grad * n_ligo + 3 * k1_grow,
+                "ligo_blend_expand_bwd_fused": k2_grad * n_ligo,
+                "flash_attention": 0}
+        recs = _obs_log(os.path.join(d, "run.jsonl"))
+        names = [r["name"] for r in recs if r["type"] == "span"]
+        count = {n: names.count(n) for n in (
+            "ligo.chunk", "ligo.checkpoint", "traj.train", "traj.grow")}
+        hist = {h: obs.histogram(h).count for h in (
+            "ligo.chunk_ms", "ligo.checkpoint_ms", "traj.stage.train_ms",
+            "traj.stage.grow_ms")}
+        with open(os.path.join(d, "timeline.json")) as f:
+            tl = json.load(f)["traceEvents"]
+        _timeline_balanced("(b) timeline", tl)
+        ledger_track = [e for e in tl if e.get("tid") == 0
+                        and e["ph"] in ("C", "i")]
+        n_steps = sum(st["steps"] for st in OBS_TRAJ["stages"]) + n_ligo
+        walls = {r["name"]: r["dur_ms"] for r in recs
+                 if r["type"] == "span" and r["name"] == "traj.grow"}
+        chunk_ms = [r["dur_ms"] for r in recs if r.get("name") ==
+                    "ligo.chunk"]
+        print(f"[obs] (b) trajectory {time.perf_counter() - tb:.1f} s: spans "
+              f"{count}, histograms {hist}, ligo.chunk ms {chunk_ms}, "
+              f"traj.grow ms {walls.get('traj.grow')}; timeline ledger "
+              f"track {len(ledger_track)} events; launches {runs['obs b']}",
+              flush=True)
+        if not (tres["status"] == "done" and count["ligo.chunk"] == n_ligo
+                and count["ligo.checkpoint"] >= 1
+                and count["traj.train"] == 2 and count["traj.grow"] == 1
+                and list(hist.values()) == list(count.values())
+                and sum(e["ph"] == "C" and e["name"] == "ledger.loss"
+                        for e in ledger_track) == n_steps
+                and "[obs] ligo chunk: n=2" in out
+                and runs["obs b"] == want):
+            raise AssertionError(f"(b): status {tres['status']}, spans "
+                                 f"{count}, histograms {hist}, ledger track "
+                                 f"{len(ledger_track)}, launches "
+                                 f"{runs['obs b']} (want {want})")
+        del tres
+
+        # (d) the cost of the layer, printed and not gated: (a)'s serve
+        # without the obs flags, and with the layer switched off
+        serve_run("obs d plain", chaos)
+        obs.set_enabled(False)
+        try:
+            serve_run("obs d off", chaos)
+        finally:
+            obs.set_enabled(True)
+        print("[obs] (d) decode step through the hop, host clock (not "
+              "gated; host clocks move +-40 % between calls): " + "; ".join(
+                  f"{label} {n} steps p50 {p50:.2f} ms p99 {p99:.2f} ms"
+                  for label, (n, p50, p99) in (
+                      ("(a) obs flags on", steps["obs a"]),
+                      ("no obs flags", steps["obs d plain"]),
+                      ("obs.set_enabled(False)", steps["obs d off"]))),
+              flush=True)
+
+        # (c) the profiler gate, last: the profiler slows the host for the
+        # rest of the process
+        d = os.path.join(tmp, "c")
+        res, _, eng, hop, cfg1, cfg2 = serve_run("obs c", LIVE_ARGS + [
+            "--requests", str(OBS_PROFILE_REQ), "--obs-profile", d],
+            n_req=OBS_PROFILE_REQ)
+        _live_launch_check("(c)", runs["obs c"], eng, cfg1, cfg2, 2, k1_grow)
+        (trace,) = os.listdir(d)
+        with open(os.path.join(d, trace)) as f:
+            kern = [e["name"] for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "kernel"]
+        n_k1 = sum("ligo_wgmma_gemm_kernel<3," in k for k in kern)
+        n_k3 = sum("flash_fwd_wgmma" in k for k in kern)
+        print(f"[obs] (c) profiled serve of {OBS_PROFILE_REQ} requests: "
+              f"{len(kern)} CUDA kernels in the trace, {n_k1} of K1's "
+              f"tensor-core GEMM, {n_k3} flash_fwd_wgmma (launches "
+              f"{runs['obs c']})", flush=True)
+        if not (n_k1 and n_k3):
+            raise AssertionError("(c) the profiler trace names no K1 "
+                                 "tensor-core GEMM or no flash_fwd_wgmma")
+        del res, eng, hop
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[obs] phase 11 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3
+
+
 def _quickstart_phase():
     """Phase 7: the quickstart twin at the script's own size; returns its
     kernel launches."""
@@ -2650,6 +2946,12 @@ def main() -> int:
     spec_runs, k3_spec = _spec_phase(torch, shapes, vanilla)
     traj["launches"].update(spec_runs)
     for shape, n in k3_spec.items():
+        k3_engine[shape] += n
+
+    # -- phase 11: the observability layer at full width ---------------------
+    obs_runs, k3_obs = _obs_phase(torch, shapes)
+    traj["launches"].update(obs_runs)
+    for shape, n in k3_obs.items():
         k3_engine[shape] += n
 
     # -- phase 5: report ------------------------------------------------------

@@ -25,6 +25,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import operators as ops
 from repro_torch.core.ligo import apply_ligo, init_ligo_params
@@ -122,6 +123,10 @@ def train_ligo(ligo, small_params, cfg1: ModelConfig, cfg2: ModelConfig,
       resume the spent steps' records are re-emitted from the checkpoint's
       losses with ``wall_ms`` 0, so the ledger ends record for record equal
       to an uninterrupted run's. ``ledger_ctx`` carries ``{"stage"}``.
+    - **spans** (the JAX package's): one ``ligo.chunk`` span (``start``,
+      ``n``) a chunk, feeding the ``ligo.chunk_ms`` histogram; one
+      ``ligo.checkpoint`` span (``step``) a phase checkpoint, feeding
+      ``ligo.checkpoint_ms``; a ``ligo.resume`` event on a resume.
     """
     from repro_torch.training import value_and_grad
 
@@ -155,6 +160,7 @@ def train_ligo(ligo, small_params, cfg1: ModelConfig, cfg2: ModelConfig,
             losses = [float(x) for x in saved.get("losses", [])][:start]
             print(f"[ligo] resumed LiGO phase at step {start}/{steps}",
                   flush=True)
+            obs.event("ligo.resume", step=start, steps=steps)
 
     peek = None
     for _ in range(start):          # deterministic resume: skip spent batches
@@ -192,31 +198,41 @@ def train_ligo(ligo, small_params, cfg1: ModelConfig, cfg2: ModelConfig,
 
     done = start
     chunks_done = 0
+    h_chunk = obs.histogram("ligo.chunk_ms")
+    h_ckpt = obs.histogram("ligo.checkpoint_ms")
     while done < steps:
         n = min(chunk, steps - done)
-        for s in range(done, done + n):
-            batch = next(data_it)
-            if ledger is not None and led["tokens"] is None:
-                ledger_prepare(batch)
-            t0 = time.perf_counter()
-            ligo, mom, loss = sgd_step(ligo, mom, batch, small_params)
-            losses.append(float(loss))
-            ms = (time.perf_counter() - t0) * 1e3
-            if step_ms is not None:
-                step_ms.append(ms)
-            if ledger is not None:
-                ledger_step(s, losses[-1], ms)
-            if log_every and s % log_every == 0:
-                print(f"[ligo] step {s:4d} loss {losses[-1]:.4f}")
+        # a host wall: each float(loss) waits for its step, so the span
+        # closes after the chunk's last step has finished on the device
+        with obs.span("ligo.chunk", start=done, n=n) as sp_chunk:
+            for s in range(done, done + n):
+                batch = next(data_it)
+                if ledger is not None and led["tokens"] is None:
+                    ledger_prepare(batch)
+                t0 = time.perf_counter()
+                ligo, mom, loss = sgd_step(ligo, mom, batch, small_params)
+                losses.append(float(loss))
+                ms = (time.perf_counter() - t0) * 1e3
+                if step_ms is not None:
+                    step_ms.append(ms)
+                if ledger is not None:
+                    ledger_step(s, losses[-1], ms)
+                if log_every and s % log_every == 0:
+                    print(f"[ligo] step {s:4d} loss {losses[-1]:.4f}")
+        h_chunk.observe(sp_chunk.dur_ms or 0.0)
         done += n
         chunks_done += 1
         failing = fail_at is not None and fail_at <= done < steps
         if (phase_ckpt is not None and done < steps
                 and (chunks_done % max(checkpoint_every_chunks, 1) == 0
                      or failing)):
-            phase_ckpt.save(done, {"ligo": ligo, "mom": mom},
-                            {**pid, "phase_step": done,
-                             "losses": list(losses)}, snapshot="device")
+            # the span covers the enqueue: the device copy and the write
+            # run behind it
+            with obs.span("ligo.checkpoint", step=done) as sp_ckpt:
+                phase_ckpt.save(done, {"ligo": ligo, "mom": mom},
+                                {**pid, "phase_step": done,
+                                 "losses": list(losses)}, snapshot="device")
+            h_ckpt.observe(sp_ckpt.dur_ms or 0.0)
         if failing:
             if phase_ckpt is not None:
                 phase_ckpt.wait()          # the injected kill is durable

@@ -49,9 +49,25 @@ the ``[spec]`` acceptance line::
         --grow-to gpt2-medium --live-grow-at 8 --speculative 4 --batch 8 \
         --requests 16 --prompt-len 128 --gen 32
 
+Observability, as in the JAX launcher: ``--obs-log FILE`` streams every
+span and event as JSONL (the final metric snapshot closes it; a hop
+rollback's flight-recorder dump lands beside it), ``--obs-report`` prints
+the summary at exit (decode step p50/p99 through the hop, request
+latencies, pool pressure, per-hop-stage walls), ``--obs-profile DIR``
+runs the serve under ``torch.profiler`` (CUDA activity on the card) and
+writes its Chrome trace into DIR, ``--timeline FILE`` exports the span
+tree (and the ledger's track with ``--ledger``) as Chrome trace-event
+JSON, and ``--metrics-port N`` serves the registry at ``GET /metrics`` on
+127.0.0.1 (0 binds an ephemeral port; ``main`` returns the server as
+``metrics_server``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-base \
+        --grow-to gpt2-medium --live-grow-at 8 --batch 8 --requests 16 \
+        --prompt-len 128 --gen 32 --obs-log obs/run.jsonl --obs-report \
+        --timeline obs/trace.json --metrics-port 0
+
 Runs on CUDA unless ``--device cpu`` is given, and raises when there is no
-CUDA device and no ``--device cpu``. Meshes and the rest of observability
-come with later slices.
+CUDA device and no ``--device cpu``. Meshes come with a later slice.
 """
 from __future__ import annotations
 
@@ -62,13 +78,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config, grow_target, smoke_config
 from repro_torch.core import compose_chain, init_ligo_params, plan_for
 from repro_torch.data import gen_tokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, ops
+from repro_torch.launch import _obs
 from repro_torch.models.model import decode_step, init_params, prefill
-from repro_torch.obs import attach_ledger, detach_ledger
 
 
 def _sync(dev: torch.device) -> None:
@@ -267,7 +284,8 @@ def _serve_live(args, cfg, params, dev, *,
           f"{total / max(wall, 1e-9):.1f} tok/s | decode p50 "
           f"{p50:.1f} ms p99 {p99:.1f} ms (through the hop)")
     print(f"[serve] hop stages ms: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in hop.timings.items())
+          + ", ".join(f"{k} {v:.1f}" for k, v in hop.timings.items()
+                      if v is not None)
           + f" | kernel launches: K1 {launches['ligo_blend_expand_grouped']}"
           f", K3 {launches['flash_attention']} (warm grow excluded)")
     if args.speculative > 0:
@@ -455,6 +473,9 @@ def parse_args(argv: Optional[List[str]] = None):
                     help="append the compute ledger to FILE: the hop's "
                          "lifecycle events and the decode step's measured "
                          "FLOPs against 2N a token")
+    _obs.add_args(ap, "stream span/event records as JSONL to FILE, closed "
+                      "by the final metric snapshot; hop flight-recorder "
+                      "dumps land in its directory")
     return ap.parse_args(argv)
 
 
@@ -467,19 +488,23 @@ def main(argv: Optional[List[str]] = None, *,
     holds the kernel route against it); ``spec_autodisable=False`` keeps
     drafting whatever the wall-clock speedup estimate says, so that
     speculative rounds are deterministic (``chip_smoke.py`` compares them
-    token for token with greedy decoding)."""
+    token for token with greedy decoding). With ``--metrics-port`` the
+    result's ``metrics_server`` is the running ``/metrics`` server, which
+    the caller stops with ``shutdown()``."""
     args = parse_args(argv)
+    srv = _obs.start_metrics(args)
     if args.ledger:
         # the serve launcher owns no checkpoint cursor: start the file clean
-        attach_ledger(args.ledger).restore(None)
+        obs.attach_ledger(args.ledger).restore(None)
+    if args.obs_log:
+        obs.attach_jsonl(args.obs_log)
     try:
-        return _serve(args, use_kernel, spec_autodisable)
+        with obs.profile(args.obs_profile, device=args.device):
+            res = _serve(args, use_kernel, spec_autodisable)
     finally:
-        if args.ledger:
-            led = detach_ledger()
-            if led is not None:
-                print(f"[ledger] compute ledger written to {led.path} "
-                      f"({led.n_records} records)")
+        _obs.close(args)
+    res["metrics_server"] = srv
+    return res
 
 
 if __name__ == "__main__":

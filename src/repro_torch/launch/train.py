@@ -42,10 +42,20 @@ per train and LiGO step with modelled and measured FLOPs;
 
 The single-arch run prints the source loss, the LiGO losses (first →
 last), ms per LiGO step, ms per train step, tokens/s and the K1/K2
-launches; ``main`` returns them (or the runner's result). Runs on CUDA
-unless ``--device cpu`` is given, and raises when there is no CUDA device
-and no ``--device cpu``. ``--autogrow``, meshes and the observability
-flags come with later slices.
+launches; ``main`` returns them (or the runner's result).
+
+Observability, as in the JAX launcher: ``--obs-log FILE`` streams the
+``ligo.chunk`` / ``ligo.checkpoint`` spans and the ``traj.train`` /
+``traj.grow`` stage walls as JSONL, closed by the final metric snapshot;
+``--obs-report`` prints the summary at exit; ``--obs-profile DIR`` runs
+under ``torch.profiler`` (CUDA activity on the card) and writes its Chrome
+trace into DIR; ``--timeline FILE`` exports the span tree, with the
+ledger's loss/FLOPs track when ``--ledger`` is set, as Chrome trace-event
+JSON; ``--metrics-port N`` serves the registry at ``GET /metrics``.
+
+Runs on CUDA unless ``--device cpu`` is given, and raises when there is no
+CUDA device and no ``--device cpu``. ``--autogrow`` and meshes come with
+later slices.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import (TrainConfig, get_config, half_config,
                                  smoke_config)
 from repro_torch.core.grow import grow
@@ -63,6 +74,7 @@ from repro_torch.data import GlobalBatchLoader, batch_for_step
 from repro_torch.device import resolve_device
 from repro_torch.distributed import Supervisor
 from repro_torch.kernels import _build, ops
+from repro_torch.launch import _obs
 from repro_torch.models.model import init_params
 from repro_torch.optim import adamw_init
 from repro_torch.training import make_train_step, to_device
@@ -309,26 +321,33 @@ def parse_args(argv: Optional[List[str]] = None):
                          "record-identical")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
+    _obs.add_args(ap, "stream span/event records as JSONL to FILE "
+                      "(ligo.chunk/checkpoint spans, traj.train/grow stage "
+                      "walls), closed by the final metric snapshot")
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Train once; returns the results (trees, losses, times, launches)."""
-    from repro_torch.obs.ledger import attach_ledger, detach_ledger
+    """Train once; returns the results (trees, losses, times, launches).
+    With ``--metrics-port`` the result's ``metrics_server`` is the running
+    ``/metrics`` server, which the caller stops with ``shutdown()``."""
     args = parse_args(argv)
     if args.ledger and not args.trajectory:
         raise SystemExit("--ledger requires --trajectory: the trajectory "
                          "runner owns the cursor-in-checkpoint contract that "
                          "makes the ledger crash-safe")
+    srv = _obs.start_metrics(args)
     if args.ledger:
-        attach_ledger(args.ledger)
+        obs.attach_ledger(args.ledger)
+    if args.obs_log:
+        obs.attach_jsonl(args.obs_log)
     try:
-        return _train(args)
+        with obs.profile(args.obs_profile, device=args.device):
+            res = _train(args)
     finally:
-        if args.ledger:
-            led = detach_ledger()
-            print(f"[ledger] compute ledger written to {led.path} "
-                  f"({led.n_records} records)", flush=True)
+        _obs.close(args)
+    res["metrics_server"] = srv
+    return res
 
 
 if __name__ == "__main__":

@@ -257,6 +257,9 @@ class ServingEngine:
                 modelled_flops=2.0 * cfg.active_param_count() * self.slots,
                 per_call_units=self.slots)
         hopped = hasattr(self, "cfg")
+        if hopped:
+            obs.event("serve.install", src=self.cfg.name, dst=cfg.name,
+                      live=len(self.live))
         self.cfg, self.params, self.state = cfg, params, state
         self.cap = cap
         self._prefill, self._decode, self._insert = fns
@@ -431,10 +434,13 @@ class ServingEngine:
                 self.alloc.admit(slot, req.true_len, self._worst_len(req))
             toks = np.zeros((1, self.prompt_budget), np.int64)
             toks[0, :req.true_len] = req.prompt
-            out = self._prefill(self.params, self._tokens(toks), req.true_len)
-            self.prefill_counts[(self.cfg.name, "admit")] += 1
-            self.state = self._insert(self._sync_state(self.state), out[1],
-                                      req.true_len, slot)
+            with obs.span("serve.prefill", slot=slot, uid=req.uid,
+                          prompt_len=req.true_len):
+                out = self._prefill(self.params, self._tokens(toks),
+                                    req.true_len)
+                self.prefill_counts[(self.cfg.name, "admit")] += 1
+                self.state = self._insert(self._sync_state(self.state),
+                                          out[1], req.true_len, slot)
             self.pos_host[slot] = req.true_len
             if self.keep_residual:
                 h = out[2][0].float().cpu().numpy()

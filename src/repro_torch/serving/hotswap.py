@@ -130,8 +130,19 @@ class HopController:
     "grow"/"replay"/"reprefill" force a path. The grow and the migration
     take the engine's ``use_kernel`` route.
 
-    ``timings`` holds the last attempt's stage walls in ms (``grow``: the
-    grow thread's own wall; ``cache-grow``; ``swap``) and ``warm``'s.
+    ``timings`` holds the last attempt's stage walls in ms, read from the
+    stage spans' ``dur_ms`` (``grow``: the ``hop.grow`` span in the grow
+    thread; ``cache-grow``; ``swap``) and ``warm``'s; a wall is None while
+    the observability layer is switched off. ``rollbacks`` keeps each
+    rollback's stage and cause.
+
+    Spans and events (the JAX package's names and attributes): ``hop.warm``,
+    ``hop.begin``, ``hop.grow`` (opened in the thread that runs the grow, so
+    a background grow is recorded under ``hop-grow-N``), ``hop.cache-grow``
+    (its ``mode`` written into its attrs), ``hop.swap``, ``hop.complete``;
+    ``hop.rollback``, ``hop.retry``, ``hop.giveup`` and
+    ``hop.watchdog_fire`` on failure, and a flight-recorder dump
+    (``obs.flight_dump("hop-<stage>")``) on every rollback.
     """
 
     def __init__(self, engine, cfg2: ModelConfig, ligo, *,
@@ -206,7 +217,6 @@ class HopController:
         """One grow on the side stream, finished on the device before it
         returns; safe to call from any thread."""
         eng = self.engine
-        t0 = time.perf_counter()
         with torch.no_grad(), self._side():
             if self._cuda:
                 self._side_stream.wait_stream(self._main_stream)
@@ -220,7 +230,7 @@ class HopController:
         if self._cuda:
             for leaf in tree_leaves(grown):
                 leaf.record_stream(self._main_stream)
-        return grown, (time.perf_counter() - t0) * 1e3
+        return grown
 
     def _stage_grow(self, abort: threading.Event):
         self._chaos("grow")
@@ -238,10 +248,12 @@ class HopController:
         thread, and leaves the grow's blocks cached on the side stream."""
         self._build_kernels()
         t0 = time.perf_counter()
-        buf, _ = self._grow_once()
+        with obs.span("hop.warm", src=self.engine.cfg.name,
+                      dst=self.cfg2.name) as sp:
+            buf = self._grow_once()
         dt = time.perf_counter() - t0
         del buf
-        self.timings["warm"] = dt * 1e3
+        self.timings["warm"] = sp.dur_ms
         self.watchdog.seed(dt)
         print(f"[hop] warmed grow path in {dt * 1e3:.1f} ms "
               f"(watchdog seeded: budget {self.watchdog.budget():.2f}s)")
@@ -255,11 +267,19 @@ class HopController:
         self._retry_at = None
         self._abort = threading.Event()
         abort = self._abort
+        attempt = self.attempts
         self._t_launch = time.perf_counter()
+
+        def grow_traced():
+            # the span opens in whichever thread runs the grow, so the
+            # record names the background thread beside the stage wall
+            with obs.span("hop.grow", gen=gen, attempt=attempt) as sp:
+                grown = self._stage_grow(abort)
+            return grown, sp.dur_ms
 
         if not self.background:
             try:
-                buf = self._stage_grow(abort)
+                buf = grow_traced()
                 with self._lock:
                     self._buf = buf
             except Exception as e:                     # noqa: BLE001
@@ -270,7 +290,7 @@ class HopController:
 
         def run():
             try:
-                buf = self._stage_grow(abort)
+                buf = grow_traced()
                 with self._lock:
                     if gen == self._gen:
                         self._buf = buf
@@ -288,6 +308,8 @@ class HopController:
         print(f"[hop] beginning live hop {eng.cfg.name} -> {self.cfg2.name} "
               f"({'background' if self.background else 'synchronous'} grow, "
               f"{len(eng.live)} live sessions)")
+        obs.event("hop.begin", src=eng.cfg.name, dst=self.cfg2.name,
+                  live=len(eng.live), background=self.background)
         _ledger_event("hop.begin", src=eng.cfg.name, dst=self.cfg2.name,
                       live=len(eng.live))
         self._build_kernels()
@@ -306,6 +328,10 @@ class HopController:
         print(f"[hop] hop FAILED at stage={stage}: {err!r}; rolled back — "
               f"engine keeps serving {eng.cfg.name} "
               f"({len(eng.live)} in-flight sessions intact, 0 dropped)")
+        obs.event("hop.rollback", stage=stage, cause=str(err),
+                  attempt=self.attempts, gen=self._gen,
+                  wall_s=round(time.perf_counter() - (self._t_begin or 0), 3),
+                  live=len(eng.live), dropped=0)
         _ledger_event("hop.rollback", stage=stage, cause=str(err),
                       attempt=self.attempts, dropped=0)
         if self.attempts <= self.retries:
@@ -313,10 +339,15 @@ class HopController:
             self._retry_at = time.perf_counter() + delay
             print(f"[hop] retrying hop in {delay * 1e3:.0f} ms "
                   f"(attempt {self.attempts + 1}/{self.retries + 1})")
+            obs.event("hop.retry", attempt=self.attempts + 1,
+                      of=self.retries + 1, delay_ms=round(delay * 1e3, 1))
         else:
             self.failed = True
             print(f"[hop] giving up after {self.attempts} attempts; "
                   f"engine continues on {eng.cfg.name}")
+            obs.event("hop.giveup", attempts=self.attempts)
+        # every rollback leaves a dump (a no-op without a dump directory)
+        obs.flight_dump(f"hop-{stage}")
 
     def _migrate_state(self, grown):
         self._chaos("cache-grow")
@@ -377,6 +408,10 @@ class HopController:
         if buf is None:
             elapsed = time.perf_counter() - self._t_launch
             if elapsed > self.watchdog.budget():
+                obs.event("hop.watchdog_fire",
+                          budget_s=round(self.watchdog.budget(), 3),
+                          elapsed_s=round(elapsed, 3),
+                          attempt=self.attempts)
                 self._fail("grow", HopError(
                     f"watchdog: grow stage exceeded "
                     f"{self.watchdog.budget():.2f}s budget"))
@@ -387,29 +422,34 @@ class HopController:
         eng = self.engine
         old_name = eng.cfg.name
         live = len(eng.live)
-        t0 = time.perf_counter()
         try:
-            state, mode = self._migrate_state(grown)
+            with obs.span("hop.cache-grow", attempt=self.attempts,
+                          live=live) as sp_cache:
+                state, mode = self._migrate_state(grown)
+                sp_cache.attrs["mode"] = mode
         except (HopError, CacheGrowthError) as e:
             self._fail("cache-grow", e)
             return self.failed
-        t1 = time.perf_counter()
+        self.timings["cache-grow"] = sp_cache.dur_ms
         old = (eng.cfg, eng.params, eng.state)
         try:
-            self._chaos("swap")
-            eng.install(self.cfg2, grown, state)
+            with obs.span("hop.swap", attempt=self.attempts,
+                          src=old_name, dst=self.cfg2.name) as sp_swap:
+                self._chaos("swap")
+                eng.install(self.cfg2, grown, state)
         except HopError as e:
             self._fail("swap", e)
             return self.failed
-        t2 = time.perf_counter()
-        self.timings["cache-grow"] = (t1 - t0) * 1e3
-        self.timings["swap"] = (t2 - t1) * 1e3
+        self.timings["swap"] = sp_swap.dur_ms
         drafting = eng.adopt_drafter(*old)
         self.completed = True
         self.cache_path = mode
         self.swap_at_step = eng.decode_steps
         self.hop_ms = (time.perf_counter() - self._t_begin) * 1e3
         obs.histogram("hop.total_ms").observe(self.hop_ms)
+        obs.event("hop.complete", src=old_name, dst=self.cfg2.name,
+                  hop_ms=round(self.hop_ms, 1), cache=mode, live=live,
+                  attempt=self.attempts, of=self.retries + 1)
         _ledger_event("hop.complete", src=old_name, dst=self.cfg2.name,
                       cache=mode, attempt=self.attempts)
         wd = self.watchdog

@@ -26,8 +26,13 @@ by the GQA rule (:func:`repro_torch.optim.grow_adamw_state_chain`).
 
 ``run(max_steps=N)`` stops after N global train steps (checkpointing
 first), the deterministic "kill" of the tests; ``run()`` on a new runner
-finishes the job. The JAX package's meshes, adaptive stages, probes and
-spans are not ported.
+finishes the job. The JAX package's meshes, adaptive stages and probes
+are not ported.
+
+Spans (the JAX package's): ``traj.train`` (``stage``, ``arch``, ``start``)
+around each stage's train leg and ``traj.grow`` (``stage``, ``src``,
+``dst``) around each hop; the legs' walls also feed the
+``traj.stage.train_ms`` and ``traj.stage.grow_ms`` histograms.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import apply_ligo, compose_chain, grow
@@ -266,6 +272,11 @@ class TrajectoryRunner:
         def timing(s: int) -> Dict[str, float]:
             return timings.setdefault(s, {"train_ms": 0.0, "grow_ms": 0.0})
 
+        # the legs' walls also land in the obs registry (the spans
+        # "traj.train" / "traj.grow" carry them in the flight recorder)
+        h_train = obs.histogram("traj.stage.train_ms")
+        h_grow = obs.histogram("traj.stage.grow_ms")
+
         # the identity of the last checkpoint written (or restored from),
         # so stage-end and done saves don't rewrite a step just written
         last_saved = [self.resumed_at + (global_step,)
@@ -298,41 +309,46 @@ class TrajectoryRunner:
                           f"({st.cfg.param_count() / 1e6:.1f}M) "
                           f"steps [{k}, {st.steps})")
                 t_train = time.perf_counter()
-                step_fn, loader, meas = self._stage_step_fn(stage, params,
-                                                            opt)
-                if self.ledger is not None:
-                    fps_model = train_flops_per_step(
-                        st.cfg, self.traj.batch, self.traj.seq)
-                    tokens_step = float(self.traj.batch * self.traj.seq)
-                    meas_fps = meas["flops_per_unit"]
-                while k < st.steps:
-                    if max_steps is not None and global_step >= max_steps:
-                        timing(stage)["train_ms"] += (
-                            time.perf_counter() - t_train) * 1e3
-                        save_once(stage, k, global_step, block=True)
-                        self._log(f"paused at global step {global_step} "
-                                  f"(stage {stage} step {k})")
-                        return result("paused")
-                    batch = loader.batch_at(k)
-                    t_step = time.perf_counter()
-                    params, opt, m = step_fn(params, opt, batch, k)
-                    k += 1
-                    global_step += 1
-                    loss = float(m["total"])      # host sync point
-                    history.append((global_step, stage, loss))
+                with obs.span("traj.train", stage=stage, arch=st.cfg.name,
+                              start=k):
+                    step_fn, loader, meas = self._stage_step_fn(stage, params,
+                                                                opt)
                     if self.ledger is not None:
-                        self.ledger.record_step(
-                            stage=stage, arch=st.cfg.name,
-                            step=global_step, loss=loss, tokens=tokens_step,
-                            wall_ms=(time.perf_counter() - t_step) * 1e3,
-                            flops_modelled=fps_model,
-                            flops_measured=meas_fps)
-                    if on_metrics is not None:
-                        on_metrics(global_step, stage, m)
-                    if k % self.traj.checkpoint_every == 0:
-                        save(stage, k, global_step)
-                timing(stage)["train_ms"] += (
-                    time.perf_counter() - t_train) * 1e3
+                        fps_model = train_flops_per_step(
+                            st.cfg, self.traj.batch, self.traj.seq)
+                        tokens_step = float(self.traj.batch * self.traj.seq)
+                        meas_fps = meas["flops_per_unit"]
+                    while k < st.steps:
+                        if max_steps is not None and global_step >= max_steps:
+                            dt = (time.perf_counter() - t_train) * 1e3
+                            timing(stage)["train_ms"] += dt
+                            h_train.observe(dt)
+                            save_once(stage, k, global_step, block=True)
+                            self._log(f"paused at global step {global_step} "
+                                      f"(stage {stage} step {k})")
+                            return result("paused")
+                        batch = loader.batch_at(k)
+                        t_step = time.perf_counter()
+                        params, opt, m = step_fn(params, opt, batch, k)
+                        k += 1
+                        global_step += 1
+                        loss = float(m["total"])      # host sync point
+                        history.append((global_step, stage, loss))
+                        if self.ledger is not None:
+                            self.ledger.record_step(
+                                stage=stage, arch=st.cfg.name,
+                                step=global_step, loss=loss,
+                                tokens=tokens_step,
+                                wall_ms=(time.perf_counter() - t_step) * 1e3,
+                                flops_modelled=fps_model,
+                                flops_measured=meas_fps)
+                        if on_metrics is not None:
+                            on_metrics(global_step, stage, m)
+                        if k % self.traj.checkpoint_every == 0:
+                            save(stage, k, global_step)
+                    dt = (time.perf_counter() - t_train) * 1e3
+                    timing(stage)["train_ms"] += dt
+                    h_train.observe(dt)
                 # the stage-end save: a kill during the following hop
                 # resumes here (the LiGO-phase checkpoints carry the rest)
                 save_once(stage, k, global_step)
@@ -348,13 +364,16 @@ class TrajectoryRunner:
                     "hop.begin", stage=stage + 1, step=global_step,
                     src=st.cfg.name, dst=nxt.cfg.name,
                     method=nxt.growth.method)
-            stage, params, opt, grow_ms = self._grow_into(stage + 1, params,
-                                                          opt)
+            with obs.span("traj.grow", stage=stage + 1, src=st.cfg.name,
+                          dst=nxt.cfg.name):
+                stage, params, opt, grow_ms = self._grow_into(stage + 1,
+                                                              params, opt)
             if self.ledger is not None:
                 self.ledger.record_event(
                     "hop.complete", stage=stage, step=global_step,
                     src=st.cfg.name, dst=stages[stage].cfg.name)
             timing(stage)["grow_ms"] = grow_ms
+            h_grow.observe(grow_ms)
             k = 0
             # post-growth snapshot (same global step, new stage meta): a
             # restart never redoes the hop

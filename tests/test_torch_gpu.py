@@ -27,7 +27,9 @@ tokens, and a background hop on its side stream completes while decode
 steps land. Speculative decoding through a hop, at smoke size: greedy
 speculation gives greedy decoding's tokens (paged and dense, deterministic
 algorithms on), and a round maps every live slot's pages up to pos + K + 1
-before its drafter launches.
+before its drafter launches. The observability layer on the kernel route:
+a background hop's spans, and a profiler trace that names K1's and K3's
+tensor-core kernels.
 """
 import time
 
@@ -741,3 +743,56 @@ def test_spec_round_maps_pos_k_1_before_it_launches(cuda):
     assert eng.spec_stats["rounds"] >= 3 and checked and all(checked)
     assert eng.spec_stats["first_round_acc"] == 1.0
 
+
+
+@pytest.mark.gpu
+def test_kernel_route_hop_spans_and_profile_name_k1_and_k3(cuda, tmp_path):
+    """A background hop on the kernel route with the observability layer
+    on, under its profiler gate: the hop's spans (``hop.grow`` on its grow
+    thread, the re-prefill in ``hop.cache-grow``) and one ``serve.prefill``
+    span per admission, and a Chrome trace that names K1's tensor-core GEMM
+    and K3's tensor-core kernel among its CUDA kernels."""
+    import json
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_ligo_params
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import HopController
+    cfg = get_config("gpt2-base").scaled(name="gpt2-engine", **ENGINE_CFG)
+    cfg2 = cfg.scaled(name="gpt2-engine-grown", n_layers=4, d_model=384,
+                      n_heads=6, n_kv_heads=6, d_ff=768)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    op = init_ligo_params(torch.Generator(cuda).manual_seed(1), cfg, cfg2,
+                          device=cuda)
+    obs.set_enabled(True)
+    obs.FLIGHT.clear()
+    with obs.profile(str(tmp_path), device=cuda) as path:
+        eng, reqs = _engine_run(params, cfg, "paged", n_req=9)
+        hop = HopController(eng, cfg2, op, background=True)
+        hop.warm()
+
+        def on_step(e):
+            if e.decode_steps >= 3 and hop.attempts == 0:
+                hop.begin()
+            if hop.attempts:
+                hop.poll()
+
+        eng.run(on_step=on_step)
+        while not hop.poll():
+            time.sleep(0.002)
+    assert hop.completed and all(r.status == "done" for r in reqs)
+    spans = obs.FLIGHT.events(type="span")
+    by = {}
+    for s in spans:
+        by.setdefault(s["name"], []).append(s)
+    assert by["hop.grow"][0]["thread"] == "hop-grow-1"
+    assert by["hop.cache-grow"][0]["attrs"]["mode"] == "reprefill"
+    assert len(by["hop.warm"]) == len(by["hop.swap"]) == 1
+    assert len(by["serve.prefill"]) == sum(
+        n for (_, kind), n in eng.prefill_counts.items() if kind == "admit")
+    assert hop.timings["grow"] == by["hop.grow"][0]["dur_ms"]
+    kernels = {e["name"] for e in json.load(open(path))["traceEvents"]
+               if e.get("cat") == "kernel"}
+    assert any("ligo_wgmma_gemm_kernel<3," in k for k in kernels), kernels
+    assert any("flash_fwd_wgmma" in k for k in kernels), kernels

@@ -41,6 +41,9 @@ def test_scan_covers_the_port():
                 ("kernels", "flash_attention.py"),
                 ("checkpoint", "io.py"), ("checkpoint", "manager.py"),
                 ("obs", "ledger.py"), ("obs", "costs.py"),
+                ("obs", "_state.py"), ("obs", "trace.py"),
+                ("obs", "export.py"), ("obs", "prom.py"),
+                ("obs", "timeline.py"), ("launch", "_obs.py"),
                 ("trajectory", "runner.py"), ("distributed", "supervisor.py"),
                 ("examples", "quickstart.py"), ("core", "grow_cache.py"),
                 ("serving", "admission.py"), ("serving", "kv_pages.py"),
