@@ -144,6 +144,24 @@ sources are not beside it. Phases, each fatal on failure:
    step p50/p99 printed beside (a)'s (not gated); (c) last, (a)'s serve cut
    to 4 requests with ``--obs-profile``: the Chrome trace names K1's
    tensor-core GEMM and ``flash_fwd_wgmma``;
+12. the adaptive growth controller through ``train --autogrow`` at full
+   width, under phase 6's deterministic algorithms (run before phase 11,
+   whose profiler slows the host for the rest of the process): a schedule
+   of gpt2-base under a ``probe`` policy (tol 1.0, so it fires at stage
+   step 3; candidates ligo, stackbert and interpolation, 4 probe steps, 2
+   LiGO steps for the ligo candidate) and gpt2-medium under ``rpf_decay``
+   to its cap of 4 steps, batch 8 x 128, ``--ledger``: A uninterrupted, B
+   paused at global step 2 and relaunched. The decision at stage step 3,
+   finite scores, ``picked`` their argmin and the ledger's ``probe`` and
+   ``hop.begin`` events naming it; A's and B's decisions and scores
+   bit-equal, ledgers record-identical, final params and AdamW state
+   bitwise equal; ``cum_flops`` in the checkpoints' telemetry snapshots
+   the measured FLOPs of a step added once a step; A's post-growth
+   snapshot bitwise ``grow()`` of the stage-end state (a static twin of
+   stage 0 paused at step 3) with the picked method; K1 and K2 launches
+   as the plan predicts for the three candidates and the committed hop
+   (printed before the run); ``--trajectory`` refusing the schedule;
+   each candidate's probe wall and the phase's peak memory printed;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -2597,6 +2615,258 @@ def _obs_phase(torch, shapes):
     return runs, k3
 
 
+# Phase 12: the adaptive growth controller through train --autogrow at full
+# width. Stage 0 trains gpt2-base under a probe policy whose tol 1.0 fires
+# as soon as the ring is full: stage step 3 (min_steps 3, window 3); the
+# probe then short-trains the three candidates into gpt2-medium. Stage 1
+# learns the picked operator (2 LiGO steps in chunks of 1 when ligo wins)
+# and trains gpt2-medium under rpf_decay to its cap of 4 steps (its ring of
+# 16 never fills, so it records no decision).
+AUTO = {"arch": "gpt2-base", "batch": 8, "seq": 128, "lr": 1e-3,
+        "checkpoint_every": 2, "seed": 0,
+        "stages": [
+            {"steps": "auto",
+             "policy": {"kind": "probe", "max_steps": 8, "min_steps": 3,
+                        "window": 3, "tol": 1.0,
+                        "probe_candidates": ["ligo", "stackbert",
+                                             "interpolation"],
+                        "probe_steps": 4, "probe_ligo_steps": 2}},
+            {"steps": "auto", "arch": "gpt2-medium", "method": "ligo",
+             "ligo_steps": 2, "ligo_scan_chunk": 1,
+             "policy": {"kind": "rpf_decay", "max_steps": 4}}]}
+AUTO_FIRES_AT = 3
+# stage 0 of AUTO as a static stage of the same budget (so the same
+# learning-rate schedule), paused at AUTO_FIRES_AT: the stage-end state the
+# hop grows from
+AUTO_STAGE0 = {**AUTO, "stages": [{"steps": AUTO["stages"][0]["policy"][
+    "max_steps"]}]}
+
+
+def _autogrow_predictions(shapes):
+    """K1 and K2 launches of AUTO's probe and committed hop, by the method
+    the probe picks: the ligo candidate's probe_ligo_steps LiGO steps and
+    every candidate's three grows (params, m, v), then the committed hop:
+    the stage's LiGO steps when ligo wins, and three grows."""
+    k1_grad, k2_grad = _launches(shapes, True)
+    k1_grow = _launches(shapes, False)[0]
+    pol = AUTO["stages"][0]["policy"]
+    n_ligo = AUTO["stages"][1]["ligo_steps"]
+    probe = {"ligo_blend_expand_grouped": (k1_grad * pol["probe_ligo_steps"]
+                                           + 3 * k1_grow
+                                           * len(pol["probe_candidates"])),
+             "ligo_blend_expand_bwd_fused": k2_grad * pol["probe_ligo_steps"],
+             "flash_attention": 0}
+    out = {}
+    for method in pol["probe_candidates"]:
+        steps = n_ligo if method == "ligo" else 0
+        out[method] = {
+            "ligo_blend_expand_grouped": (probe["ligo_blend_expand_grouped"]
+                                          + k1_grad * steps + 3 * k1_grow),
+            "ligo_blend_expand_bwd_fused": (
+                probe["ligo_blend_expand_bwd_fused"] + k2_grad * steps),
+            "flash_attention": 0}
+    return out
+
+
+def _autogrow_phase(torch, shapes):
+    """Phase 12: run AUTO uninterrupted (A) and paused at global step 2 and
+    relaunched (B); hold the decisions, the probe's scores, the ledgers,
+    the final state, the telemetry snapshots and the post-growth snapshot.
+    Returns the launches of its runs by run."""
+    from repro_torch import obs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.grow import grow
+    from repro_torch.data import GlobalBatchLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    from repro_torch.obs import costs
+    from repro_torch.obs.ledger import normalize_records, read_ledger
+    from repro_torch.optim import adamw_init
+    from repro_torch.trajectory import TrajectoryConfig
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    obs.set_enabled(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_auto_")
+    runs = {}
+    want = _autogrow_predictions(shapes)
+    print("[auto] predicted K1/K2 launches of A (probe of "
+          f"{AUTO['stages'][0]['policy']['probe_candidates']} + the committed "
+          "hop), by the pick: " + "; ".join(
+              f"{m}: K1 {w['ligo_blend_expand_grouped']}, K2 "
+              f"{w['ligo_blend_expand_bwd_fused']}" for m, w in want.items()),
+          flush=True)
+    paths = {}
+    for name, sched in (("auto", AUTO), ("stage0", AUTO_STAGE0)):
+        paths[name] = os.path.join(tmp, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(sched, f)
+
+    def args(run, *extra):
+        return ["--autogrow", paths["auto"], "--ckpt-dir",
+                os.path.join(tmp, f"ck_{run}"), "--ledger",
+                os.path.join(tmp, f"{run}.jsonl"), "--keep-checkpoints", "3",
+                *extra]
+    c1, c2 = (st.cfg for st in TrajectoryConfig.from_json(AUTO).stages)
+    try:
+        try:
+            train.main(["--trajectory", paths["auto"], "--ckpt-dir",
+                        os.path.join(tmp, "ck_refused")])
+        except SystemExit as e:
+            if "run it with --autogrow" not in str(e):
+                raise
+            print(f"[auto] --trajectory refuses the schedule: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("--trajectory ran a schedule with auto "
+                                 "stages")
+
+        # -- A: uninterrupted ----------------------------------------------
+        costs.clear_measurements()
+        obs.FLIGHT.clear()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_a = time.perf_counter()
+        res_a, out_a = _main_teed(train, args("A"))
+        runs["autogrow A"] = ops.launch_counts()
+        sec_a = time.perf_counter() - t_a
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dec = res_a["decisions"]
+        if res_a["status"] != "done" or len(dec) != 2:
+            raise AssertionError(f"A: status {res_a['status']}, decisions "
+                                 f"{dec}")
+        fired, probe = dec
+        if (fired["kind"], fired["stage"], fired["stage_step"],
+                fired["global_step"]) != ("probe", 0, AUTO_FIRES_AT,
+                                          AUTO_FIRES_AT):
+            raise AssertionError(f"A: the plateau decision {fired}, want "
+                                 f"stage 0 step {AUTO_FIRES_AT}")
+        scores, picked = probe["scores"], probe["picked"]
+        if (list(scores) != AUTO["stages"][0]["policy"]["probe_candidates"]
+                or not all(math.isfinite(v) for v in scores.values())
+                or picked != min(scores, key=scores.get)):
+            raise AssertionError(f"A: probe decision {probe}")
+        if out_a.count("[train] autogrow decision: ") != 2:
+            raise AssertionError("A: not one decision line per decision")
+        if runs["autogrow A"] != want[picked]:
+            raise AssertionError(f"A: launches {runs['autogrow A']}, the "
+                                 f"plan predicts {want[picked]} for a "
+                                 f"probe picking {picked}")
+        walls = {s["attrs"]["method"]: s["dur_ms"]
+                 for s in obs.FLIGHT.events(type="span")
+                 if s["name"] == "autogrow.probe"}
+        recs_a = read_ledger(os.path.join(tmp, "A.jsonl"))
+        ev = {r["name"]: r["attrs"] for r in recs_a if r["type"] == "event"}
+        if (ev["probe"]["picked"] != picked
+                or ev["probe"]["scores"] != dict(sorted(scores.items()))
+                or ev["hop.begin"]["method"] != picked):
+            raise AssertionError(f"A: ledger events {ev}")
+        print(f"[auto] A: {sec_a:.1f} s; fired at stage step "
+              f"{fired['stage_step']} ({fired['why']}); probe picked "
+              f"{picked}: " + ", ".join(
+                  f"{m} {v:.6f} ({walls[m]:.0f} ms)"
+                  for m, v in scores.items())
+              + f"; launches {runs['autogrow A']} as predicted; peak "
+              f"memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)",
+              flush=True)
+
+        # the telemetry snapshots: cum_flops is the measured FLOPs of a
+        # step, added once per recorded step
+        fps = [costs.measurement(f"train_step[{c.name}]")["flops_per_unit"]
+               for c in (c1, c2)]
+        mgr_a = CheckpointManager(os.path.join(tmp, "ck_A"))
+        last = mgr_a.latest_meta()["autogrow"]
+        _tele_check(last, fps[1],
+                    AUTO["stages"][1]["policy"]["max_steps"], "A's last")
+
+        # -- the post-growth snapshot against a direct grow() -------------
+        ops.reset_launch_counts()
+        res_c, _ = _main_teed(train, [
+            "--trajectory", paths["stage0"], "--ckpt-dir",
+            os.path.join(tmp, "ck_C"), "--max-steps", str(AUTO_FIRES_AT)])
+        runs["autogrow stage-end"] = ops.launch_counts()
+        st1 = AUTO["stages"][1]
+        with torch.no_grad():
+            tmpl = init_params(c2, torch.Generator().manual_seed(0),
+                               device="meta")
+        snap, meta = mgr_a.restore(AUTO_FIRES_AT, {
+            "params": tmpl, "opt": adamw_init(tmpl)}, "cuda")
+        if (meta["stage"], meta["stage_step"]) != (1, 0):
+            raise AssertionError(f"step {AUTO_FIRES_AT} of A is not the "
+                                 f"post-growth snapshot: {meta}")
+        big, info = grow(
+            res_c["params"], c1, c2, method=picked,
+            gen=torch.Generator(device="cuda").manual_seed(AUTO["seed"] + 7),
+            data_it=iter(GlobalBatchLoader(
+                c1, AUTO["batch"], AUTO["seq"],
+                seed=AUTO["seed"] + 101 + 53, device="cuda")),
+            ligo_steps=st1["ligo_steps"],
+            ligo_scan_chunk=st1["ligo_scan_chunk"], opt_state=res_c["opt"])
+        n_snap = _assert_equal_trees(torch, snap["params"], big,
+                                     "A's post-growth params and a direct "
+                                     f"grow({picked}) of the stage-end "
+                                     "state")
+        _assert_equal_trees(torch, snap["opt"], info["opt_state"],
+                            "A's post-growth AdamW state and the direct "
+                            "grow's")
+        print(f"[auto] A's post-growth snapshot (step {AUTO_FIRES_AT}) "
+              f"equals grow(method={picked}) of the stage-end state "
+              f"bitwise ({n_snap} params, AdamW m, v and count)", flush=True)
+        del res_c, snap, big, info
+        shutil.rmtree(os.path.join(tmp, "ck_C"))
+
+        # -- B: paused at global step 2, relaunched -----------------------
+        ops.reset_launch_counts()
+        t_b = time.perf_counter()
+        res_b1, _ = _main_teed(train, args("B", "--max-steps", "2"))
+        if res_b1["status"] != "paused" or res_b1["global_step"] != 2:
+            raise AssertionError(f"B: {res_b1['status']} at "
+                                 f"{res_b1['global_step']}")
+        del res_b1
+        mid = CheckpointManager(os.path.join(tmp, "ck_B")).latest_meta()
+        _tele_check(mid["autogrow"], fps[0], 2, "B's paused")
+        res_b, _ = _main_teed(train, args("B"))
+        runs["autogrow B"] = ops.launch_counts()
+        sec_b = time.perf_counter() - t_b
+        if res_b["resumed_at"] != (0, 2) or res_b["decisions"] != dec:
+            raise AssertionError(f"B: resumed at {res_b['resumed_at']}, "
+                                 f"decisions {res_b['decisions']} against "
+                                 f"A's {dec}")
+        recs_b = read_ledger(os.path.join(tmp, "B.jsonl"))
+        if normalize_records(recs_a) != normalize_records(recs_b):
+            raise AssertionError("the ledgers of A and B differ")
+        n_par = _assert_equal_trees(torch, res_a["params"], res_b["params"],
+                                    "final params of A and B")
+        _assert_equal_trees(torch, res_a["opt"], res_b["opt"],
+                            "final AdamW state of A and B")
+        print(f"[auto] B: {sec_b:.1f} s for the paused and the relaunched "
+              f"run; decisions and probe scores bit-equal to A's; "
+              f"{len(recs_a)} ledger records identical; final params "
+              f"({n_par} values) and AdamW state bitwise equal; launches "
+              f"{runs['autogrow B']}", flush=True)
+        del res_a, res_b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"[auto] phase 12 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
+def _tele_check(snap, fps, n, label):
+    """A checkpoint's telemetry snapshot holds ``n`` recorded steps whose
+    cumulative FLOPs are the measured ``fps`` added once a step."""
+    cum = 0.0
+    for _ in range(n):
+        cum += fps
+    if (snap["total_steps"] != n or snap["cum_flops"] != cum
+            or snap["ring"][-1][3] != cum):
+        raise AssertionError(f"{label} telemetry snapshot: {snap}, want "
+                             f"{n} steps of {fps} FLOPs")
+    print(f"[auto] {label} telemetry snapshot: {n} steps, cum_flops "
+          f"{cum:.6e} = {n} x the measured {fps:.6e} a step", flush=True)
+
+
 def _quickstart_phase():
     """Phase 7: the quickstart twin at the script's own size; returns its
     kernel launches."""
@@ -2947,6 +3217,11 @@ def main() -> int:
     traj["launches"].update(spec_runs)
     for shape, n in k3_spec.items():
         k3_engine[shape] += n
+
+    # -- phase 12: the adaptive growth controller at full width -------------
+    # (before phase 11, whose profiler slows the host for the rest of the
+    # process)
+    traj["launches"].update(_autogrow_phase(torch, shapes))
 
     # -- phase 11: the observability layer at full width ---------------------
     obs_runs, k3_obs = _obs_phase(torch, shapes)

@@ -9,7 +9,7 @@ hybrid, VLM, audio) join it with the slices that port their model families.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.configs import (deepseek_coder_33b, llama3_8b,
                                  phi4_mini_3_8b, starcoder2_7b)
@@ -28,6 +28,10 @@ def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def list_archs() -> List[str]:
+    return sorted(ASSIGNED)
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
@@ -99,5 +103,5 @@ def half_config(cfg: ModelConfig) -> ModelConfig:
 
 
 __all__ = ["REGISTRY", "ASSIGNED", "PAPER_MODELS", "GROWTH_PAIRS",
-           "ModelConfig", "TrainConfig", "get_config", "smoke_config",
-           "grow_target", "half_config"]
+           "ModelConfig", "TrainConfig", "get_config", "list_archs",
+           "smoke_config", "grow_target", "half_config"]

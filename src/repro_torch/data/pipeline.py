@@ -3,12 +3,15 @@
 
 The batch of a step is a pure function of (seed, step)
 (:func:`repro_torch.data.batch_for_step`), so a resumed job sees the same
-tokens at the same step. The JAX package's mesh sharding and host
-prefetch thread are not ported.
+tokens at the same step. :class:`Prefetcher` runs any batch iterator on a
+bounded background thread, as the JAX package's does. The JAX package's
+mesh sharding is not ported.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import queue
+import threading
+from typing import Any, Dict, Iterator
 
 import torch
 
@@ -35,3 +38,34 @@ class GlobalBatchLoader:
         while True:
             yield self.batch_at(self.step)
             self.step += 1
+
+
+class Prefetcher:
+    """Runs a loader iterator on a background thread with a bounded queue."""
+
+    def __init__(self, it: Iterator, prefetch: int = 2):
+        self.q: "queue.Queue[Any]" = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+
+        def worker():
+            for item in it:
+                if self._stop.is_set():
+                    return
+                self.q.put(item)
+
+        self.t = threading.Thread(target=worker, daemon=True)
+        self.t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass

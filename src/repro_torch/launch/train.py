@@ -14,6 +14,11 @@ growth trajectory.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --trajectory traj.json --ckpt-dir ckpt --ledger run.jsonl
 
+    # the same under the adaptive growth controller ("steps": "auto"
+    # stages with a policy block):
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --autogrow auto.json --ckpt-dir ckpt --ledger run.jsonl
+
 The twin of the JAX launcher. With ``--grow-from`` (``half`` or an arch
 name), the source model is initialised from ``--seed``, pretrained for
 ``--pretrain-steps`` AdamW steps, and grown by ``--method``; for LiGO the
@@ -40,6 +45,15 @@ cursor rides the checkpoints) appends the compute ledger, one JSONL record
 per train and LiGO step with modelled and measured FLOPs;
 :func:`repro_torch.obs.savings_report` compares two of them.
 
+``--autogrow cfg.json`` runs a schedule the same way under the adaptive
+growth controller (:mod:`repro_torch.autogrow`): a ``"steps": "auto"``
+stage ends when its ``policy`` block fires (``loss_plateau``,
+``rpf_decay``, ``step_budget``) or at the policy's ``max_steps``, and a
+``probe`` policy short-trains each candidate operator at the hop and
+commits the best. One ``[train] autogrow decision: {...}`` line is printed
+per decision. ``--trajectory`` and ``--autogrow`` are exclusive, and
+``--trajectory`` refuses a schedule with auto stages.
+
 The single-arch run prints the source loss, the LiGO losses (first →
 last), ms per LiGO step, ms per train step, tokens/s and the K1/K2
 launches; ``main`` returns them (or the runner's result).
@@ -54,8 +68,7 @@ ledger's loss/FLOPs track when ``--ledger`` is set, as Chrome trace-event
 JSON; ``--metrics-port N`` serves the registry at ``GET /metrics``.
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when there is no
-CUDA device and no ``--device cpu``. ``--autogrow`` and meshes come with
-later slices.
+CUDA device and no ``--device cpu``. Meshes are not ported.
 """
 from __future__ import annotations
 
@@ -124,15 +137,22 @@ def _steady_ms(times: List[float]) -> float:
 def _trajectory(args) -> Dict[str, Any]:
     from repro_torch.trajectory import TrajectoryConfig, TrajectoryRunner
     if not args.ckpt_dir:
-        raise SystemExit("--trajectory needs --ckpt-dir: its checkpoints "
-                         "are what a relaunch resumes from")
+        flag = "--autogrow" if args.autogrow else "--trajectory"
+        raise SystemExit(f"{flag} needs --ckpt-dir: its checkpoints are "
+                         "what a relaunch resumes from")
+    traj = TrajectoryConfig.from_json(args.trajectory or args.autogrow)
+    if args.trajectory and traj.has_auto_stages:
+        raise SystemExit(
+            "the schedule has steps='auto' stages — run it with "
+            "--autogrow (the adaptive controller) instead of "
+            "--trajectory")
     dev = resolve_device(args.device)
-    traj = TrajectoryConfig.from_json(args.trajectory)
     if dev.type == "cuda":
         _build.build()
     print(f"[train] trajectory {traj.hash()}: "
           f"{' -> '.join(st.cfg.name for st in traj.stages)} "
-          f"({traj.total_steps} steps) device={dev}", flush=True)
+          f"({'<=' if traj.has_auto_stages else ''}{traj.total_steps} "
+          f"steps) device={dev}", flush=True)
     launches0 = ops.launch_counts()
     res = TrajectoryRunner(traj, ckpt_dir=args.ckpt_dir,
                            keep=args.keep_checkpoints,
@@ -140,6 +160,8 @@ def _trajectory(args) -> Dict[str, Any]:
                            device=dev).run(max_steps=args.max_steps)
     counts = ops.launch_counts()
     res["launches"] = {k: counts[k] - launches0[k] for k in counts}
+    for d in res["decisions"]:
+        print(f"[train] autogrow decision: {d}", flush=True)
     print(f"[train] trajectory {res['status']}: stage "
           f"{res['stage'] + 1}/{len(traj.stages)} ({res['cfg'].name}) "
           f"global_step={res['global_step']} "
@@ -167,12 +189,10 @@ def _resume_meta(sup: Supervisor, cfg) -> None:
 
 
 def _train(args) -> Dict[str, Any]:
-    if args.autogrow:
-        raise NotImplementedError(
-            "--autogrow (the adaptive growth controller) is not ported yet "
-            "(ROADMAP, 'autogrow'); run a static schedule with "
-            "--trajectory")
-    if args.trajectory:
+    if args.trajectory and args.autogrow:
+        raise SystemExit("--trajectory and --autogrow are exclusive "
+                         "(they name the same schedule file)")
+    if args.trajectory or args.autogrow:
         return _trajectory(args)
     if not args.arch:
         raise SystemExit("--arch is required (or pass --trajectory)")
@@ -288,7 +308,11 @@ def parse_args(argv: Optional[List[str]] = None):
                     help="run a multi-stage growth trajectory from a JSON "
                          "stage schedule; resumable via --ckpt-dir")
     ap.add_argument("--autogrow", default=None, metavar="CFG_JSON",
-                    help="not ported yet: the adaptive growth controller")
+                    help="like --trajectory, with the adaptive growth "
+                         "controller enabled: stages may use steps='auto' "
+                         "+ a policy block (loss_plateau / rpf_decay / "
+                         "probe) and the LiGO phase checkpoints its own "
+                         "carry, so a kill mid-hop resumes mid-phase")
     ap.add_argument("--max-steps", type=int, default=None,
                     help="trajectory only: stop (checkpointing) after this "
                          "many global train steps; a relaunch resumes")
@@ -315,10 +339,10 @@ def parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--ledger", default=None, metavar="FILE",
                     help="append the compute ledger to FILE: one JSONL "
                          "record per train/LiGO step (loss, tokens, modelled "
-                         "and measured cumulative FLOPs) plus hop events. "
-                         "Requires --trajectory: the ledger cursor rides the "
-                         "checkpoints, so a killed run resumes "
-                         "record-identical")
+                         "and measured cumulative FLOPs) plus hop/probe "
+                         "events. Requires --trajectory/--autogrow: the "
+                         "ledger cursor rides the checkpoints, so a killed "
+                         "run resumes record-identical")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     _obs.add_args(ap, "stream span/event records as JSONL to FILE "
@@ -332,10 +356,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     With ``--metrics-port`` the result's ``metrics_server`` is the running
     ``/metrics`` server, which the caller stops with ``shutdown()``."""
     args = parse_args(argv)
-    if args.ledger and not args.trajectory:
-        raise SystemExit("--ledger requires --trajectory: the trajectory "
-                         "runner owns the cursor-in-checkpoint contract that "
-                         "makes the ledger crash-safe")
+    if args.ledger and not (args.trajectory or args.autogrow):
+        raise SystemExit("--ledger requires --trajectory/--autogrow: the "
+                         "trajectory runner owns the cursor-in-checkpoint "
+                         "contract that makes the ledger crash-safe")
     srv = _obs.start_metrics(args)
     if args.ledger:
         obs.attach_ledger(args.ledger)

@@ -9,7 +9,8 @@ stream in a background thread), live KV caches migrated by
 or re-prefill through kernel K3), buffers swapped between decode steps,
 with chaos hooks, rollback, bounded retry and a watchdog around the whole
 hop. The KV cache defaults to a *paged* block-pool layout (``kv_pages``).
-Speculative decoding is not ported yet.
+Speculative decoding (``serving.speculative``) runs through the hop: the
+pre-hop model drafts, the grown model verifies.
 """
 from repro_torch.serving.admission import AdmissionQueue, Request
 from repro_torch.serving.engine import ServingEngine, make_serving_fns

@@ -1,6 +1,6 @@
 """Trajectory configuration: an ordered schedule of train→grow→train stages
-(the twin of the JAX package's ``trajectory/config.py``, for static
-schedules).
+(the twin of the JAX package's ``trajectory/config.py``, for the dense
+family).
 
 A :class:`TrajectoryConfig` is pure data: which architecture each stage
 trains, for how many steps, and how each stage is entered (the growth
@@ -10,7 +10,8 @@ is built from the fields of the JAX package's and hashes to the same
 value for the same schedule, so a checkpoint directory written by either
 package is recognised by the other.
 
-JSON format (``launch/train.py --trajectory cfg.json``)::
+JSON format (``launch/train.py --trajectory cfg.json`` /
+``--autogrow cfg.json``)::
 
     {
       "arch": "gpt2-base",        # base registry arch
@@ -29,10 +30,22 @@ stages default to ``"grow": "2x"`` (``grow_target`` of the previous stage)
 or name a registry arch. Every consecutive pair must pass
 ``check_growable``.
 
-Not ported yet, and refused with ``NotImplementedError``: ``"steps":
-"auto"`` and ``"policy"`` blocks (the adaptive controller, "autogrow" in
-ROADMAP.md), ``"grow": "moe"`` and the ``upcycle`` / ``gqa_merge`` methods
-("the other families" in ROADMAP.md).
+``"steps": "auto"`` hands the stage's end to the adaptive growth
+controller (:mod:`repro_torch.autogrow`): the stage trains until its
+``policy`` block fires (or the policy's mandatory ``max_steps`` cap),
+instead of a fixed count::
+
+        {"steps": "auto", "arch": "gpt2-medium", "method": "ligo",
+         "policy": {"kind": "loss_plateau", "max_steps": 80,
+                    "min_steps": 10, "window": 8, "tol": 2e-3}}
+
+``Stage.budget`` is the hard upper bound either way; the controller lives
+in the runner, this file stays pure data. The policy block is part of the
+schedule's hash, as in the JAX package.
+
+Not ported yet, and refused with ``NotImplementedError``: ``"grow":
+"moe"`` and the ``upcycle`` / ``gqa_merge`` methods ("the other families"
+in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.autogrow.policy import PolicySpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spec as S
 
@@ -68,11 +82,25 @@ class GrowthSpec:
 @dataclass(frozen=True)
 class Stage:
     """One trajectory stage: an architecture trained for ``steps`` steps.
-    ``growth`` describes the hop into this stage; it is None exactly for
-    stage 0."""
+
+    ``steps=None`` is the JSON ``"auto"`` form: the stage ends when its
+    ``policy`` fires (:mod:`repro_torch.autogrow.policy`), bounded by the
+    policy's ``max_steps``. ``growth`` describes the hop into this stage;
+    it is None exactly for stage 0.
+    """
     cfg: ModelConfig
-    steps: int
+    steps: Optional[int]
     growth: Optional[GrowthSpec] = None
+    policy: Optional[PolicySpec] = None
+
+    @property
+    def auto(self) -> bool:
+        return self.steps is None
+
+    @property
+    def budget(self) -> int:
+        """Hard cap on the stage's train leg (== ``steps`` when static)."""
+        return self.steps if self.steps is not None else self.policy.max_steps
 
 
 @dataclass(frozen=True)
@@ -91,10 +119,17 @@ class TrajectoryConfig:
             raise ValueError("stage 0 is the source model; it has no "
                              "growth hop")
         for i, st in enumerate(self.stages):
-            if st.steps is None:
-                raise NotImplementedError(
-                    f"stage {i}: steps='auto' needs the adaptive growth "
-                    "controller, not ported yet (ROADMAP, 'autogrow')")
+            if st.auto:
+                if st.policy is None:
+                    raise ValueError(f"stage {i} has steps='auto' but no "
+                                     "policy block")
+                if st.policy.max_steps <= 0:
+                    raise ValueError(f"stage {i}: an auto stage's policy "
+                                     "needs max_steps > 0 (the hard cap)")
+            elif st.policy is not None:
+                raise ValueError(f"stage {i} has both a fixed step count "
+                                 "and a policy — use steps='auto' for "
+                                 "policy-scheduled stages")
         for i in range(1, len(self.stages)):
             growth = self.stages[i].growth
             if growth is None:
@@ -115,27 +150,34 @@ class TrajectoryConfig:
 
     # ------------------------------------------------------------------
     @property
+    def has_auto_stages(self) -> bool:
+        return any(st.auto for st in self.stages)
+
+    @property
     def total_steps(self) -> int:
-        return sum(st.steps for st in self.stages)
+        """Total train steps — exact for static schedules, the ``budget``
+        upper bound for auto stages."""
+        return sum(st.budget for st in self.stages)
 
     def stage_bounds(self) -> Tuple[Tuple[int, int], ...]:
-        """[start, end) global-step interval of each stage."""
+        """[start, end) global-step interval of each stage (budget-based,
+        i.e. upper bounds when the schedule has auto stages)."""
         out, start = [], 0
         for st in self.stages:
-            out.append((start, start + st.steps))
-            start += st.steps
+            out.append((start, start + st.budget))
+            start += st.budget
         return tuple(out)
 
     def hash(self) -> str:
         """Schedule identity, stamped into checkpoint meta by the runner
-        (the JAX package's blob: its ``policy`` is None for every static
-        stage)."""
+        (the JAX package's blob, so both packages hash a schedule alike)."""
         blob = json.dumps({
             "stages": [{
                 "cfg": st.cfg.config_hash(), "steps": st.steps,
                 "growth": (None if st.growth is None
                            else dataclasses.asdict(st.growth)),
-                "policy": None,
+                "policy": (None if st.policy is None
+                           else dataclasses.asdict(st.policy)),
             } for st in self.stages],
             **{k: getattr(self, k) for k in ("batch", "seq", "lr",
                                              "checkpoint_every", "seed")},
@@ -182,11 +224,6 @@ class TrajectoryConfig:
 
         stages, prev = [], None
         for i, entry in enumerate(obj["stages"]):
-            if entry["steps"] == "auto" or "policy" in entry:
-                raise NotImplementedError(
-                    f"stage {i}: steps='auto' and policy blocks need the "
-                    "adaptive growth controller, not ported yet (ROADMAP, "
-                    "'autogrow')")
             cfg = resolve(entry, prev)
             growth = None
             if i > 0:
@@ -197,8 +234,16 @@ class TrajectoryConfig:
                     ligo_momentum=float(entry.get("ligo_momentum", 0.9)),
                     grow_optimizer=bool(entry.get("grow_optimizer", True)),
                     ligo_scan_chunk=int(entry.get("ligo_scan_chunk", 0)))
-            stages.append(Stage(cfg=cfg, steps=int(entry["steps"]),
-                                growth=growth))
+            raw_steps = entry["steps"]
+            if raw_steps == "auto":
+                steps: Optional[int] = None
+                policy = PolicySpec.from_json(entry.get("policy", {}))
+            else:
+                steps = int(raw_steps)
+                policy = (PolicySpec.from_json(entry["policy"])
+                          if "policy" in entry else None)
+            stages.append(Stage(cfg=cfg, steps=steps, growth=growth,
+                                policy=policy))
             prev = cfg
         return TrajectoryConfig(
             stages=tuple(stages),

@@ -1,5 +1,5 @@
-"""TrajectoryRunner: train→grow→train… as one resumable job (the twin of the
-JAX package's ``trajectory/runner.py``, for static schedules of the dense
+"""TrajectoryRunner: train→grow→train… as one resumable job (the twin of
+the JAX package's ``trajectory/runner.py``, for schedules of the dense
 family on one device).
 
 One runner call drives a whole :class:`~repro_torch.trajectory.config.
@@ -19,6 +19,17 @@ checkpointed under ``<ckpt_dir>/ligo_phase`` at chunk boundaries
 resumes mid-phase. The checkpoints, the hash and the phase identity are
 the JAX package's, so either package resumes the other's directory.
 
+Adaptive scheduling (:mod:`repro_torch.autogrow`): a stage with
+``steps="auto"`` ends when its growth policy fires on the stage's telemetry
+stream (loss EMA / return-per-FLOP over a ring buffer) instead of at a
+fixed count; the policy is asked before each step, and before the
+``max_steps`` pause, as in the JAX runner. The telemetry ring rides every
+checkpoint's meta (``meta["autogrow"]``, the JAX package's snapshot), so a
+resumed stage replays the identical decision sequence. A ``probe`` policy
+also short-trains the candidate growth operators at the hop
+(:func:`repro_torch.autogrow.probe_methods`) and commits the winner.
+Every decision lands in the result's ``decisions``.
+
 Consecutive zero-step stages whose hops need no intermediate model
 (classical operators, LiGO without steps) run as one composed hop:
 parameters and first moments through the composed operator, second moments
@@ -26,8 +37,7 @@ by the GQA rule (:func:`repro_torch.optim.grow_adamw_state_chain`).
 
 ``run(max_steps=N)`` stops after N global train steps (checkpointing
 first), the deterministic "kill" of the tests; ``run()`` on a new runner
-finishes the job. The JAX package's meshes, adaptive stages and probes
-are not ported.
+finishes the job. The JAX package's meshes are not ported.
 
 Spans (the JAX package's): ``traj.train`` (``stage``, ``arch``, ``start``)
 around each stage's train leg and ``traj.grow`` (``stage``, ``src``,
@@ -36,14 +46,16 @@ around each stage's train leg and ``traj.grow`` (``stage``, ``src``,
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import obs
+from repro_torch.autogrow import Telemetry, make_policy, probe_methods
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import apply_ligo, compose_chain, grow
@@ -77,6 +89,8 @@ class TrajectoryRunner:
         # chaos knob: fail after the LiGO-phase checkpoint at this phase
         # step (threaded into train_ligo)
         self.ligo_fail_at = ligo_fail_at
+        self.decisions: List[Dict[str, Any]] = []
+        self._tele_restore: Optional[Dict] = None
         # the compute ledger (explicit, or what --ledger attached): its
         # cursor rides every checkpoint meta
         self.ledger = ledger if ledger is not None else active_ledger()
@@ -86,11 +100,16 @@ class TrajectoryRunner:
         if self.verbose:
             print(f"[traj] {msg}", flush=True)
 
-    def _meta(self, stage: int, stage_step: int, global_step: int) -> Dict:
+    def _meta(self, stage: int, stage_step: int, global_step: int,
+              tele: Optional[Telemetry] = None) -> Dict:
         cfg = self.traj.stages[stage].cfg
         meta = {"trajectory": self.traj.hash(), "stage": stage,
                 "stage_step": stage_step, "global_step": global_step,
                 "arch": cfg.name, "config": cfg.config_hash()}
+        if tele is not None:
+            # the controller's signal state rides the checkpoint, so a
+            # resumed auto stage replays the same growth decision
+            meta["autogrow"] = tele.snapshot()
         if self.ledger is not None:
             # snapshot() fsyncs first: every record up to the cursor is
             # durable before the checkpoint carrying it lands
@@ -138,6 +157,7 @@ class TrajectoryRunner:
                     "moments must ride every hop. Delete the directory to "
                     f"restart. (missing leaf: {e})") from e
             raise
+        self._tele_restore = meta.get("autogrow")
         if self.ledger is not None:
             # truncate the ledger back to this checkpoint's cursor; the
             # re-executed steps append the same records again
@@ -153,8 +173,8 @@ class TrajectoryRunner:
         The measurement (None without a ledger) counts one step's FLOPs
         (:func:`repro_torch.obs.costs.measure_step`)."""
         st = self.traj.stages[stage]
-        tcfg = TrainConfig(steps=st.steps,
-                           warmup_steps=max(st.steps // 10, 1),
+        tcfg = TrainConfig(steps=st.budget,
+                           warmup_steps=max(st.budget // 10, 1),
                            lr=self.traj.lr, seq_len=self.traj.seq,
                            global_batch=self.traj.batch)
         step_fn = make_train_step(st.cfg, tcfg)
@@ -171,6 +191,24 @@ class TrajectoryRunner:
                     st.cfg, self.traj.batch, self.traj.seq))
         return step_fn, loader, meas
 
+    def _stage_controller(self, stage: int):
+        """(policy, telemetry) for an auto stage; (None, None) for static
+        stages — a static budget needs no per-step decision."""
+        st = self.traj.stages[stage]
+        if not st.auto:
+            return None, None
+        pol = make_policy(st.policy)
+        fps = train_flops_per_step(st.cfg, self.traj.batch, self.traj.seq)
+        tokens = float(self.traj.batch * self.traj.seq)
+        if self._tele_restore is not None:
+            tele = Telemetry.restore(self._tele_restore,
+                                     flops_per_step=fps,
+                                     tokens_per_step=tokens)
+            self._tele_restore = None
+        else:
+            tele = pol.telemetry(flops_per_step=fps, tokens_per_step=tokens)
+        return pol, tele
+
     # ------------------------------------------------------------------
     def _chain_end(self, stage: int) -> int:
         """Last stage of the composable hop run starting at ``stage``:
@@ -180,7 +218,7 @@ class TrajectoryRunner:
         if stages[stage].growth.method == "random":
             return stage
         last = stage
-        while last < len(stages) - 1 and stages[last].steps == 0:
+        while last < len(stages) - 1 and stages[last].budget == 0:
             g = stages[last + 1].growth
             if g.method == "random" or (g.method == "ligo"
                                         and g.ligo_steps > 0):
@@ -188,11 +226,14 @@ class TrajectoryRunner:
             last += 1
         return last
 
-    def _hop_operator(self, stage: int, params):
+    def _hop_operator(self, stage: int, params, *, method=None):
         """Build (for LiGO, train) the operator entering ``stage``; the LiGO
-        phase checkpoints its carry under ``<ckpt_dir>/ligo_phase``."""
+        phase checkpoints its carry under ``<ckpt_dir>/ligo_phase``.
+        ``method`` replaces the stage's growth method (a probe's pick)."""
         st = self.traj.stages[stage]
         gs = st.growth
+        if method is not None and method != gs.method:
+            gs = dataclasses.replace(gs, method=method)
         prev_cfg = self.traj.stages[stage - 1].cfg
         data_it = ligo_ckpt = None
         if gs.method == "ligo" and gs.ligo_steps > 0:
@@ -214,14 +255,16 @@ class TrajectoryRunner:
                 "stage": stage, "n_devices": 1})
         return info["operator"], gs
 
-    def _grow_into(self, stage: int, params, opt):
+    def _grow_into(self, stage: int, params, opt, *, method=None):
         """Hop stage-1 → stage (a run of zero-step stages collapsed into
         one composed hop): params and AdamW moments through the
-        operator(s), fresh moments otherwise. Returns
+        operator(s), fresh moments otherwise. ``method`` replaces the
+        growth method of the first hop only (a probe's pick; ``random``
+        takes the fresh-init path). Returns
         ``(landed_stage, params, opt, grow_ms)``."""
         stages = self.traj.stages
         t0 = time.perf_counter()
-        if stages[stage].growth.method == "random":
+        if (method or stages[stage].growth.method) == "random":
             st = stages[stage]
             params, info = grow(
                 params, stages[stage - 1].cfg, st.cfg, method="random",
@@ -236,8 +279,9 @@ class TrajectoryRunner:
         last = self._chain_end(stage)
         cfg_chain = [stages[j].cfg for j in range(stage - 1, last + 1)]
         ops_chain, specs = [], []
-        for j in range(stage, last + 1):
-            op, gs = self._hop_operator(j, params)
+        for idx, j in enumerate(range(stage, last + 1)):
+            op, gs = self._hop_operator(j, params,
+                                        method=method if idx == 0 else None)
             ops_chain.append(op)
             specs.append(gs)
         composed = (ops_chain[0] if len(ops_chain) == 1
@@ -282,15 +326,16 @@ class TrajectoryRunner:
         last_saved = [self.resumed_at + (global_step,)
                       if self.resumed_at is not None else None]
 
-        def save(s: int, kk: int, g: int, *, block: bool = False) -> None:
+        def save(s: int, kk: int, g: int, *, tele=None,
+                 block: bool = False) -> None:
             self.mgr.save(g, {"params": params, "opt": opt},
-                          self._meta(s, kk, g), block=block)
+                          self._meta(s, kk, g, tele), block=block)
             last_saved[0] = (s, kk, g)
 
-        def save_once(s: int, kk: int, g: int, *,
+        def save_once(s: int, kk: int, g: int, *, tele=None,
                       block: bool = False) -> None:
             if last_saved[0] != (s, kk, g):
-                save(s, kk, g, block=block)
+                save(s, kk, g, tele=tele, block=block)
             elif block:
                 self.mgr.wait()
 
@@ -300,14 +345,17 @@ class TrajectoryRunner:
                     "cfg": stages[stage].cfg, "stage": stage,
                     "stage_step": k, "global_step": global_step,
                     "history": history, "status": status,
-                    "resumed_at": self.resumed_at, "timings": timings}
+                    "resumed_at": self.resumed_at, "timings": timings,
+                    "decisions": self.decisions}
 
         while True:
             st = stages[stage]
-            if k < st.steps:
+            pol, tele = self._stage_controller(stage)
+            if k < st.budget:
                 self._log(f"stage {stage + 1}/{len(stages)}: {st.cfg.name} "
                           f"({st.cfg.param_count() / 1e6:.1f}M) "
-                          f"steps [{k}, {st.steps})")
+                          f"steps [{k}, "
+                          f"{'auto<=' if st.auto else ''}{st.budget})")
                 t_train = time.perf_counter()
                 with obs.span("traj.train", stage=stage, arch=st.cfg.name,
                               start=k):
@@ -318,12 +366,31 @@ class TrajectoryRunner:
                             st.cfg, self.traj.batch, self.traj.seq)
                         tokens_step = float(self.traj.batch * self.traj.seq)
                         meas_fps = meas["flops_per_unit"]
-                    while k < st.steps:
+                        if tele is not None:
+                            # the controller's cum-FLOPs axis follows the
+                            # measured number; deterministic across resume
+                            # because the resumed process re-measures the
+                            # same step before its first record
+                            tele.set_flops_per_step(meas_fps)
+                    while k < st.budget:
+                        # the policy is asked before the pause, as in the
+                        # JAX runner: a pause on the decision step ends
+                        # the stage instead
+                        if pol is not None and pol.should_grow(k, tele):
+                            self.decisions.append(
+                                {"stage": stage, "stage_step": k,
+                                 "global_step": global_step,
+                                 "kind": st.policy.kind,
+                                 "why": pol.why(k, tele)})
+                            self._log(f"stage {stage + 1} policy fired at "
+                                      f"step {k}: {pol.why(k, tele)}")
+                            break
                         if max_steps is not None and global_step >= max_steps:
                             dt = (time.perf_counter() - t_train) * 1e3
                             timing(stage)["train_ms"] += dt
                             h_train.observe(dt)
-                            save_once(stage, k, global_step, block=True)
+                            save_once(stage, k, global_step, tele=tele,
+                                      block=True)
                             self._log(f"paused at global step {global_step} "
                                       f"(stage {stage} step {k})")
                             return result("paused")
@@ -342,32 +409,58 @@ class TrajectoryRunner:
                                 wall_ms=(time.perf_counter() - t_step) * 1e3,
                                 flops_modelled=fps_model,
                                 flops_measured=meas_fps)
+                        if tele is not None:
+                            tele.record(global_step, loss)
                         if on_metrics is not None:
                             on_metrics(global_step, stage, m)
                         if k % self.traj.checkpoint_every == 0:
-                            save(stage, k, global_step)
+                            save(stage, k, global_step, tele=tele)
                     dt = (time.perf_counter() - t_train) * 1e3
                     timing(stage)["train_ms"] += dt
                     h_train.observe(dt)
                 # the stage-end save: a kill during the following hop
                 # resumes here (the LiGO-phase checkpoints carry the rest)
-                save_once(stage, k, global_step)
+                save_once(stage, k, global_step, tele=tele)
+                # history holds only this process's steps: a resumed stage
+                # whose policy fires at once has run none of them
                 self._log(f"stage {stage + 1} done ({k} steps)"
                           + (f": loss {history[-1][2]:.4f}" if history
                              else ""))
             if stage + 1 == len(stages):
                 save_once(stage, k, global_step, block=True)
                 return result("done")
+            method = None
             nxt = stages[stage + 1]
+            if (st.auto and st.policy.kind == "probe"
+                    and nxt.growth.method != "random"):
+                method, scores = probe_methods(
+                    params, opt, st.cfg, nxt.cfg, st.policy,
+                    lr=self.traj.lr, batch=self.traj.batch,
+                    seq=self.traj.seq,
+                    seed=self.traj.seed + 1009 * (stage + 1),
+                    verbose=self.verbose)
+                self.decisions.append(
+                    {"stage": stage, "stage_step": k,
+                     "global_step": global_step, "kind": "probe",
+                     "picked": method, "scores": scores})
+                if self.ledger is not None:
+                    self.ledger.record_event(
+                        "probe", stage=stage, step=global_step,
+                        picked=method,
+                        scores={m: float(sc) for m, sc in sorted(
+                            scores.items())})
+                self._log(f"probe picked method={method} ("
+                          + ", ".join(f"{m}={sc:.4f}" for m, sc in
+                                      sorted(scores.items())) + ")")
             if self.ledger is not None:
                 self.ledger.record_event(
                     "hop.begin", stage=stage + 1, step=global_step,
                     src=st.cfg.name, dst=nxt.cfg.name,
-                    method=nxt.growth.method)
+                    method=method or nxt.growth.method)
             with obs.span("traj.grow", stage=stage + 1, src=st.cfg.name,
                           dst=nxt.cfg.name):
-                stage, params, opt, grow_ms = self._grow_into(stage + 1,
-                                                              params, opt)
+                stage, params, opt, grow_ms = self._grow_into(
+                    stage + 1, params, opt, method=method)
             if self.ledger is not None:
                 self.ledger.record_event(
                     "hop.complete", stage=stage, step=global_step,

@@ -796,3 +796,65 @@ def test_kernel_route_hop_spans_and_profile_name_k1_and_k3(cuda, tmp_path):
                if e.get("cat") == "kernel"}
     assert any("ligo_wgmma_gemm_kernel<3," in k for k in kernels), kernels
     assert any("flash_fwd_wgmma" in k for k in kernels), kernels
+
+
+@pytest.mark.gpu
+def test_probe_methods_on_the_card_counts_k1_and_k2(cuda):
+    """``probe_methods`` at smoke width on the card: the LiGO candidate's
+    probe steps launch K1 forward and K2 backward, every candidate's grow
+    of the params and both AdamW moments launches K1, in the counts one
+    LiGO step and one grow launch alone; the scores are finite, repeat bit
+    for bit under deterministic algorithms, and the inputs stay as they
+    were."""
+    from repro_torch.autogrow import PolicySpec, probe_methods
+    from repro_torch.configs import get_config
+    from repro_torch.core import grow, init_ligo_params, train_ligo
+    from repro_torch.data import batch_for_step
+    from repro_torch.training import init_train_state, to_device
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("gpt2-base").scaled(name="gpt2-engine", **ENGINE_CFG)
+    cfg2 = cfg.scaled(name="gpt2-engine-grown", n_layers=4, d_model=384,
+                      n_heads=6, n_kv_heads=6, d_ff=768)
+    params, opt = init_train_state(cfg, torch.Generator(cuda).manual_seed(0),
+                                   device=cuda)
+    before = [t.clone() for t in tree_leaves(params)]
+    ops.reset_launch_counts()
+    grow(params, cfg, cfg2, method="stackbert",
+         gen=torch.Generator(cuda).manual_seed(1))
+    k1_grow = ops.launch_counts()["ligo_blend_expand_grouped"]
+    ops.reset_launch_counts()
+
+    def data():
+        t = 0
+        while True:
+            yield to_device(batch_for_step(cfg, t, 4, 32), cuda)
+            t += 1
+    train_ligo(init_ligo_params(torch.Generator(cuda).manual_seed(2), cfg,
+                                cfg2, device=cuda), params, cfg, cfg2,
+               data(), steps=1)
+    step = ops.launch_counts()
+    assert k1_grow > 0 and step["ligo_blend_expand_bwd_fused"] > 0
+    spec = PolicySpec(kind="probe", max_steps=8,
+                      probe_candidates=("ligo", "stackbert"), probe_steps=2,
+                      probe_ligo_steps=2)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ops.reset_launch_counts()
+        best, scores = probe_methods(params, opt, cfg, cfg2, spec, lr=1e-3,
+                                     batch=4, seq=32, seed=0)
+        got = ops.launch_counts()
+        again = probe_methods(params, opt, cfg, cfg2, spec, lr=1e-3,
+                              batch=4, seq=32, seed=0)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert got == {
+        "ligo_blend_expand_grouped": (2 * step["ligo_blend_expand_grouped"]
+                                      + 2 * 3 * k1_grow),
+        "ligo_blend_expand_bwd_fused": 2 * step["ligo_blend_expand_bwd_fused"],
+        "flash_attention": 0}, got
+    assert all(torch.isfinite(torch.tensor(v)) for v in scores.values())
+    assert best == min(scores, key=scores.get)
+    assert again == (best, scores)
+    for a, b in zip(tree_leaves(params), before):
+        assert torch.equal(a, b)

@@ -48,7 +48,9 @@ def test_scan_covers_the_port():
                 ("examples", "quickstart.py"), ("core", "grow_cache.py"),
                 ("serving", "admission.py"), ("serving", "kv_pages.py"),
                 ("serving", "speculative.py"), ("serving", "engine.py"),
-                ("serving", "hotswap.py"), ("serving", "__init__.py")):
+                ("serving", "hotswap.py"), ("serving", "__init__.py"),
+                ("autogrow", "__init__.py"), ("autogrow", "telemetry.py"),
+                ("autogrow", "policy.py")):
         assert os.path.join("src", "repro_torch", *mod) in names
     assert len(names) >= 20
 
@@ -69,6 +71,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.obs.costs, repro_torch.trajectory, "
             "repro_torch.distributed, repro_torch.examples.quickstart, "
             "repro_torch.serving, repro_torch.core.grow_cache, "
+            "repro_torch.autogrow, repro_torch.data, repro_torch.configs, "
             "repro_torch.kernels._build as b; "
             "assert not any(m in ('jax', 'ml_dtypes') "
             "or m.startswith(('jax.', 'repro.', 'ml_dtypes.')) "
@@ -78,3 +81,59 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+# Names of a JAX package's ``__all__`` that its port leaves out, each with
+# the ROADMAP item that rules it out of this port or schedules it.
+MESH = "ROADMAP 1.3, the mesh machinery (TPU-pod / multi-chip, out of scope)"
+FAMILIES = "ROADMAP 1.2, 'the other families'"
+LAUNCHERS = "ROADMAP 1.3, 'Launchers and benches, last'"
+S1 = "ROADMAP 2, speed item S1 (the compiled LiGO step)"
+KERNEL_API = ("ROADMAP 2: the port's kernel surface is K1/K2/K3 as custom "
+              "ops with launch_counts(); the JAX single-leaf wrappers, the "
+              "TPU VMEM helpers and the interpret-mode references are not "
+              "on any path")
+OUT_OF_SCOPE = {
+    "autogrow": {},
+    "checkpoint": {},
+    "configs": {n: LAUNCHERS for n in (
+        "ALL_SHAPES", "Cell", "DECODE_32K", "LONG_500K", "PREFILL_32K",
+        "SHAPES", "ShapeConfig", "TRAIN_4K", "cell_status",
+        "enumerate_cells")},
+    "core": {"TRACE_COUNTS": S1, "place_operator": MESH,
+             "upcycle": FAMILIES, "upcycle_operator": FAMILIES},
+    "data": {},
+    "distributed": {n: MESH for n in (
+        "P", "batch_specs", "divisible_axes", "maybe_shard",
+        "named_shardings", "params_pspecs", "physical_spec")},
+    "kernels": {n: KERNEL_API for n in (
+        "LAUNCH_COUNTS", "flash_attention", "flash_attention_ref",
+        "fused_eligible", "fused_vmem_bytes", "ligo_blend_expand",
+        "ligo_blend_expand_bwd_fused", "ligo_blend_expand_bwd_ref",
+        "ligo_blend_expand_grouped_ref", "ligo_blend_expand_ref",
+        "ligo_blend_expand_vjp", "ligo_grow", "ligo_grow_ref")}
+    | {"ligo_blend_expand_grouped_sharded": MESH},
+    "models": {},
+    "obs": {},
+    "optim": {"compression": MESH},
+    "roofline": {"collect_hlo_stats": MESH},
+    "serving": {},
+    "training": {"pjit_train_step": MESH, "train_state_shardings": MESH},
+    "trajectory": {},
+}
+
+
+@pytest.mark.parametrize("pkg", sorted(OUT_OF_SCOPE))
+def test_port_exports_the_reference_surface(pkg):
+    """Each port package's ``__all__`` holds the JAX package's, less the
+    names listed above with their ROADMAP items — exactly those."""
+    import importlib
+    pytest.importorskip("jax")
+    ours = importlib.import_module(f"repro_torch.{pkg}")
+    theirs = importlib.import_module(f"repro.{pkg}")
+    missing = set(theirs.__all__) - set(ours.__all__)
+    assert missing == set(OUT_OF_SCOPE[pkg]), sorted(missing)
+    for name in ours.__all__:
+        assert hasattr(ours, name), name
+    if pkg == "autogrow":
+        assert list(ours.__all__) == list(theirs.__all__)

@@ -169,8 +169,6 @@ def test_trajectory_hash_equals_the_references(tmp_path, source):
 
 
 @pytest.mark.parametrize("change", [
-    {"steps": "auto", "policy": {"kind": "loss_plateau", "max_steps": 8}},
-    {"policy": {"kind": "loss_plateau", "max_steps": 8}},
     {"grow": "moe"},
 ])
 def test_trajectory_later_slice_features_raise(change):
@@ -178,6 +176,32 @@ def test_trajectory_later_slice_features_raise(change):
     obj["stages"][1].update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrajectoryConfig.from_json(obj)
+
+
+@pytest.mark.parametrize("change", [
+    {"steps": "auto", "policy": {"kind": "loss_plateau", "max_steps": 8}},
+    {"policy": {"kind": "loss_plateau", "max_steps": 8}},
+], ids=["auto_stage", "policy_on_a_fixed_stage"])
+def test_trajectory_auto_and_policy_schedules_match_the_reference(change):
+    """An auto stage parses and hashes as in the JAX package; a policy on
+    a fixed-count stage is refused with the JAX package's message."""
+    from repro import trajectory as jt
+    obj = json.loads(json.dumps(SCHEDULE))
+    obj["stages"][1].update(change)
+    if change.get("steps") == "auto":
+        ours, theirs = (TrajectoryConfig.from_json(obj),
+                        jt.TrajectoryConfig.from_json(obj))
+        assert ours.stages[1].auto and ours.stages[1].budget == 8
+        assert ours.hash() == theirs.hash() != TrajectoryConfig.from_json(
+            SCHEDULE).hash()
+        assert ours.stage_bounds() == theirs.stage_bounds()
+        return
+    msgs = []
+    for cls in (TrajectoryConfig, jt.TrajectoryConfig):
+        with pytest.raises(ValueError, match="both a fixed step count") as e:
+            cls.from_json(obj)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 # ---------------------------------------------------------------------------
@@ -391,8 +415,9 @@ def test_train_launcher_resumes_and_refuses_foreign_checkpoints(tmp_path):
                     "--steps", "2", "--ckpt-dir", d])
     with pytest.raises(SystemExit, match="requires --trajectory"):
         train.main(base + ["--ledger", str(tmp_path / "l.jsonl")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--autogrow", "x.json", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="exclusive"):
+        train.main(["--autogrow", "x.json", "--trajectory", "x.json",
+                    "--device", "cpu"])
 
     traj = str(tmp_path / "t.json")
     with open(traj, "w") as f:
