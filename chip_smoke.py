@@ -162,6 +162,26 @@ sources are not beside it. Phases, each fatal on failure:
    as the plan predicts for the three candidates and the committed hop
    (printed before the run); ``--trajectory`` refusing the schedule;
    each candidate's probe wall and the phase's peak memory printed;
+13. the MoE family at full width, under phase 6's deterministic
+   algorithms (after phase 12, before phase 11): (a) ``serve --arch
+   phi4-mini-3.8b --live-grow-at 8 --hop-operator upcycle`` (16 requests
+   of 64-128 tokens through 8 slots, 32 new, paged): the dense model hops
+   to its MoE twin (E 4, top 2) with 0 dropped and 0 rejected, the cache
+   grown in place, K1 launched once per kernel-route group of the plan
+   (warm grow and hop), the served tree bitwise the plain route's, the E
+   expert copies bitwise equal and the router a float32 zero; decode
+   p50/p99 before and after the hop and the peak memory printed; (b) the
+   upcycled model's first-token logits against the dense model's at a
+   capacity of E/k = 2.0 (no token dropped), and the dropped share at the
+   inherited 1.25 printed; (c) ``grow(method="ligo", ligo_steps=2)`` from
+   ``half_config(mixtral-8x7b)`` cut to 2 layers into mixtral cut to 4
+   (full width), K1 and K2 launches as the plan predicts, a 4608-token
+   prefill past the 4096 window through K3 against the plain route and 8
+   decode steps through the ring cache, then K1 and K2 against their
+   plain versions at the expert groups' shapes (E 8) and the float32
+   router's (Bd 8); (d) qwen3-moe-30b-a3b at its 48 layers (or the
+   deepest cut leaving 10 GB free): a 4 x 2048 prefill through K3 against
+   the plain attention route, and 8 decode steps;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -233,6 +253,17 @@ K3_SHAPES = [
      (1, 16, 16, 160, 160, 64, True, 0)),
     ("engine prefill llama3-8b", "bfloat16",
      (1, 32, 8, 2048, 2048, 128, True, 0)),
+    # phase 13: the engine's phi4-mini-3.8b prefills before and after the
+    # upcycle hop (the MoE twin keeps the attention), (b)'s 4 x 128
+    # prefills, mixtral's 4608-token prefill past its 4096 window and
+    # qwen3-moe's 4 x 2048 prefill (32 query heads of 128: q width 4096,
+    # twice d_model)
+    ("engine prefill phi4-mini-3.8b", "bfloat16",
+     (1, 24, 8, 128, 128, 128, True, 0)),
+    ("phi4-mini prefill", "bfloat16", (4, 24, 8, 128, 128, 128, True, 0)),
+    ("mixtral prefill window", "bfloat16",
+     (1, 32, 8, 4608, 4608, 128, True, 4096)),
+    ("qwen3-moe prefill", "bfloat16", (4, 32, 4, 2048, 2048, 128, True, 0)),
 ]
 
 # K1's and K2's shapes besides the main path's six groups (gpt2-base ->
@@ -279,16 +310,21 @@ def _time_ms(torch, fn, reps):
 
 def _k1_shapes(torch, cfg1, cfg2):
     """One dict per kernel-route group of the pair's GrowthPlan: name, G,
-    L2, L1, E, I, A, the source width b and target width j of its right
+    the leaves' dtype (an MoE router is float32 in a bf16 model), L2 (in
+    the target's kind: an upcycle hop lands "attn" groups in "moe"), L1, E,
+    I, A, the source width b and target width j of its right
     expansion (j None where it has none), and where the plan puts that
     expansion for a forward alone (``right``) and for a LiGO step
     (``right_grad``)."""
     from repro_torch.core.ligo import _kind_counts
     from repro_torch.core.plan import _expr_dims, plan_for
     from repro_torch.models.model import init_params
+    from repro_torch.core.ligo import _flatten
     params = init_params(cfg1, torch.Generator().manual_seed(0),
                          device="meta")
     plan = plan_for(cfg1, cfg2, params)
+    leaves = {kind: _flatten(stack)
+              for kind, stack in params["layers"].items()}
     shapes = []
     for g in plan.groups:
         if not g.kernel_ok:
@@ -297,7 +333,8 @@ def _k1_shapes(torch, cfg1, cfg2):
              if g.out_ref else None)
         shapes.append({
             "name": "+".join(g.paths), "G": len(g.paths),
-            "L2": _kind_counts(cfg2)[g.kind], "L1": g.shape[0],
+            "dtype": leaves[g.kind][g.paths[0]].dtype,
+            "L2": _kind_counts(cfg2)[g.dst_kind], "L1": g.shape[0],
             "E": g.shape[1] if len(g.shape) == 4 else 1,
             "I": _expr_dims(plan.exprs[g.in_ref], cfg1, cfg2)[0],
             "A": g.shape[-2], "b": g.shape[-1], "j": j,
@@ -2892,6 +2929,474 @@ def _quickstart_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE family at full width, under phase 6's deterministic
+# algorithms (after phase 12, before phase 11's profiler slows the host).
+# (a) serve --live-grow-at 8 --hop-operator upcycle: phi4-mini-3.8b hops
+# to its MoE twin (moe_target: E 4, top 2, moe_d_ff 8192) while 16
+# requests decode through 8 slots, paged; (b) the upcycled model's
+# function against the dense model's; (c) MoE -> MoE LiGO growth at
+# mixtral's full width, cut in depth; (d) qwen3-moe-30b-a3b at full width.
+UPCYCLE_REQ, UPCYCLE_GEN = 16, 32
+UPCYCLE_ARGS = ["--arch", "phi4-mini-3.8b", "--hop-operator", "upcycle",
+                "--live-grow-at", "8", "--batch", "8", "--requests",
+                str(UPCYCLE_REQ), "--prompt-len", "128", "--gen",
+                str(UPCYCLE_GEN)]
+# (b): first-token logits of 4 x 128 prompts, the upcycled model at a
+# capacity that drops no token (E / k = 2.0: a zero router sends every
+# token to experts 0..k-1) against the dense model: LIVE_TOL, phase 9's
+# bf16 tolerance for a lossless (LEMON) hop
+UPCYCLE_PROMPTS = (4, 128)
+# (c): source half_config(mixtral-8x7b) cut to 2 layers, target mixtral cut
+# to 4 layers (46.7 B parameters, 93 GB of bf16, do not fit one card); a
+# LiGO phase of 2 steps on 4 x 128 batches; then a prefill of one
+# 4608-token prompt, past the 4096 window (the ring cache), and 8 decode
+# steps
+MIX_SRC_LAYERS, MIX_LAYERS = 2, 4
+MIX_BATCH, MIX_SEQ, MIX_LIGO_STEPS = 4, 128, 2
+MIX_PREFILL_T = 4608
+MOE_DECODE = 8
+# (d): qwen3-moe at its 48 layers when QWEN_FREE_GB stays free after init,
+# else the deepest cut that leaves as much; a prefill of 4 x 2048
+QWEN_BATCH, QWEN_T, QWEN_FREE_GB = 4, 2048, 10.0
+
+
+def _moe_drop_shares(torch, fn):
+    """Run ``fn`` with every MoE layer recording the share of its routed
+    rows that the capacity dropped; returns (fn's result, the shares)."""
+    from repro_torch.models import blocks
+    orig, shares = blocks.apply_moe, []
+
+    def recording(p, x, cfg):
+        out, aux, keep = orig(p, x, cfg, return_keep=True)
+        shares.append(float((~keep).float().mean()))
+        return out, aux
+    blocks.apply_moe = recording
+    try:
+        return fn(), shares
+    finally:
+        blocks.apply_moe = orig
+
+
+def _moe_routes(mode, recorded):
+    """A stand-in for ``models.moe.route`` that records each call's expert
+    choice (``mode`` "record") or replays the recorded ones in call order
+    (``mode`` "replay"; it counts in ``recorded["flips"]`` the routed rows
+    whose own choice differs) while the gate weights come from the
+    call's own probabilities."""
+    import torch
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def route(p, xf, cfg):
+        probs, top_w, top_e = orig(p, xf, cfg)
+        if mode == "record":
+            recorded["top_e"].append(top_e)
+            return probs, top_w, top_e
+        want = recorded["top_e"][recorded["i"]]
+        recorded["i"] += 1
+        recorded["flips"] += int((torch.sort(top_e, -1)[0]
+                                  != torch.sort(want, -1)[0]).any(-1).sum())
+        top_w = torch.gather(probs, -1, want)
+        return probs, top_w / torch.sum(top_w, -1, keepdim=True), want
+    return orig, route
+
+
+def _moe_prefill_check(torch, params, cfg, tokens, max_len):
+    """A prefill of ``tokens`` through K3 (bf16, the model's own entry
+    point) against the plain attention route, both in bf16 and, layer by
+    layer with each layer's parameters cast on the fly, in float32: the
+    routes held as ``_prefill_check`` holds them (float32 to 1e-4; the
+    bf16 K3 route within twice the bf16 plain route's distance from the
+    float32 plain route, plus 1e-2). Every run after the first takes the
+    first run's expert choices (``_moe_routes``): a token whose router
+    margin lies within the routes' rounding would otherwise pick another
+    expert on each route, a jump no tolerance on the logits bounds; the
+    choices the replayed runs would have made otherwise are counted and
+    printed. Returns (bf16 K3 route's decode state, its last-position
+    logits, the K3 launches of its prefill, a summary for the log)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, model, moe
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.tree import tree_map
+    rec = {"top_e": [], "i": 0, "flips": 0}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def layers32(use_kernel):
+        """The prefill's last-position logits in float32, layer by layer."""
+        top = tree_map(lambda t: t.float(),
+                       {k: v for k, v in params.items() if k != "layers"})
+        x, pos = model.embed(top, cfg, {"tokens": tokens})
+        stack = params["layers"][cfg.blocks[0]]
+        for i in range(cfg.n_layers):
+            p = tree_map(lambda t: t.float(), model._index(stack, i))
+            x, _, _ = blocks.apply_moe_block(p, x, cfg, pos, mode="prefill",
+                                             use_kernel=use_kernel)
+        x = apply_norm(top["final_norm"], x, cfg.norm)
+        return model.unembed(top, cfg, x[:, -1])
+
+    def err(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    orig, record = _moe_routes("record", rec)
+    _, replay = _moe_routes("replay", rec)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        try:
+            moe.route = record
+            (k16, state), ms_k = timed(lambda: model.prefill(
+                params, cfg, {"tokens": tokens}, max_len=max_len))
+            n_k3 = ops.launch_counts()["flash_attention"]
+            moe.route = replay
+            p16, ms_p = timed(lambda: model.prefill(
+                params, cfg, {"tokens": tokens}, use_kernel=False)[0])
+            flips16 = rec["flips"]
+            rec.update(i=0, flips=0)
+            k32, ms_k32 = timed(lambda: layers32(None))
+            rec["i"] = 0
+            p32, ms_p32 = timed(lambda: layers32(False))
+        finally:
+            moe.route = orig
+    e16, e32 = err(k16, p16), err(k32, p32)
+    ek, ep = err(k16, p32), err(p16, p32)
+    n_rows = sum(t.shape[0] for t in rec["top_e"])
+    line = (f"prefill {tuple(tokens.shape)}: K3 route {ms_k:.1f} ms ({n_k3} "
+            f"K3 launches), plain route {ms_p:.1f} ms; last-position logits, "
+            f"K3 vs plain, normalised: bf16 {e16:.2e} (not held), float32 "
+            f"{e32:.2e} (tol 1e-4; float32 runs {ms_k32:.0f} / {ms_p32:.0f} "
+            f"ms); bf16 vs the float32 plain route: K3 {ek:.2e}, plain "
+            f"{ep:.2e} (K3 within 2x plain + 1e-2); expert choices replayed "
+            f"from the bf16 K3 run, {flips16} of {n_rows} token-layer choices "
+            f"the bf16 plain route would have made otherwise, "
+            f"{rec['flips']} the float32 plain route")
+    ok = (e32 <= 1e-4 and ek <= 2 * ep + 1e-2 and n_k3 == cfg.n_layers
+          and all(bool(torch.isfinite(x).all()) for x in (k16, k32)))
+    return state, k16, n_k3, line, ok
+
+
+def _upcycle_live(torch, runs, k3):
+    """13 (a) and (b)."""
+    import numpy as np
+    from repro_torch.configs import get_config, moe_target
+    from repro_torch.core.ligo import _flatten
+    from repro_torch.core.plan import plan_for
+    from repro_torch.data import gen_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    cfg1 = get_config("phi4-mini-3.8b")
+    cfg2 = moe_target(cfg1)
+    shapes = _k1_shapes(torch, cfg1, cfg2)
+    k1_grow = _launches(shapes, False)[0]
+    print(f"[moe] (a) {cfg1.name} ({cfg1.param_count() / 1e9:.2f} B "
+          f"parameters) -> {cfg2.name} ({cfg2.param_count() / 1e9:.2f} B; E "
+          f"{cfg2.n_experts}, top {cfg2.experts_top_k}, moe_d_ff "
+          f"{cfg2.moe_d_ff}, capacity {cfg2.capacity_factor}): predicted K1 "
+          f"{k1_grow} a grow over {len(shapes)} kernel-route groups "
+          f"({[sh['name'] for sh in shapes]})", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    a = serve.main(UPCYCLE_ARGS)
+    runs["moe a"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    eng, hop = _live_check(a, UPCYCLE_REQ, UPCYCLE_GEN)
+    if not (a["cfg2"] == cfg2 and hop.completed and hop.attempts == 1
+            and not hop.rollbacks and hop.cache_path == "grow"
+            and eng.kv_layout == "paged" and eng.cfg == cfg2):
+        raise AssertionError(f"(a): hop completed {hop.completed}, attempts "
+                             f"{hop.attempts}, rollbacks {hop.rollbacks}, "
+                             f"cache {hop.cache_path}, layout "
+                             f"{eng.kv_layout}, target {a['cfg2'].name}")
+    pc = eng.prefill_counts
+    n_pre, n_post = pc[(cfg1.name, "admit")], pc[(cfg2.name, "admit")]
+    want = {"ligo_blend_expand_grouped": 2 * k1_grow,
+            "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": _k3_want(eng, cfg1, cfg2)}
+    print(f"[moe] (a) launches {runs['moe a']}, want {want} (K1: warm() "
+          f"and the hop, {k1_grow} each; K3: ({n_pre} dense + {n_post} MoE "
+          f"admissions) x {cfg1.n_layers}, no re-prefill: the cache grew in "
+          f"place)", flush=True)
+    if runs["moe a"] != want or not (n_pre and n_post):
+        raise AssertionError(f"(a) launches {runs['moe a']}, want {want}")
+    k3["engine prefill phi4-mini-3.8b"] = cfg1.n_layers * (n_pre + n_post)
+    print(f"[moe] (a) 0 dropped, 0 rejected, cache {hop.cache_path}; hop ms: "
+          f"warm grow {hop.timings['warm']:.2f}, live grow (grow thread) "
+          f"{hop.timings['grow']:.2f}, cache growth "
+          f"{hop.timings['cache-grow']:.2f}, swap {hop.timings['swap']:.3f}, "
+          f"begin to swap {hop.hop_ms:.2f}; steps {hop.begin_at_step} -> "
+          f"{hop.swap_at_step}; {a['tok_s']:.1f} tok/s over "
+          f"{a['wall_s']:.2f} s; peak device memory {peak:.1f} GB "
+          f"(max_memory_allocated)", flush=True)
+    _decode_report("(a) phi4-mini-3.8b -> phi4-mini-3.8b-moe, background "
+                   "upcycle hop", eng, hop)
+    # the grown tree on the kernel route (the grow thread's, served) against
+    # the plain route: bit for bit (every factor is an identity or [I; 0],
+    # so each product is a copy); every expert a copy of expert 0; the
+    # router zero and float32
+    served = _flatten(eng.params)
+    with torch.no_grad():
+        plain = _flatten(plan_for(cfg1, cfg2, a["small"]).apply(
+            a["ligo"], a["small"], use_kernel=False))
+    if sorted(served) != sorted(plain) or not all(
+            torch.equal(served[k], plain[k]) for k in plain):
+        raise AssertionError("(a) the kernel route's upcycled tree differs "
+                             "from the plain route's")
+    del plain
+    experts = {k: v for k, v in served.items()
+               if k.startswith("layers/moe/moe/w")}
+    router = served["layers/moe/moe/router"]
+    if not (len(experts) == 3 and all(
+            v.shape[1] == cfg2.n_experts
+            and all(torch.equal(v[:, e], v[:, 0])
+                    for e in range(1, cfg2.n_experts))
+            for v in experts.values())
+            and router.dtype == torch.float32 and not bool(router.any())):
+        raise AssertionError("(a) the expert copies differ, or the router "
+                             "is not a float32 zero")
+    print(f"[moe] (a) the served tree: bitwise equal to the plain route's "
+          f"({len(served)} leaves); the "
+          f"{cfg2.n_experts} copies of each of {sorted(experts)} bitwise "
+          f"equal; router float32 zeros", flush=True)
+
+    # (b) function preservation, and the inherited capacity's drops
+    B, T = UPCYCLE_PROMPTS
+    toks = torch.as_tensor(gen_tokens(0, 13, B, T, cfg1.vocab_size)[:, :T],
+                           device="cuda")
+    twin = cfg2.scaled(name=f"{cfg2.name}-cf2",
+                       capacity_factor=cfg2.n_experts / cfg2.experts_top_k)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        dense = model.prefill(a["small"], cfg1, {"tokens": toks})[0]
+        up, twin_drop = _moe_drop_shares(torch, lambda: model.prefill(
+            eng.params, twin, {"tokens": toks})[0])
+        inh, inh_drop = _moe_drop_shares(torch, lambda: model.prefill(
+            eng.params, cfg2, {"tokens": toks})[0])
+    runs["moe b"] = ops.launch_counts()
+    k3["phi4-mini prefill"] = runs["moe b"]["flash_attention"]
+    dense, up, inh = (x.float().cpu().numpy() for x in (dense, up, inh))
+    err, err_inh = _logit_err(up, dense), _logit_err(inh, dense)
+    same = int((up.argmax(-1) == dense.argmax(-1)).sum())
+    print(f"[moe] (b) first-token logits of {B} x {T} prompts, upcycled at "
+          f"capacity {twin.capacity_factor} vs dense: normalised max error "
+          f"{err:.2e} (tol {LIVE_TOL:.0e}), argmax equal in {same}/{B}; "
+          f"dropped share of routed rows {max(twin_drop):.4f} (every "
+          f"layer); at the inherited capacity {cfg2.capacity_factor}: "
+          f"dropped share {min(inh_drop):.4f}-{max(inh_drop):.4f} over "
+          f"{len(inh_drop)} layers, logits error {err_inh:.2e} vs dense "
+          f"(not gated: the JAX package's behaviour too)", flush=True)
+    if (err > LIVE_TOL or max(twin_drop) != 0.0 or len(twin_drop)
+            != cfg2.n_layers or runs["moe b"]["flash_attention"]
+            != 3 * cfg1.n_layers):
+        raise AssertionError(f"(b) upcycled logits {err:.3e}, drops "
+                             f"{twin_drop}, launches {runs['moe b']}")
+    del a, eng, hop, served, experts, router
+    torch.cuda.empty_cache()
+
+
+def _mixtral_growth(torch, runs, k3):
+    """13 (c)."""
+    from repro_torch.configs import get_config, half_config
+    from repro_torch.core.grow import grow
+    from repro_torch.data import batch_for_step, gen_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.training import to_device
+    mix = get_config("mixtral-8x7b")
+    c2 = mix.scaled(name=f"{mix.name}-{MIX_LAYERS}l", n_layers=MIX_LAYERS)
+    c1 = half_config(mix)
+    c1 = c1.scaled(name=f"{c1.name}-{MIX_SRC_LAYERS}l",
+                   n_layers=MIX_SRC_LAYERS)
+    shapes = _k1_shapes(torch, c1, c2)
+    k1_grad, k2_grad = _launches(shapes, True)
+    k1_grow = _launches(shapes, False)[0]
+    want = {"ligo_blend_expand_grouped": k1_grad * MIX_LIGO_STEPS + k1_grow,
+            "ligo_blend_expand_bwd_fused": k2_grad * MIX_LIGO_STEPS,
+            "flash_attention": 0}
+    print(f"[moe] (c) {c1.name} ({c1.param_count() / 1e9:.2f} B) -> "
+          f"{c2.name} ({c2.param_count() / 1e9:.2f} B, "
+          f"{2 * c2.param_count() / 1e9:.1f} GB bf16; the whole "
+          f"{mix.name}: {mix.param_count() / 1e9:.1f} B): groups "
+          + ", ".join(f"{sh['name']} (G {sh['G']}, L1 {sh['L1']}, E "
+                      f"{sh['E']}, A {sh['A']}, b {sh['b']}, "
+                      f"{str(sh['dtype']).replace('torch.', '')})"
+                      for sh in shapes)
+          + f"; predicted launches {want}", flush=True)
+    # K1 and K2 against their plain versions at the expert groups' shapes,
+    # first, on a clean allocator (the float32 plain K2 at moe/w1+moe/w3
+    # takes ~50 GB)
+    moe = [sh for sh in shapes if sh["name"].startswith("moe/")]
+    dt = {sh["name"]: sh["dtype"] for sh in moe}
+    k1_rows = [_check_k1(torch, f"mixtral {name}", dt[name], *d,
+                         seed=400 + i, j=j)
+               for i, (name, d, j) in enumerate(_k1_checks(moe))]
+    k2_rows = [_check_k2(torch, f"mixtral {name}", dt[name], *d,
+                         seed=420 + i, need_dW=need, j=j)
+               for i, (name, d, j, need) in enumerate(_k2_checks(moe))]
+    if not any(r["Bd"] == c2.n_experts and r["dtype"] == "float32"
+               for r in k1_rows) or not any(r["E"] == c2.n_experts
+                                            for r in k1_rows + k2_rows):
+        raise AssertionError("(c) the checks missed the router's Bd = 8 "
+                             "group or the E = 8 expert stacks")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    small = model.init_params(c1, torch.Generator("cuda").manual_seed(0),
+                              device="cuda")
+
+    def data():
+        step = 0
+        while True:
+            yield to_device(batch_for_step(c2, step, MIX_BATCH, MIX_SEQ,
+                                           seed=13), "cuda")
+            step += 1
+    step_ms = []
+    ops.reset_launch_counts()
+    big, info = grow(small, c1, c2, method="ligo",
+                     gen=torch.Generator("cuda").manual_seed(1),
+                     data_it=data(), ligo_steps=MIX_LIGO_STEPS,
+                     ligo_step_ms=step_ms)
+    torch.cuda.synchronize()
+    runs["moe c"] = ops.launch_counts()
+    losses = info["ligo_losses"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[moe] (c) LiGO phase losses {losses}, ms a step {step_ms}, "
+          f"launches {runs['moe c']}, peak device memory {peak:.1f} GB",
+          flush=True)
+    router = big["layers"]["moe"]["moe"]["router"]
+    if (runs["moe c"] != want or len(losses) != MIX_LIGO_STEPS
+            or not all(math.isfinite(x) for x in losses)
+            or router.dtype != torch.float32
+            or tuple(big["layers"]["moe"]["moe"]["w1"].shape)
+            != (c2.n_layers, c2.n_experts, c2.d_model, c2.moe_d_ff)):
+        raise AssertionError(f"(c) launches {runs['moe c']}, want {want}; "
+                             f"losses {losses}; router {router.dtype}")
+    del small, info
+    # a prefill past the window through K3 against the plain route, and
+    # decode steps through the ring cache
+    T = MIX_PREFILL_T
+    toks = torch.as_tensor(gen_tokens(0, 14, 1, T, c2.vocab_size)[:, :T],
+                           device="cuda")
+    st, lk, n_k3, line, ok = _moe_prefill_check(torch, big, c2, toks,
+                                                T + MOE_DECODE)
+    k3["mixtral prefill window"] = n_k3
+    runs["moe c prefill"] = {"ligo_blend_expand_grouped": 0,
+                             "ligo_blend_expand_bwd_fused": 0,
+                             "flash_attention": n_k3}
+    with torch.no_grad():
+        nxt = torch.argmax(lk, -1)[:, None]
+        dec, fin = [], True
+        for _ in range(MOE_DECODE):
+            t0 = time.perf_counter()
+            lg, st = model.decode_step(big, c2, st, {"tokens": nxt})
+            torch.cuda.synchronize()
+            dec.append((time.perf_counter() - t0) * 1e3)
+            fin = fin and bool(torch.isfinite(lg).all())
+            nxt = torch.argmax(lg, -1)[:, None]
+    ring = st["caches"]["k"].shape[2]
+    print(f"[moe] (c) window {c2.window}, {line}; {MOE_DECODE} decode steps "
+          f"through the {ring}-slot ring cache, ms "
+          f"{[round(x, 2) for x in dec]}", flush=True)
+    if not (ok and fin and ring == c2.window):
+        raise AssertionError(f"(c) the prefill through K3 disagrees with the "
+                             f"plain route, or decode: finite {fin}, ring "
+                             f"{ring}")
+    del big, st, lk, lg
+    torch.cuda.empty_cache()
+    return k1_rows, k2_rows
+
+
+def _qwen3_moe(torch, runs, k3):
+    """13 (d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import gen_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    q = get_config("qwen3-moe-30b-a3b")
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    base = 2 * q.scaled(n_layers=0).param_count()
+    per_layer = 2 * (q.param_count() - q.scaled(n_layers=0).param_count()
+                     ) / q.n_layers
+    # init's float32 temporaries: the largest whole-stack attention draw
+    # (wq, 48 x 2048 x 4096) and the embedding's
+    margin = 4 * (q.n_layers * q.d_model * q.q_dim
+                  + q.vocab_size * q.d_model)
+    L = q.n_layers
+    while L > 1 and free0 - base - per_layer * L - margin \
+            < QWEN_FREE_GB * 1e9:
+        L -= 1
+    cfg = q if L == q.n_layers else q.scaled(name=f"{q.name}-{L}l",
+                                             n_layers=L)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    free1 = torch.cuda.mem_get_info()[0]
+    print(f"[moe] (d) {cfg.name}: {L} of {q.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B parameters "
+          f"({2 * cfg.param_count() / 1e9:.1f} GB bf16; E {cfg.n_experts}, "
+          f"top {cfg.experts_top_k}, q width {cfg.q_dim} vs d_model "
+          f"{cfg.d_model}); init {init_s:.1f} s; free after init "
+          f"{free1 / 1e9:.1f} GB (need {QWEN_FREE_GB:.0f})", flush=True)
+    if free1 < QWEN_FREE_GB * 1e9:
+        raise AssertionError(f"(d) {free1 / 1e9:.1f} GB free after init")
+    toks = torch.as_tensor(gen_tokens(0, 15, QWEN_BATCH, QWEN_T,
+                                      cfg.vocab_size)[:, :QWEN_T],
+                           device="cuda")
+    st, lk, n_k3, line, ok = _moe_prefill_check(torch, params, cfg, toks,
+                                                QWEN_T + MOE_DECODE)
+    runs["moe d"] = {"ligo_blend_expand_grouped": 0,
+                     "ligo_blend_expand_bwd_fused": 0, "flash_attention": n_k3}
+    k3["qwen3-moe prefill"] = n_k3
+    with torch.no_grad():
+        nxt = torch.argmax(lk, -1)[:, None]
+        dec, fin = [], True
+        for _ in range(MOE_DECODE):
+            t0 = time.perf_counter()
+            lg, st = model.decode_step(params, cfg, st, {"tokens": nxt})
+            torch.cuda.synchronize()
+            dec.append((time.perf_counter() - t0) * 1e3)
+            fin = fin and bool(torch.isfinite(lg).all())
+            nxt = torch.argmax(lg, -1)[:, None]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[moe] (d) {line}; {MOE_DECODE} decode steps of {QWEN_BATCH} "
+          f"rows, ms {[round(x, 2) for x in dec]}; peak device memory "
+          f"{peak:.1f} GB", flush=True)
+    if not (ok and fin):
+        raise AssertionError(f"(d) the prefill through K3 disagrees with the "
+                             f"plain route, or decode is not finite ({fin})")
+    del params, st, lk, lg
+    torch.cuda.empty_cache()
+
+
+def _moe_phase(torch):
+    """Phase 13 (a)-(d). Returns the launches of its runs by run, the K3
+    launches by K3_SHAPES row, and (c)'s K1 and K2 check rows."""
+    import gc
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe] phase 13 starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by "
+          f"earlier phases", flush=True)
+    runs, k3 = {}, {}
+    _upcycle_live(torch, runs, k3)
+    k1_rows, k2_rows = _mixtral_growth(torch, runs, k3)
+    _qwen3_moe(torch, runs, k3)
+    print(f"[moe] phase 13 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3, k1_rows, k2_rows
+
+
 def main() -> int:
     # cuBLAS is deterministic under use_deterministic_algorithms (phase 6)
     # only with a fixed workspace, set before its first handle
@@ -3159,6 +3664,7 @@ def main() -> int:
     print(f"[train] ms per LiGO step {tres['ligo_step_ms']} | ms per train "
           f"step {tres['train_step_ms']} | {tres['tok_s']:.0f} tokens/s "
           f"(median step, first left out)", flush=True)
+    del tres          # not read again: free its trees for the later phases
     k2 = {key: sum(r[key] for r in main_rows2)
           for key in ("ms", "library_ms", "library_minflop_ms", "bound_ms",
                       "gflop", "mbytes")}
@@ -3222,6 +3728,14 @@ def main() -> int:
     # (before phase 11, whose profiler slows the host for the rest of the
     # process)
     traj["launches"].update(_autogrow_phase(torch, shapes))
+
+    # -- phase 13: the MoE family at full width -----------------------------
+    moe_runs, k3_moe, moe_k1, moe_k2 = _moe_phase(torch)
+    traj["launches"].update(moe_runs)
+    for shape, n in k3_moe.items():
+        k3_engine[shape] = k3_engine.get(shape, 0) + n
+    rows += moe_k1
+    rows2 += moe_k2
 
     # -- phase 11: the observability layer at full width ---------------------
     obs_runs, k3_obs = _obs_phase(torch, shapes)

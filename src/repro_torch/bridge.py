@@ -7,7 +7,8 @@ transposes, no renames. :func:`to_torch` takes any tree of array-likes that
 hands over without this module importing JAX); :func:`to_numpy` goes back.
 numpy has no bfloat16, so bf16 leaves cross as float32 on the way back
 (exact), and bf16 leaves coming in (``ml_dtypes.bfloat16``) are taken bit for
-bit.
+bit. Every leaf keeps its own dtype: an MoE tree's float32 router rides
+beside bf16 experts in both packages, and a ``dtype`` cast passes it by.
 """
 from __future__ import annotations
 
@@ -28,12 +29,20 @@ def _leaf_to_torch(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device)
 
 
+# Leaves that are float32 in a model of any dtype (``models/moe.py``).
+FLOAT32_LEAVES = ("router",)
+
+
 def to_torch(tree: Any, device="cpu", dtype: Optional[torch.dtype] = None):
     """A nested dict of arrays → the same dict of tensors on ``device``.
 
-    ``dtype`` casts floating leaves (integer leaves keep theirs)."""
+    ``dtype`` casts floating leaves, except the float32 ones the models
+    keep in any dtype (:data:`FLOAT32_LEAVES`); integer leaves keep
+    theirs."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: to_torch(v, device,
+                            None if k in FLOAT32_LEAVES else dtype)
+                for k, v in tree.items()}
     return _leaf_to_torch(tree, device, dtype)
 
 

@@ -3,22 +3,25 @@ and the reductions derived from them.
 
 The port's registry holds the paper models (``configs/paper_models.py``)
 and the JAX package's assigned architectures of the dense family
-(llama3-8b, phi4-mini-3.8b, starcoder2-7b, deepseek-coder-33b), each a copy
-of the JAX package's config. The other assigned architectures (MoE, SSM,
-hybrid, VLM, audio) join it with the slices that port their model families.
+(llama3-8b, phi4-mini-3.8b, starcoder2-7b, deepseek-coder-33b) and the MoE
+family (mixtral-8x7b, qwen3-moe-30b-a3b), each a copy of the JAX package's
+config. The other assigned architectures (SSM, hybrid, VLM, audio) join it
+with the slices that port their model families.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.configs import (deepseek_coder_33b, llama3_8b,
-                                 phi4_mini_3_8b, starcoder2_7b)
-from repro_torch.configs.base import ModelConfig, TrainConfig
+                                 mixtral_8x7b, phi4_mini_3_8b,
+                                 qwen3_moe_30b_a3b, starcoder2_7b)
+from repro_torch.configs.base import MOE, ModelConfig, TrainConfig
 from repro_torch.configs.paper_models import GROWTH_PAIRS, PAPER_MODELS
 
 ASSIGNED: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (llama3_8b, phi4_mini_3_8b, starcoder2_7b, deepseek_coder_33b)
+    for m in (llama3_8b, phi4_mini_3_8b, starcoder2_7b, deepseek_coder_33b,
+              mixtral_8x7b, qwen3_moe_30b_a3b)
 }
 
 REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}
@@ -85,6 +88,29 @@ def grow_target(cfg: ModelConfig, *, layers_mult: int = 2,
     )
 
 
+def moe_target(cfg: ModelConfig, *, n_experts: int = 4, top_k: int = 2,
+               ff_mult: float = 1.0) -> ModelConfig:
+    """The MoE twin of a dense config — the dense→MoE upcycling target.
+
+    Same trunk (depth, width, head layout); the dense FFN becomes an
+    ``n_experts``-way expert stack with ``moe_d_ff = d_ff * ff_mult``
+    (``ff_mult >= 1`` keeps the upcycle lossless: extra expert columns are
+    zero-padded). ``capacity_factor`` is inherited, so smoke sources (8.0)
+    get drop-free MoE twins for exactness tests."""
+    if cfg.family != "dense":
+        raise ValueError(f"moe_target needs a dense source, got "
+                         f"{cfg.family!r} ({cfg.name})")
+    return cfg.scaled(
+        name=cfg.name + "-moe",
+        family="moe",
+        block_pattern=(MOE,),
+        n_experts=n_experts,
+        experts_top_k=min(top_k, n_experts),
+        moe_d_ff=int(cfg.d_ff * ff_mult),
+        d_ff=0,
+    )
+
+
 def half_config(cfg: ModelConfig) -> ModelConfig:
     """The smaller pretrained source model for growing into ``cfg`` (the
     paper's setting: the source is roughly half depth / ~2/3 width)."""
@@ -104,4 +130,4 @@ def half_config(cfg: ModelConfig) -> ModelConfig:
 
 __all__ = ["REGISTRY", "ASSIGNED", "PAPER_MODELS", "GROWTH_PAIRS",
            "ModelConfig", "TrainConfig", "get_config", "list_archs",
-           "smoke_config", "grow_target", "half_config"]
+           "smoke_config", "grow_target", "moe_target", "half_config"]

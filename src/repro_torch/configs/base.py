@@ -96,6 +96,16 @@ class ModelConfig:
         reps = (self.n_layers + len(pat) - 1) // len(pat)
         return tuple((pat * reps)[: self.n_layers])
 
+    @property
+    def q_dim(self) -> int:
+        """Query width ``n_heads · d_head``; not ``d_model`` where the head
+        size is decoupled (qwen3-moe: 32 · 128 = 4096 against 2048)."""
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
     def param_count(self) -> int:
         """Exact parameter count (mirrors models.init_params leaf-for-leaf)."""
         D, H, KV, dh, F, V, L = (self.d_model, self.n_heads, self.n_kv_heads,
@@ -154,8 +164,7 @@ class ModelConfig:
         return int(total)
 
     def active_param_count(self) -> int:
-        """Parameters touched per token (MoE: top-k experts only); for the
-        dense family, the port's, it is :meth:`param_count`."""
+        """Parameters touched per token (MoE: top-k experts only)."""
         if not self.n_experts:
             return self.param_count()
         E, k, Fm, D = (self.n_experts, self.experts_top_k, self.moe_d_ff,

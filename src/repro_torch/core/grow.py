@@ -8,6 +8,8 @@
   frozen), materialise Θ_large;
 - ``"stackbert"``, ``"interpolation"``, ``"net2net"``, ``"bert2bert"``,
   ``"lemon"``: classical operators, no learning;
+- ``"upcycle"``: dense→MoE sparse upcycling (``core/upcycle.py``), every
+  expert a copy of the dense FFN and the router zero;
 - ``"random"``: a fresh init of the large model (the from-scratch baseline).
 
 The LiGO phase is a Python loop of (loss, backward, momentum, SGD) over the
@@ -313,6 +315,9 @@ def grow(small_params, cfg1: ModelConfig, cfg2: ModelConfig, *,
         op = ops.bert2bert_operator(gen, cfg1, cfg2, device=dev)
     elif method == "lemon":
         op = ops.lemon_operator(cfg1, cfg2, device=dev)
+    elif method == "upcycle":
+        from repro_torch.core.upcycle import upcycle_operator
+        op = upcycle_operator(cfg1, cfg2, device=dev)
     elif method == "ligo":
         op = init_ligo_params(gen, cfg1, cfg2, device=dev,
                               depth_init=depth_init)

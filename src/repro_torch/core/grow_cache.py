@@ -214,19 +214,18 @@ def replay_grow_state(state: Dict[str, Any], params2, cfg1: ModelConfig,
     Old-layer caches are reused as they are (width untouched, so the same
     (KV, dh)), for both the dense rows and the paged block pools.
     """
-    from repro_torch.models import blocks as B
     from repro_torch.models.layers import paged_targets
-    from repro_torch.models.model import DTYPES, _index
+    from repro_torch.models.model import DTYPES, _apply_layer, _index
     old_k = state["caches"]["k"]
     h = torch.as_tensor(np.asarray(resid)).to(old_k.device,
                                                DTYPES[cfg2.dtype])
     cap = h.shape[1]
     positions = torch.arange(cap, device=h.device)[None]
-    p_stack = params2["layers"]["attn"]
+    p_stack = params2["layers"][cfg2.blocks[0]]
     rows_k, rows_v = [], []
     for l in range(cfg1.n_layers, cfg2.n_layers):
-        h, nc = B.apply_attn(_index(p_stack, l), h, cfg2, positions,
-                             mode="prefill", use_kernel=use_kernel)
+        h, nc, _ = _apply_layer(_index(p_stack, l), h, cfg2, positions,
+                                mode="prefill", use_kernel=use_kernel)
         rows_k.append(nc["k"])
         rows_v.append(nc["v"])
     new_k = torch.stack(rows_k)                 # (L_new, slots, cap, KV, dh)

@@ -11,7 +11,9 @@
 Untied in-expanders are stored under ``"<name>__in"``. ``apply_ligo`` routes
 through the :class:`repro_torch.core.plan.GrowthPlan` (``engine="plan"``) or
 the per-leaf walk below (``engine="legacy"``), which is the port's own
-correctness oracle, as in the JAX package.
+correctness oracle, as in the JAX package. Both carry the dense→MoE hop
+(:func:`repro_torch.core.spec.family_hop`): renamed leaves, expert
+replication and created (zero) leaves.
 """
 from __future__ import annotations
 
@@ -131,6 +133,15 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
     return out
 
 
+def replicate_experts(stack: torch.Tensor, E: int) -> torch.Tensor:
+    """Expert replication of a grown stack, (L2, a, b) -> (L2, E, a, b):
+    coefficient-1 copies, so equally the squared (AdamW ``v``) operator.
+    Each copy is whole, as a JAX array is a value: a stride-0 view would
+    alias every expert under in-place updates and checkpoint writes."""
+    return stack[:, None].expand(
+        stack.shape[:1] + (E,) + stack.shape[1:]).clone()
+
+
 def _kind_counts(cfg: ModelConfig) -> Dict[str, int]:
     counts: Dict[str, int] = {}
     for k in cfg.blocks:
@@ -177,13 +188,16 @@ def init_ligo_params(gen: torch.Generator, cfg1: ModelConfig,
     """
     dev = resolve_device(device)
     S.check_growable(cfg1, cfg2)
-    S.check_same_family(cfg1, cfg2)
     d1s, d2s = S.width_dims(cfg1), S.width_dims(cfg2)
     width = {name: _expand_init(gen, d2s[name], d1s[name], noise, dev)
              for name in sorted(d2s)}
     pattern = stack_pattern if depth_init == "stack" else interp_pattern
     c1, c2 = _kind_counts(cfg1), _kind_counts(cfg2)
-    depth = {kind: {leaf: pattern(c2[kind], c1[kind], dev)
+    hop = S.family_hop(cfg1, cfg2)
+    kmap = hop["kind_map"] if hop else {}
+    # depth blends are keyed by SOURCE kind; on a family-changing hop the
+    # target layer count lives under the mapped kind
+    depth = {kind: {leaf: pattern(c2[kmap.get(kind, kind)], c1[kind], dev)
                     for leaf in S.layer_spec(kind, cfg1, cfg2)}
              for kind in c1}
     return {"width": width, "depth": depth}
@@ -214,10 +228,15 @@ def apply_ligo(ligo: Params, small: Params, cfg1: ModelConfig,
             ligo, small, use_kernel=use_kernel, square=square)
     if engine != "legacy":
         raise ValueError(f"unknown growth engine {engine!r}")
-    S.check_same_family(cfg1, cfg2)
     width = ligo["width"]
     top = S.top_spec()
     out_layers: Params = {}
+    hop = S.family_hop(cfg1, cfg2)
+    kmap = hop["kind_map"] if hop else {}
+    renames = hop["renames"] if hop else {}
+    bcast = hop["broadcast"] if hop else {}
+    created = hop["created"] if hop else {}
+    c2 = _kind_counts(cfg2)
 
     def _sq(E):
         return None if E is None else E * E
@@ -241,8 +260,15 @@ def apply_ligo(ligo: Params, small: Params, cfg1: ModelConfig,
                     blend = blend * blend
                 wide = torch.einsum("kl,l...->k...", blend.to(wide.dtype),
                                     wide)
-            grown[path] = wide
-        out_layers[kind] = _unflatten(grown)
+            dst = renames.get(path, path)
+            grown[dst] = (replicate_experts(wide, bcast[dst]) if dst in bcast
+                          else wide)
+        tgt_kind = kmap.get(kind, kind)
+        for cpath, (shape, dt) in created.get(tgt_kind, {}).items():
+            grown[cpath] = torch.zeros((c2[tgt_kind],) + tuple(shape),
+                                       dtype=getattr(torch, dt),
+                                       device=W.device)
+        out_layers[tgt_kind] = _unflatten(grown)
 
     out: Params = {"layers": out_layers}
     flat_top = _flatten({k: v for k, v in small.items() if k != "layers"})

@@ -31,6 +31,13 @@ per-block partials and reduced in a second pass), so it takes every group
 K1 takes, at any width. Both kernels raise on grids beyond CUDA's limits
 (such as more than 65535 (g, k, e) slabs).
 
+A family-changing hop (dense→MoE upcycling, :func:`repro_torch.core.spec.
+family_hop`) lands each group under its target kind and paths
+(``LeafGroup.out_kind`` / ``out_paths``), replicates the expert leaves E
+times after the group runs (``bcast``; the copies are materialised, as JAX
+arrays are values) and makes the target-only leaves, the router, as zeros
+(``GrowthPlan.created``).
+
 ``compose_ligo`` / ``compose_chain`` fold successive hops' operators into one
 ``cfg_A→cfg_C`` operator analytically (width factors as matrix products,
 depth patterns as chained blends), so a multi-hop ``--grow-to`` runs as one
@@ -39,6 +46,7 @@ out: the port grows on one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from itertools import permutations
@@ -49,7 +57,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spec as S
 from repro_torch.core.ligo import (_flatten, _kind_counts, _unflatten,
-                                   resolve_expander)
+                                   replicate_experts, resolve_expander)
 from repro_torch.kernels import ops
 
 ExprRef = Tuple[Any, str]          # (hashable expr key, role) — plan.exprs key
@@ -94,6 +102,19 @@ class LeafGroup:
     kernel_ok: bool                # may run on kernels K1 and K2
     right: str = "after"           # K1 route: where the right expansion
     right_grad: str = "after"      # runs without / with gradients
+    # Family-changing hops (dense→MoE upcycling): where the grown leaves
+    # land. Defaults mean "same kind / same paths" (every same-family plan).
+    out_kind: str = ""             # target stack kind when it differs
+    out_paths: Tuple[str, ...] = ()  # target leaf paths when renamed
+    bcast: int = 0                 # expert-replication count (0 = none)
+
+    @property
+    def dst_kind(self) -> str:
+        return self.out_kind or self.kind
+
+    @property
+    def dst_paths(self) -> Tuple[str, ...]:
+        return self.out_paths or self.paths
 
 
 def _best_order(ops_present, L1: int, L2: int, extra: int, a: int, b: int,
@@ -196,10 +217,16 @@ class GrowthPlan:
 
     def __init__(self, cfg1: ModelConfig, cfg2: ModelConfig,
                  groups: Tuple[LeafGroup, ...],
-                 exprs: Dict[ExprRef, Any]):
+                 exprs: Dict[ExprRef, Any],
+                 created: Optional[Dict[str, Dict[str, Tuple]]] = None):
         self.cfg1, self.cfg2 = cfg1, cfg2
         self.groups = groups
         self.exprs = exprs
+        # Target-only leaves with no source (family hops): kind → {path:
+        # (full stacked shape, dtype name)}, made as zeros by ``apply``
+        # (zeros are the function-preserving router init and the right
+        # created value for both AdamW moment maps).
+        self.created = created or {}
 
     def _expander_table(self, width) -> Dict[ExprRef, torch.Tensor]:
         return {ref_: resolve_expander(expr, width, self.cfg1, self.cfg2,
@@ -289,7 +316,9 @@ class GrowthPlan:
             table = {ref_: E * E for ref_, E in table.items()}
 
         grown_stacks: Dict[str, Dict[str, torch.Tensor]] = {
-            g.kind: {} for g in self.groups if g.kind}
+            g.dst_kind: {} for g in self.groups if g.kind}
+        for kind in self.created:
+            grown_stacks.setdefault(kind, {})
         grown_top: Dict[str, torch.Tensor] = {}
 
         for g in self.groups:
@@ -307,9 +336,16 @@ class GrowthPlan:
                 out = self._run_group_fused(g, X, E_in, E_out, w_g)
             else:
                 out = self._run_group(g, X, E_in, E_out, w_g)
-            dst = grown_stacks[g.kind] if g.kind else grown_top
-            for gi, p in enumerate(g.paths):
-                dst[p] = out[gi]
+            dst = grown_stacks[g.dst_kind] if g.kind else grown_top
+            for gi, p in enumerate(g.dst_paths):
+                dst[p] = (replicate_experts(out[gi], g.bcast) if g.bcast
+                          else out[gi])
+
+        dev = next(iter(flat_top.values())).device
+        for kind, leaves_c in self.created.items():
+            for path, (shape, dt) in leaves_c.items():
+                grown_stacks[kind][path] = torch.zeros(
+                    shape, dtype=getattr(torch, dt), device=dev)
 
         out_tree: Dict[str, Any] = {"layers": {
             kind: _unflatten(grown) for kind, grown in grown_stacks.items()}}
@@ -333,10 +369,13 @@ def _tree_signature(small) -> Tuple:
 @functools.lru_cache(maxsize=128)
 def _build_plan(cfg1: ModelConfig, cfg2: ModelConfig, sig) -> GrowthPlan:
     layers_sig, top_sig = sig
-    S.check_same_family(cfg1, cfg2)
     c2 = _kind_counts(cfg2)
     groups = []
     exprs: Dict[ExprRef, Any] = {}
+    hop = S.family_hop(cfg1, cfg2)
+    kmap = hop["kind_map"] if hop else {}
+    renames = hop["renames"] if hop else {}
+    bcast_map = hop["broadcast"] if hop else {}
 
     def register(expr, role: str) -> Optional[ExprRef]:
         if expr is None:
@@ -348,20 +387,28 @@ def _build_plan(cfg1: ModelConfig, cfg2: ModelConfig, sig) -> GrowthPlan:
     for kind, leaves in layers_sig:
         lspec = S.layer_spec(kind, cfg1, cfg2)
         stacked = kind != "shared_attn"
-        L2 = c2.get(kind, 0)
+        tgt_kind = kmap.get(kind, kind)
+        L2 = c2.get(tgt_kind, 0)
         buckets: Dict[Tuple, list] = {}
         for path, shape in leaves:
             in_e, out_e = lspec[path]
             vec = len(shape) == (2 if stacked else 1)
+            dst = renames.get(path, path)
+            bc = bcast_map.get(dst, 0)
             key = (shape, _expr_key(in_e) if not vec else None,
-                   _expr_key(out_e), vec)
-            buckets.setdefault(key, []).append((path, in_e, out_e))
-        for (shape, _ik, _ok, vec), members in sorted(buckets.items(),
-                                                      key=str):
-            paths = tuple(p for p, _, _ in members)
-            in_e, out_e = members[0][1], members[0][2]
+                   _expr_key(out_e), vec, bc)
+            buckets.setdefault(key, []).append((path, dst, in_e, out_e))
+        for (shape, _ik, _ok, vec, bc), members in sorted(buckets.items(),
+                                                          key=str):
+            paths = tuple(p for p, _, _, _ in members)
+            dsts = tuple(d for _, d, _, _ in members)
+            in_e, out_e = members[0][2], members[0][3]
             g = _plan_group(kind, stacked, paths, shape,
                             None if vec else in_e, out_e, vec, L2, cfg1, cfg2)
+            if hop is not None:
+                g = dataclasses.replace(
+                    g, out_kind=tgt_kind if tgt_kind != kind else "",
+                    out_paths=dsts if dsts != paths else (), bcast=bc)
             if not vec:
                 register(in_e, "in")
             register(out_e, "out")
@@ -384,7 +431,14 @@ def _build_plan(cfg1: ModelConfig, cfg2: ModelConfig, sig) -> GrowthPlan:
             register(in_e, "in")
         register(out_e, "out")
         groups.append(g)
-    return GrowthPlan(cfg1, cfg2, tuple(groups), exprs)
+
+    created: Dict[str, Dict[str, Tuple]] = {}
+    if hop is not None:
+        for kind, leaves_c in hop.get("created", {}).items():
+            created[kind] = {
+                path: ((c2[kind],) + tuple(shape), dt)
+                for path, (shape, dt) in leaves_c.items()}
+    return GrowthPlan(cfg1, cfg2, tuple(groups), exprs, created)
 
 
 def plan_for(cfg1: ModelConfig, cfg2: ModelConfig, small) -> GrowthPlan:

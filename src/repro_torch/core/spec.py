@@ -14,7 +14,9 @@ grown), a learnable width matrix by name ("emb", "q", "k", "v", "fc", ...),
 ``("gamma", "v")`` (GQA group-expanded value expander) or ``("seg", [(expr,
 n1, n2), ...])`` (block-diagonal over column segments). Vectors use only
 ``out_expr``. A copy of the JAX package's rules for the dense attention
-family; the SSM / xLSTM / MoE stack specs come with their model families.
+and MoE families, and for the one cross-family hop (dense→MoE upcycling,
+:func:`family_hop`); the SSM / xLSTM stack specs come with their model
+families.
 """
 from __future__ import annotations
 
@@ -63,12 +65,26 @@ def _attn_spec(cfg1: ModelConfig) -> Dict[str, Spec]:
     return s
 
 
+def _moe_spec(cfg1: ModelConfig) -> Dict[str, Spec]:
+    s = _attn_spec(cfg1)
+    s.update({
+        "moe/router": ("emb", None),        # expert count is not grown
+        "moe/w1": ("emb", "fc"),            # (E, D, F): E broadcast
+        "moe/w3": ("emb", "fc"),
+        "moe/w2": ("fc", "emb"),
+    })
+    return s
+
+
 def layer_spec(kind: str, cfg1: ModelConfig, cfg2: ModelConfig
                ) -> Dict[str, Spec]:
     if kind in ("attn", "shared_attn"):
         return _attn_spec(cfg1)
+    if kind == "moe":
+        return _moe_spec(cfg1)
     raise NotImplementedError(
-        f"layer kind {kind!r} is not ported yet (dense attention family only)")
+        f"layer kind {kind!r} is not ported yet (ROADMAP, 'the other "
+        f"families')")
 
 
 def top_spec() -> Dict[str, Spec]:
@@ -110,16 +126,6 @@ def family_hop(cfg1: ModelConfig, cfg2: ModelConfig) -> Optional[Dict]:
                                                "float32")}},
         }
     return None
-
-
-def check_same_family(cfg1: ModelConfig, cfg2: ModelConfig) -> None:
-    """The port grows within one model family; dense→MoE upcycling (the
-    one cross-family hop :func:`family_hop` describes) comes with the MoE
-    family."""
-    if family_hop(cfg1, cfg2) is not None:
-        raise NotImplementedError(
-            f"{cfg1.name} -> {cfg2.name} changes the model family "
-            f"({cfg1.family} -> {cfg2.family}); not ported yet")
 
 
 def check_growable(cfg1: ModelConfig, cfg2: ModelConfig) -> None:

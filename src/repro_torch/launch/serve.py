@@ -31,8 +31,10 @@ continuous-batching engine (``repro_torch.serving``) and hops to the
 ``--grow-to`` target after N decode steps *while serving*: the grown params
 materialise double-buffered (through K1, on a side stream of a background
 thread unless ``--hop-sync``), live sessions' KV caches migrate (in place
-when the operator is lossless, ``--hop-operator lemon``; re-prefilled
-through K3 otherwise) and the buffers swap between decode steps. A failed
+when the operator is lossless, ``--hop-operator lemon`` or ``upcycle``;
+re-prefilled through K3 otherwise) and the buffers swap between decode
+steps. ``--hop-operator upcycle`` hops a dense model to its MoE twin
+(``moe_target``: 4 experts, top 2). A failed
 hop (inject one with ``--fail-at-hop grow|cache-grow|swap|hang``) rolls
 back and retries with backoff; admitted requests never drop either way::
 
@@ -79,7 +81,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.configs import get_config, grow_target, smoke_config
+from repro_torch.configs import (get_config, grow_target, moe_target,
+                                 smoke_config)
 from repro_torch.core import compose_chain, init_ligo_params, plan_for
 from repro_torch.data import gen_tokens
 from repro_torch.device import resolve_device
@@ -97,13 +100,17 @@ def _target_chain(cfg, target: str, *, smoke: bool):
     """Resolve a (possibly multi-hop) ``--grow-to`` spec into a config chain.
 
     Each comma-separated hop is a registry arch name (smoke-reduced when
-    serving in smoke mode) or ``"Nx"`` with N a power of two — the
+    serving in smoke mode), ``"moe"`` (``moe_target`` of the previous hop,
+    the dense→MoE upcycling target) or ``"Nx"`` with N a power of two — the
     *cumulative* grow_target multiple relative to the most recent named arch.
     """
     chain, cur, cum = [], cfg, 1
     for tok in target.split(","):
         tok = tok.strip()
-        if tok.endswith("x") and tok[:-1].isdigit():
+        if tok == "moe":                 # dense -> MoE upcycling target
+            cur = moe_target(cur)
+            cum = 1
+        elif tok.endswith("x") and tok[:-1].isdigit():
             n = int(tok[:-1])
             if n <= cum or n % cum or ((n // cum) & (n // cum - 1)):
                 raise SystemExit(
@@ -200,9 +207,20 @@ def _live_operator(args, cfg, dev):
         cfg2 = cfg.scaled(name=f"{cfg.name}-ff2", d_ff=cfg.d_ff * 2)
         return cfg2, lemon_operator(cfg, cfg2, device=dev)
     if args.hop_operator == "upcycle":
-        raise SystemExit("--hop-operator upcycle: dense -> MoE upcycling is "
-                         "not ported yet (ROADMAP item 'the other "
-                         "families')")
+        # dense -> MoE upcycling: every expert a copy of the dense FFN, the
+        # router zero; lossless, so the cache grows in place (attention is
+        # untouched by the hop). --grow-to names the MoE target (default:
+        # moe_target of the served arch)
+        from repro_torch.core.upcycle import upcycle_operator
+        if args.grow_to:
+            tail = _target_chain(cfg, args.grow_to, smoke=args.smoke)
+            if len(tail) != 1:
+                raise SystemExit("--hop-operator upcycle takes a single-hop "
+                                 "--grow-to target")
+            cfg2 = tail[0]
+        else:
+            cfg2 = moe_target(cfg)
+        return cfg2, upcycle_operator(cfg, cfg2, device=dev)
     chain = [cfg] + _target_chain(cfg, args.grow_to or "2x",
                                   smoke=args.smoke)
     ops_ = [init_ligo_params(
@@ -425,8 +443,11 @@ def parse_args(argv: Optional[List[str]] = None):
                       help="ligo: a seeded LiGO operator to the --grow-to "
                            "target (default 2x); lemon: the lossless zero-pad "
                            "d_ff doubling of the served arch (--grow-to "
-                           "ignored; the cache grows in place); upcycle: not "
-                           "ported yet")
+                           "ignored; the cache grows in place); upcycle: "
+                           "dense -> MoE upcycling to the --grow-to MoE "
+                           "target (default: the served arch's moe_target), "
+                           "function-preserving at a capacity that drops no "
+                           "token; the cache grows in place")
     live.add_argument("--hop-sync", action="store_true",
                       help="grow synchronously in the engine thread instead "
                            "of overlapped with decoding")

@@ -1,4 +1,5 @@
-"""Residual blocks of the dense family: attention + MLP.
+"""Residual blocks: attention + MLP (the dense family) and attention +
+mixture-of-experts (the MoE family).
 
 ``init_attn(gen, cfg, ...)`` returns one layer's params (or a stack of them
 with ``lead=(L,)``); ``apply_attn(p, x, cfg, positions, mode=...)`` runs one
@@ -18,7 +19,10 @@ layer in three modes:
   block pools ``(n_blocks + 1, block_size, KV, dh)`` the slots share
   (``serving.kv_pages``), written through the table, also in place.
 
-The MoE, xLSTM and Mamba2 blocks come with their model families.
+``init_moe_block`` / ``apply_moe_block`` are the same attention sub-block
+followed by ``models.moe``'s expert layer in place of the MLP; the block
+also returns the layer's router auxiliary loss. The xLSTM and Mamba2
+blocks come with their model families.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        full_attention, init_mlp, init_norm,
                                        paged_decode_attention,
                                        write_token_paged)
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 def _use_bias(cfg) -> bool:
@@ -39,7 +44,9 @@ def _use_bias(cfg) -> bool:
 
 
 def init_attn(gen, cfg, *, dtype=torch.float32, device=None,
-              lead: Tuple[int, ...] = ()):
+              lead: Tuple[int, ...] = (), mlp: bool = True):
+    """One attention layer's params (a stack with ``lead=(L,)``), with its
+    dense MLP when ``cfg.d_ff > 0`` and ``mlp``."""
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kw = dict(dtype=dtype, device=device, lead=lead)
     p = {
@@ -56,7 +63,7 @@ def init_attn(gen, cfg, *, dtype=torch.float32, device=None,
                         ("bo", D)):
             p[name] = torch.zeros(tuple(lead) + (n,), dtype=dtype,
                                   device=device)
-    if cfg.d_ff > 0:
+    if mlp and cfg.d_ff > 0:
         p["mlp"] = init_mlp(gen, D, cfg.d_ff, cfg.act, _use_bias(cfg),
                             cfg.n_layers, **kw)
     return p
@@ -131,3 +138,31 @@ def apply_attn(p, x, cfg, positions, *, mode: str = "train",
         h2 = apply_norm(p["ln2"], x, cfg.norm)
         x = x + apply_mlp(p["mlp"], h2, cfg.act)
     return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MoE block (attention + expert MLP)
+# ---------------------------------------------------------------------------
+def init_moe_block(gen, cfg, *, dtype=torch.float32, device=None,
+                   lead: Tuple[int, ...] = ()):
+    """The attention sub-block's params (no dense MLP, even where the
+    config carries a ``d_ff``, as mixtral's does) and ``"moe"``."""
+    p = init_attn(gen, cfg, dtype=dtype, device=device, lead=lead, mlp=False)
+    p["moe"] = init_moe(gen, cfg, dtype=dtype, device=device, lead=lead)
+    return p
+
+
+def apply_moe_block(p, x, cfg, positions, *, mode: str = "train",
+                    cache: Optional[dict] = None, cur_len=None,
+                    use_kernel: Optional[bool] = None,
+                    pages: Optional[torch.Tensor] = None):
+    """Returns (x_out, new_cache_or_None, aux): :func:`apply_attn`'s
+    attention sub-block, then the expert layer on the ``ln2``-normed
+    stream."""
+    p_attn = {k: v for k, v in p.items() if k != "moe"}
+    x, new_cache = apply_attn(p_attn, x, cfg, positions, mode=mode,
+                              cache=cache, cur_len=cur_len,
+                              use_kernel=use_kernel, pages=pages)
+    h = apply_norm(p["ln2"], x, cfg.norm)
+    y, aux = apply_moe(p["moe"], h, cfg)
+    return x + y, new_cache, aux

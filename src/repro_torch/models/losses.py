@@ -71,13 +71,13 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             aux_weight: float = 0.01, bf16_cotangent: bool = False,
             use_kernel: Optional[bool] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Scalar training loss and metrics ``{"loss", "aux"}``. The dense
-    family has no router loss, so ``aux`` is 0. ``use_kernel`` picks the
-    attention route as in :func:`repro_torch.models.model.forward`."""
+    """Scalar training loss ``loss + aux_weight · aux`` and metrics
+    ``{"loss", "aux"}``: ``aux`` is the MoE layers' summed router loss (0
+    for the dense family). ``use_kernel`` picks the attention route as in
+    :func:`repro_torch.models.model.forward`."""
     _check_ported(cfg)
-    hidden, _ = forward(params, cfg, batch, mode="train", remat=remat,
-                        use_kernel=use_kernel)
-    aux = torch.zeros((), dtype=F32, device=hidden.device)
+    hidden, _, aux = forward(params, cfg, batch, mode="train", remat=remat,
+                             use_kernel=use_kernel, return_aux=True)
     if bf16_cotangent and hidden.dtype == torch.bfloat16:
         hidden = grad_cast_bf16(hidden)
     if cfg.objective == "clm":

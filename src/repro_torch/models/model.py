@@ -1,12 +1,15 @@
-"""Model API for the dense attention family: init, forward, prefill, decode.
+"""Model API for the dense attention and MoE families: init, forward,
+prefill, decode.
 
 Text models embed tokens; vision models (DeiT, CaiT: ``modality="vision"``)
 take precomputed patch embeddings behind a learned cls token, as the JAX
 package's do.
 
 ``init_params(cfg, gen, device=...)`` returns the JAX package's parameter
-tree: ``params["layers"]["attn"][leaf]`` stacked over a leading L dim,
-weights ``(in, out)``. ``forward`` loops over that dim in Python where the
+tree: ``params["layers"][kind][leaf]`` stacked over a leading L dim (kind
+``"attn"``, or ``"moe"`` for the MoE family, whose blocks hold the expert
+layer under ``"moe"``), weights ``(in, out)``. An MoE forward also sums its
+layers' router auxiliary losses (``return_aux``). ``forward`` loops over that dim in Python where the
 JAX package scans; ``remat=True`` checkpoints each layer in training (the
 JAX package's ``jax.checkpoint``). Decode caches are
 ``{"k", "v"}: (L, B, S, KV, dh)``;
@@ -38,11 +41,12 @@ def _dtype(cfg):
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.modality not in ("text", "vision") or set(cfg.blocks) != {"attn"}
+    if (cfg.modality not in ("text", "vision")
+            or set(cfg.blocks) not in ({"attn"}, {"moe"})
             or cfg.rope not in ("learned", "rope", "none")):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention family with text or "
-            f"vision input is ported (family={cfg.family!r}, "
+            f"{cfg.name}: only the dense attention and MoE families with "
+            f"text or vision input are ported (family={cfg.family!r}, "
             f"modality={cfg.modality!r}, rope={cfg.rope!r})")
 
 
@@ -72,7 +76,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if cfg.rope == "learned":
         params["embed"]["pos"] = embed_init(gen, cfg.max_seq, cfg.d_model,
                                             dtype=dtype, device=dev)
-    params["layers"]["attn"] = B.init_attn(gen, cfg, dtype=dtype, device=dev,
+    init = B.init_moe_block if cfg.blocks[0] == "moe" else B.init_attn
+    params["layers"][cfg.blocks[0]] = init(gen, cfg, dtype=dtype, device=dev,
                                            lead=(cfg.n_layers,))
     params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype=dtype,
                                      device=dev)
@@ -119,42 +124,65 @@ def unembed(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+def _apply_layer(p, x, cfg, positions, **kw):
+    """One layer of either kind: (x, new_cache, aux); an attention layer's
+    aux is None."""
+    if "moe" in p:
+        return B.apply_moe_block(p, x, cfg, positions, **kw)
+    return B.apply_attn(p, x, cfg, positions, **kw) + (None,)
+
+
 def _train_layer(p, x, cfg, positions):
-    return B.apply_attn(p, x, cfg, positions, mode="train")[0]
+    out, _, aux = _apply_layer(p, x, cfg, positions, mode="train")
+    return out if aux is None else (out, aux)
 
 
 def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
                      remat, use_kernel, pages=None):
-    stack = params["layers"]["attn"]
+    """Returns (x, caches, aux): the layers' router losses summed in layer
+    order in float32 (0 for the dense family), as the JAX package's scan
+    carries them."""
+    stack = params["layers"][cfg.blocks[0]]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new = []
     for i in range(cfg.n_layers):
         if mode == "train" and remat:
             # the twin of the JAX package's _maybe_remat: keep only the
             # layer's input; recompute its activations in the backward pass
-            x = checkpoint(_train_layer, _index(stack, i), x, cfg, positions,
-                           use_reentrant=False)
+            out = checkpoint(_train_layer, _index(stack, i), x, cfg,
+                             positions, use_reentrant=False)
+            if isinstance(out, tuple):
+                x, a = out
+                aux = aux + a
+            else:
+                x = out
             continue
         c = _index(caches, i) if caches is not None else None
-        x, nc = B.apply_attn(_index(stack, i), x, cfg, positions, mode=mode,
-                             cache=c, cur_len=cur_len, use_kernel=use_kernel,
-                             pages=pages)
+        x, nc, a = _apply_layer(_index(stack, i), x, cfg, positions,
+                                mode=mode, cache=c, cur_len=cur_len,
+                                use_kernel=use_kernel, pages=pages)
+        if a is not None:
+            aux = aux + a
         new.append(nc)
     if mode == "train":
-        return x, None
+        return x, None, aux
     if mode == "decode":
-        return x, caches                      # written in place
-    return x, {kk: torch.stack([c[kk] for c in new]) for kk in ("k", "v")}
+        return x, caches, aux                 # written in place
+    return x, {kk: torch.stack([c[kk] for c in new])
+               for kk in ("k", "v")}, aux
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             mode: str = "train", caches=None, cur_len=None,
             remat: bool = False, use_kernel: Optional[bool] = None,
             pages: Optional[torch.Tensor] = None,
-            return_prenorm: bool = False):
-    """Returns (hidden (B,T,D), new_caches), plus the pre-final-norm
-    residual stream as a third element when ``return_prenorm=True`` (the
-    serving engine keeps it, so a depth-only hop can replay just the new
-    layers; ``core.grow_cache.replay_grow_state``).
+            return_prenorm: bool = False, return_aux: bool = False):
+    """Returns (hidden (B,T,D), new_caches), then the layers' summed router
+    auxiliary loss (a float32 scalar, 0 for the dense family) when
+    ``return_aux=True``, then the pre-final-norm residual stream when
+    ``return_prenorm=True`` (the serving engine keeps it, so a depth-only
+    hop can replay just the new layers;
+    ``core.grow_cache.replay_grow_state``).
 
     ``remat`` (train mode only) recomputes each layer's activations in the
     backward pass instead of keeping them, one layer at a time.
@@ -165,15 +193,13 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     _check_ported(cfg)
     offset = cur_len - 1 if mode == "decode" else 0
     x, positions = embed(params, cfg, batch, offset=offset)
-    x, new_caches = _fwd_homogeneous(params, x, cfg, positions, mode=mode,
-                                     caches=caches, cur_len=cur_len,
-                                     remat=remat, use_kernel=use_kernel,
-                                     pages=pages)
+    x, new_caches, aux = _fwd_homogeneous(
+        params, x, cfg, positions, mode=mode, caches=caches, cur_len=cur_len,
+        remat=remat, use_kernel=use_kernel, pages=pages)
     prenorm = x
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    if return_prenorm:
-        return x, new_caches, prenorm
-    return x, new_caches
+    return ((x, new_caches) + ((aux,) if return_aux else ())
+            + ((prenorm,) if return_prenorm else ()))
 
 
 # ---------------------------------------------------------------------------

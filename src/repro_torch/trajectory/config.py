@@ -1,6 +1,6 @@
 """Trajectory configuration: an ordered schedule of train→grow→train stages
-(the twin of the JAX package's ``trajectory/config.py``, for the dense
-family).
+(the twin of the JAX package's ``trajectory/config.py``, for the dense and
+MoE families).
 
 A :class:`TrajectoryConfig` is pure data: which architecture each stage
 trains, for how many steps, and how each stage is entered (the growth
@@ -26,8 +26,10 @@ JSON format (``launch/train.py --trajectory cfg.json`` /
 
 Stage 0 defaults to the base arch; ``"half"`` takes ``half_config`` of
 it; any other name hits the registry (smoke-reduced when ``smoke``). Later
-stages default to ``"grow": "2x"`` (``grow_target`` of the previous stage)
-or name a registry arch. Every consecutive pair must pass
+stages default to ``"grow": "2x"`` (``grow_target`` of the previous stage),
+take ``"grow": "moe"`` (``moe_target`` of the previous stage: the
+dense→MoE upcycling hop, entered with ``"method": "upcycle"`` or
+``"ligo"``) or name a registry arch. Every consecutive pair must pass
 ``check_growable``.
 
 ``"steps": "auto"`` hands the stage's end to the adaptive growth
@@ -43,9 +45,8 @@ instead of a fixed count::
 in the runner, this file stays pure data. The policy block is part of the
 schedule's hash, as in the JAX package.
 
-Not ported yet, and refused with ``NotImplementedError``: ``"grow":
-"moe"`` and the ``upcycle`` / ``gqa_merge`` methods ("the other families"
-in ROADMAP.md).
+Not ported yet, and refused with ``NotImplementedError``: the ``gqa_merge``
+method ("the other families" in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -59,17 +60,20 @@ from repro_torch.autogrow.policy import PolicySpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spec as S
 
-# Growth methods that understand a family-changing hop.
+# Growth methods that understand a family-changing hop (dense→MoE
+# upcycling): the classical dense operators (stackbert, net2net, ...)
+# assume the target tree mirrors the source and would mis-build the expert
+# stack.
 CROSS_FAMILY_METHODS = ("upcycle", "ligo", "random")
-_LATER = {"upcycle": "ROADMAP, 'the other families'",
-          "gqa_merge": "ROADMAP, 'the other families'"}
+_LATER = {"gqa_merge": "ROADMAP, 'the other families'"}
 
 
 @dataclass(frozen=True)
 class GrowthSpec:
     """How a stage is entered from the previous one."""
     method: str = "ligo"        # ligo | stackbert | interpolation |
-    #                             net2net | bert2bert | lemon | random
+    #                             net2net | bert2bert | lemon | upcycle |
+    #                             random
     ligo_steps: int = 100       # SGD steps on the operator (ligo only)
     ligo_lr: float = 1e-3
     ligo_momentum: float = 0.9
@@ -189,7 +193,8 @@ class TrajectoryConfig:
     def from_json(src: Any) -> "TrajectoryConfig":
         """Build from a JSON file path or an already-parsed dict."""
         from repro_torch.configs import (get_config, grow_target,
-                                         half_config, smoke_config)
+                                         half_config, moe_target,
+                                         smoke_config)
         if isinstance(src, str):
             with open(src) as f:
                 obj = json.load(f)
@@ -216,9 +221,7 @@ class TrajectoryConfig:
             if tok == "2x":
                 return grow_target(prev)
             if tok == "moe":
-                raise NotImplementedError(
-                    "'grow': 'moe' (dense->MoE upcycling) is not ported yet "
-                    "(ROADMAP, 'the other families')")
+                return moe_target(prev)
             raise ValueError(f"unknown grow token {tok!r} "
                              "(use '2x', 'moe', or an explicit 'arch')")
 

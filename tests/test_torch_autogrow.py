@@ -383,10 +383,16 @@ def test_from_json_auto_stage_and_hash_equal_jax():
     assert TrajectoryConfig.from_json(obj2).hash() != traj.hash()
     assert TrajectoryConfig.from_json(obj2).hash() \
         == jt.TrajectoryConfig.from_json(obj2).hash()
+    # an auto stage followed by a dense -> MoE upcycle stage
     obj3 = json.loads(json.dumps(AUTO_SCHEDULE))
-    obj3["stages"][1]["grow"] = "moe"
-    with pytest.raises(NotImplementedError, match="the other families"):
-        TrajectoryConfig.from_json(obj3)
+    obj3["stages"].append({"steps": 5, "grow": "moe", "method": "upcycle"})
+    ours3, want3 = (TrajectoryConfig.from_json(obj3),
+                    jt.TrajectoryConfig.from_json(obj3))
+    assert ours3.stages[2].cfg.family == "moe"
+    assert ours3.stages[2].cfg.name == ours3.stages[1].cfg.name + "-moe"
+    assert ours3.hash() == want3.hash() != traj.hash()
+    assert ours3.stage_bounds() == want3.stage_bounds() \
+        == ((0, 10), (10, 50), (50, 55))
 
 
 # ---------------------------------------------------------------------------

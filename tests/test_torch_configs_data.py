@@ -16,15 +16,17 @@ NAMES = sorted(tc.REGISTRY)
 
 
 DENSE = {n for n, c in jc.ASSIGNED.items() if c.family == "dense"}
+MOE = {n for n, c in jc.ASSIGNED.items() if c.family == "moe"}
 
 
 def test_registry_is_the_paper_models():
-    """The paper models and the JAX registry's dense-family architectures
-    (the other families join with their slices)."""
+    """The paper models and the JAX registry's dense- and MoE-family
+    architectures (the other families join with their slices)."""
     assert DENSE == {"llama3-8b", "phi4-mini-3.8b", "starcoder2-7b",
                      "deepseek-coder-33b"}
-    assert set(tc.ASSIGNED) == DENSE
-    assert set(tc.REGISTRY) == set(jc.PAPER_MODELS) | DENSE
+    assert MOE == {"mixtral-8x7b", "qwen3-moe-30b-a3b"}
+    assert set(tc.ASSIGNED) == DENSE | MOE
+    assert set(tc.REGISTRY) == set(jc.PAPER_MODELS) | DENSE | MOE
     assert sorted(tc.GROWTH_PAIRS) == sorted(jc.GROWTH_PAIRS)
     for key, (a, b) in tc.GROWTH_PAIRS.items():
         ja, jb = jc.GROWTH_PAIRS[key]

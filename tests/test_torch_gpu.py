@@ -29,7 +29,9 @@ speculation gives greedy decoding's tokens (paged and dense, deterministic
 algorithms on), and a round maps every live slot's pages up to pos + K + 1
 before its drafter launches. The observability layer on the kernel route:
 a background hop's spans, and a profiler trace that names K1's and K3's
-tensor-core kernels.
+tensor-core kernels. The MoE family: K1 and K2 on E = 8 expert stacks and
+on the float32 router's Bd = 8 group, and the stable top-k on a zero
+router, where every token ties, choosing the CPU's experts.
 """
 import time
 
@@ -858,3 +860,80 @@ def test_probe_methods_on_the_card_counts_k1_and_k2(cuda):
     assert again == (best, scores)
     for a, b in zip(tree_leaves(params), before):
         assert torch.equal(a, b)
+
+
+# The MoE family's K1 and K2 shapes: mixtral's expert stacks (E = 8) and its
+# float32 router (its expert count, 8, as K1's trailing dim), cut in width
+# from chip_smoke.py phase 13's full-width groups; name, dtype, (G, L2, L1,
+# E, I, A, Bd)
+MOE_SHAPES = [
+    ("moe/w1+w3", "bfloat16", (2, 4, 2, 8, 512, 256, 448)),
+    ("moe/w2", "bfloat16", (1, 4, 2, 8, 512, 448, 256)),
+    ("moe f32", "float32", (2, 4, 2, 8, 200, 96, 130)),
+    ("router", "float32", (1, 4, 2, 1, 512, 256, 8)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,dims", MOE_SHAPES,
+                         ids=[n for n, _, _ in MOE_SHAPES])
+def test_k1_and_k2_on_expert_stacks_match_plain(cuda, name, dtype, dims):
+    """K1 and K2 (fed K1's U) on E = 8 expert stacks and on the router's
+    Bd = 8 group, each against its plain version, each twice for bits."""
+    G, L2, L1, E, I, A, Bd = dims
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((G, L2, L1), generator=gen, device=cuda) / L1 ** 0.5
+    B = (torch.randn((I, A), generator=gen, device=cuda) / A ** 0.5).to(dt)
+    W = torch.randn((G, L1, E, A, Bd), generator=gen, device=cuda).to(dt)
+    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device=cuda).to(dt)
+    ops.reset_launch_counts()
+    P, U = ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    got = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U)
+    assert ops.launch_counts() == {"ligo_blend_expand_grouped": 1,
+                                   "ligo_blend_expand_bwd_fused": 1,
+                                   "flash_attention": 0}
+    P2 = ligo_expand.ligo_blend_expand_grouped(w, B, W)
+    got2 = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U)
+    torch.cuda.synchronize()
+    assert torch.equal(P, P2) and all(torch.equal(a, b)
+                                      for a, b in zip(got, got2))
+    want = ref.ligo_blend_expand_grouped_ref(w, B, W)
+    err = (P.float() - want.float()).abs().max() / want.float().abs().max()
+    assert P.dtype == dt and float(err) <= TOL[dtype]
+    want = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+    for g, r in zip(got[1:], want[1:]):
+        err = (g.float() - r.float()).abs().max() / r.float().abs().max()
+        assert float(err) <= TOL[dtype]
+    T = torch.einsum("ia,gkeib->gkeab", B.float(), dP.float()).abs()
+    terms = torch.einsum("gkeab,gleab->gkl", T, W.float().abs())
+    assert float(((got[0] - want[0].float()).abs() / terms).max()) \
+        <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_stable_top_k_on_the_card_matches_the_cpu(cuda):
+    """A zero router ties every token across the experts: on the card the
+    stable top-k picks the CPU's experts (0..k-1), and the MoE layer keeps
+    and drops the same rows and computes the same output (<= 1e-5, f32)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import moe
+    cfg = smoke_config(get_config("qwen3-moe-30b-a3b")).scaled(
+        capacity_factor=1.25, n_experts=16, experts_top_k=4)
+    probs = torch.full((64, cfg.n_experts), 1.0 / cfg.n_experts)
+    cpu = moe.top_k_stable(probs, cfg.experts_top_k)
+    dev = moe.top_k_stable(probs.to(cuda), cfg.experts_top_k)
+    assert torch.equal(dev[1].cpu(), cpu[1])
+    assert cpu[1].tolist() == [list(range(cfg.experts_top_k))] * 64
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
+    p["router"].zero_()
+    x = torch.randn((4, 16, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    out, aux, keep = moe.apply_moe(p, x, cfg, return_keep=True)
+    pd = {k: v.to(cuda) for k, v in p.items()}
+    out_d, aux_d, keep_d = moe.apply_moe(pd, x.to(cuda), cfg,
+                                         return_keep=True)
+    assert torch.equal(keep_d.cpu(), keep) and not bool(keep.all())
+    err = (out_d.cpu() - out).abs().max() / out.abs().max()
+    assert float(err) <= 1e-5
+    assert abs(float(aux_d) - float(aux)) <= 1e-6

@@ -86,7 +86,6 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
 # Names of a JAX package's ``__all__`` that its port leaves out, each with
 # the ROADMAP item that rules it out of this port or schedules it.
 MESH = "ROADMAP 1.3, the mesh machinery (TPU-pod / multi-chip, out of scope)"
-FAMILIES = "ROADMAP 1.2, 'the other families'"
 LAUNCHERS = "ROADMAP 1.3, 'Launchers and benches, last'"
 S1 = "ROADMAP 2, speed item S1 (the compiled LiGO step)"
 KERNEL_API = ("ROADMAP 2: the port's kernel surface is K1/K2/K3 as custom "
@@ -100,8 +99,7 @@ OUT_OF_SCOPE = {
         "ALL_SHAPES", "Cell", "DECODE_32K", "LONG_500K", "PREFILL_32K",
         "SHAPES", "ShapeConfig", "TRAIN_4K", "cell_status",
         "enumerate_cells")},
-    "core": {"TRACE_COUNTS": S1, "place_operator": MESH,
-             "upcycle": FAMILIES, "upcycle_operator": FAMILIES},
+    "core": {"TRACE_COUNTS": S1, "place_operator": MESH},
     "data": {},
     "distributed": {n: MESH for n in (
         "P", "batch_specs", "divisible_axes", "maybe_shard",

@@ -241,16 +241,44 @@ def test_init_ligo_params_structure_and_patterns():
             init_ligo_params(gen, TINY1, TINY2)
 
 
-def test_cross_family_growth_is_refused_until_ported(small):
-    _, tp = small
+def test_cross_family_growth_is_refused_until_ported():
+    """The dense→MoE hop matches the JAX package: the
+    operator's init (depth blends keyed by the source kind, counted in the
+    mapped kind), the plan (target kinds and paths, expert broadcast,
+    created router) and the plan and legacy applies of a random LiGO
+    operator, both plan routes (<= 1e-5)."""
     src = jc.get_config("llama3-8b")
-    moe = jc.moe_target(jc.smoke_config(src))
-    c1, c2 = (tc.base.ModelConfig(**dataclasses.asdict(c))
-              for c in (jc.smoke_config(src), moe))
+    jc1 = jc.smoke_config(src)
+    jc2 = jc.moe_target(jc1)
+    c1, c2 = (tc.base.ModelConfig(**dataclasses.asdict(c)) for c in (jc1, jc2))
+    jp = jax_init_params(jc1, jax.random.PRNGKey(0))
+    tp = bridge.to_torch(to_numpy(jp))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="family"):
-        init_ligo_params(gen, c1, c2, device="cpu")
-    with pytest.raises(NotImplementedError, match="family"):
-        _build_plan(c1, c2, _tree_signature(tp))
-    with pytest.raises(NotImplementedError, match="family"):
-        apply_ligo({"width": {}}, tp, c1, c2, engine="legacy")
+    top0 = init_ligo_params(gen, c1, c2, device="cpu")
+    jop = jax_init_ligo(jax.random.PRNGKey(5), jc1, jc2)
+    assert (jax.tree.structure(bridge.to_numpy(top0))
+            == jax.tree.structure(to_numpy(jop)))
+    for leaf, blend in top0["depth"]["attn"].items():
+        np.testing.assert_array_equal(blend.numpy(),
+                                      np.asarray(jop["depth"]["attn"][leaf]))
+    tplan = _build_plan(c1, c2, _tree_signature(tp))
+    jplan = jax_build_plan(jc1, jc2, jax_signature(jp))
+    assert len(tplan.groups) == len(jplan.groups)
+    for tg, jg in zip(tplan.groups, jplan.groups):
+        for f in GROUP_FIELDS + ("out_kind", "out_paths", "bcast"):
+            assert getattr(tg, f) == getattr(jg, f), (f, tg.paths)
+    assert tplan.created == jplan.created == {
+        "moe": {"moe/router": ((c2.n_layers, c2.d_model, c2.n_experts),
+                               "float32")}}
+    top = bridge.to_torch(to_numpy(jop))
+    for engine in ("plan", "legacy"):
+        want = jax_apply_ligo(jop, jp, jc1, jc2, engine=engine)
+        kws = ([{"use_kernel": False}, {"use_kernel": True}]
+               if engine == "plan" else [{}])
+        for kw in kws:
+            got = apply_ligo(top, tp, c1, c2, engine=engine, **kw)
+            assert_close(got, want, rel=1e-5)
+            assert got["layers"]["moe"]["moe"]["router"].dtype \
+                == torch.float32
+
+

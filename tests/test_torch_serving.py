@@ -363,11 +363,20 @@ def test_serve_live_grow_cli_on_cpu(capsys):
     assert res["engine"].counts()["done"] == 4
 
 
-def test_serve_live_refuses_without_cuda_and_unported_options():
+def test_serve_live_refuses_without_cuda_and_unported_options(capsys):
+    """Without ``--device cpu`` the live path raises (no CUDA here);
+    ``--hop-operator upcycle`` hops the dense smoke model to its MoE twin
+    with the cache grown in place and no request dropped."""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(LIVE)
-    with pytest.raises(SystemExit, match="the other families"):
-        serve.main(LIVE + ["--hop-operator", "upcycle", "--device", "cpu"])
+    argv = [a for a in LIVE if a not in ("--grow-to", "2x")]
+    res = serve.main(argv + ["--hop-operator", "upcycle", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert res["hop"].completed and res["hop"].cache_path == "grow"
+    assert res["cfg2"].name == "llama3-8b-smoke-moe"
+    assert res["cfg2"].family == "moe" and res["engine"].cfg == res["cfg2"]
+    assert "0 dropped" in out and "cache: grow" in out
+    assert res["engine"].counts()["done"] == 4
 
 
 def test_serve_live_ledger_records_the_hop_and_the_decode_flops(tmp_path):

@@ -172,8 +172,19 @@ def test_trajectory_hash_equals_the_references(tmp_path, source):
     {"grow": "moe"},
 ])
 def test_trajectory_later_slice_features_raise(change):
+    """A ``"grow": "moe"`` stage (the dense→MoE hop, entered by LiGO here,
+    then MoE→MoE growth) resolves and hashes as in the JAX package; the
+    gqa_merge method, whose slice is still to come, raises."""
+    from repro import trajectory as jt
     obj = json.loads(json.dumps(SCHEDULE))
     obj["stages"][1].update(change)
+    ours, theirs = (TrajectoryConfig.from_json(obj),
+                    jt.TrajectoryConfig.from_json(obj))
+    assert [st.cfg.family for st in ours.stages] == ["dense", "moe", "moe"]
+    assert ours.hash() == theirs.hash() != TRAJ.hash()
+    assert [st.cfg.config_hash() for st in ours.stages] \
+        == [st.cfg.config_hash() for st in theirs.stages]
+    obj["stages"][1]["method"] = "gqa_merge"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrajectoryConfig.from_json(obj)
 
