@@ -182,6 +182,26 @@ sources are not beside it. Phases, each fatal on failure:
    router's (Bd 8); (d) qwen3-moe-30b-a3b at its 48 layers (or the
    deepest cut leaving 10 GB free): a 4 x 2048 prefill through K3 against
    the plain attention route, and 8 decode steps;
+14. the GQA merge and the sequence-mixer families at full width, bf16
+   (after phase 13, before phase 11): (a) ``grow(method="gqa_merge")`` of
+   llama3-8b's MHA twin (kv 32) into llama3-8b (kv 8), both cut to 4
+   layers: K1 once per plan group, the merged tree against the plain
+   route, both AdamW moments on K1's float32 route against the plain route
+   (1e-5), a 4 x 2048 prefill of the merged model through K3 (G = 4)
+   against the plain attention; (b) ``serve --arch xlstm-125m --grow-to
+   2x`` lock-step (24 layers, d 1152; 4 x 2048 prompts, 32 new tokens):
+   K1 once per plan group, the grown tree against the plain route, the
+   decode logits against one full forward (float32 copy, 1e-4); one LiGO
+   step xlstm-125m -> its grow_target through K1 and K2 (launches as the
+   plan predicts, a finite loss) and its measured / modelled FLOPs
+   printed; K1 and K2 against their plain versions at every group shape of
+   that step (the seg groups, the gates' Bd 8); (c) ``serve --arch
+   zamba2-2.7b`` at all 54 layers (4 x 2048): 9 K3 launches at d_head 80,
+   the prefill against the plain attention route; ``--grow-to 2x`` to 108
+   layers x 3840 (K1 once per plan group, the tree against the plain
+   route, 2 x 1024 prompts through K3 at d_head 120); one LiGO step from a
+   6-layer cut (one shared-attention group) to 12 layers x 3840 through K1
+   and K2, its FLOP ratio printed, and K1 and K2 at its group shapes;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -264,6 +284,12 @@ K3_SHAPES = [
     ("mixtral prefill window", "bfloat16",
      (1, 32, 8, 4608, 4608, 128, True, 4096)),
     ("qwen3-moe prefill", "bfloat16", (4, 32, 4, 2048, 2048, 128, True, 0)),
+    # phase 14: zamba2-2.7b's shared attention block at d_head 80 (4 x 2048,
+    # all 54 layers) and, grown 2x, at d_head 120 (2 x 1024): bf16 off the
+    # tensor-core kernel's dh 64 and 128, so the FMA kernel
+    ("zamba2 prefill", "bfloat16", (4, 32, 32, 2048, 2048, 80, True, 0)),
+    ("zamba2-grown prefill", "bfloat16",
+     (2, 32, 32, 1024, 1024, 120, True, 0)),
 ]
 
 # K1's and K2's shapes besides the main path's six groups (gpt2-base ->
@@ -908,17 +934,29 @@ def _check_serve(torch, res, batch, gen):
 
 
 def _check_trees(torch, got, want, tol):
+    """The worst per-leaf normalised error of two trees; each leaf is read
+    in float32 a block of its leading dim at a time, 2^27 elements at most
+    (two whole float32 copies of zamba2's grown in_proj stack, 108 x 3840
+    x 15552, do not fit beside the trees)."""
     from repro_torch.core.ligo import _flatten
     fg, fw = _flatten(got), _flatten(want)
     if sorted(fg) != sorted(fw):
         raise AssertionError("grown trees differ in structure")
     worst = 0.0
     for path in sorted(fw):
-        a, b = fg[path].float(), fw[path].float()
+        a, b = fg[path], fw[path]
         if a.shape != b.shape:
             raise AssertionError(f"{path}: shape {tuple(a.shape)} vs "
                                  f"{tuple(b.shape)}")
-        err = ((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
+        n = a.shape[0] if a.dim() else 1
+        step = max(1, n * (1 << 27) // max(a.numel(), 1))
+        diff = top = torch.zeros((), device=b.device)
+        for i in range(0, n, step):
+            x, y = (t[i:i + step].float() if t.dim() else t.float()
+                    for t in (a, b))
+            diff = torch.maximum(diff, (x - y).abs().max())
+            top = torch.maximum(top, y.abs().max())
+        err = diff.item() / (top.item() + 1e-30)
         if not err <= tol:
             raise AssertionError(f"{path}: kernel grow vs plain grow "
                                  f"normalised error {err:.3e} > {tol:.0e}")
@@ -3397,6 +3435,364 @@ def _moe_phase(torch):
     return runs, k3, k1_rows, k2_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the GQA merge and the sequence-mixer families at full width,
+# bf16 (after phase 13, before phase 11's profiler slows the host).
+# (a) llama3-8b's MHA twin (n_kv_heads 32) -> llama3-8b (kv 8), both cut to
+# GQA_LAYERS layers, by grow(method="gqa_merge"); (b) xlstm-125m; (c)
+# zamba2-2.7b at all 54 layers, hot-grown to 108 x 3840, and a LiGO step
+# from a one-group cut.
+GQA_LAYERS = 4
+GQA_PROMPTS = (4, 2048)
+# (b): the lock-step serve of xlstm-125m hot-grown 2x (24 layers, d 1152);
+# the decode logits against a full forward run in float32 on a float32
+# copy (tol 1e-4, the CPU tests' bound); a LiGO step xlstm-125m ->
+# xlstm-125m-grown on SEQ_LIGO batches, its FLOP ratio measured at
+# XLSTM_FLOP_SEQ tokens (the counting pass steps the sLSTM in Python)
+XLSTM_ARGS = ["--arch", "xlstm-125m", "--grow-to", "2x", "--batch", "4",
+              "--prompt-len", "2048", "--gen", "32"]
+SEQ_LIGO = (4, 256)
+XLSTM_FLOP_SEQ = 64
+SEQMIX_TOL32 = 1e-4
+# (c): the lock-step serve at all 54 layers (4 x 2048, 8 new tokens; the
+# prefill held to the plain attention route), the hot-grow of the same
+# seeded model to grow_target (108 x 3840) served on 2 x 1024 prompts, and
+# a LiGO step from ZAMBA_CUT layers (one shared-attention group) to
+# grow_target of the cut (12 x 3840)
+ZAMBA_ARGS = ["--arch", "zamba2-2.7b", "--batch", "4", "--prompt-len",
+              "2048", "--gen", "8"]
+ZAMBA_GROW_ARGS = ["--arch", "zamba2-2.7b", "--grow-to", "2x", "--batch",
+                   "2", "--prompt-len", "1024", "--gen", "4"]
+ZAMBA_CUT = 6
+
+
+def _group_line(shapes):
+    return ", ".join(
+        f"{sh['name']} (G {sh['G']}, L1 {sh['L1']}, I {sh['I']}, A "
+        f"{sh['A']}, b {sh['b']}" + (f" -> j {sh['j']} {sh['right']}/"
+                                     f"{sh['right_grad']}" if sh["j"] else "")
+        + ")" for sh in shapes)
+
+
+def _seqmix_kernel_checks(torch, label, shapes, seed):
+    """K1 and K2 against their plain versions at every group shape of a
+    LiGO step of the pair (bf16), each run twice for bits by the checks."""
+    k1 = [_check_k1(torch, f"{label} {name}", torch.bfloat16, *d,
+                    seed=seed + i, j=j)
+          for i, (name, d, j) in enumerate(_k1_checks(shapes))]
+    k2 = [_check_k2(torch, f"{label} {name}", torch.bfloat16, *d,
+                    seed=seed + 50 + i, need_dW=need, j=j)
+          for i, (name, d, j, need) in enumerate(_k2_checks(shapes))]
+    return k1, k2
+
+
+def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key):
+    """grow(method="ligo", ligo_steps=1) from a seeded source on the card:
+    K1 and K2 launches as the plan predicts, a finite loss, the grown tree's
+    layout; the step's measured / modelled FLOPs printed (not gated).
+    Returns the group shapes."""
+    from repro_torch.core import init_ligo_params
+    from repro_torch.core.grow import grow, ligo_loss
+    from repro_torch.data import batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.obs import costs
+    from repro_torch.roofline import train_flops_per_step
+    from repro_torch.training import to_device, value_and_grad
+    shapes = _k1_shapes(torch, c1, c2)
+    k1_grad, k2_grad = _launches(shapes, True)
+    want = {"ligo_blend_expand_grouped": (k1_grad
+                                          + _launches(shapes, False)[0]),
+            "ligo_blend_expand_bwd_fused": k2_grad, "flash_attention": 0}
+    print(f"[seqmix] {label} LiGO step {c1.name} ({c1.param_count() / 1e9:.3f}"
+          f" B) -> {c2.name} ({c2.param_count() / 1e9:.3f} B), batch "
+          f"{batch} x {seq}: groups {_group_line(shapes)}; predicted "
+          f"launches {want}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    small = model.init_params(c1, torch.Generator("cuda").manual_seed(0),
+                              device="cuda")
+
+    def data():
+        step = 0
+        while True:
+            yield to_device(batch_for_step(c2, step, batch, seq, seed=14),
+                            "cuda")
+            step += 1
+    step_ms = []
+    ops.reset_launch_counts()
+    big, info = grow(small, c1, c2, method="ligo",
+                     gen=torch.Generator("cuda").manual_seed(1),
+                     data_it=data(), ligo_steps=1, ligo_step_ms=step_ms)
+    torch.cuda.synchronize()
+    runs[key] = ops.launch_counts()
+    losses = info["ligo_losses"]
+    ref = model.init_params(c2, torch.Generator().manual_seed(0),
+                            device="meta")
+    from repro_torch.tree import sorted_leaves
+    layout = ([tuple(x.shape) for x in sorted_leaves(big)]
+              == [tuple(x.shape) for x in sorted_leaves(ref)])
+    print(f"[seqmix] {label} LiGO loss {losses}, step wall {step_ms} ms, "
+          f"launches {runs[key]}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    if (runs[key] != want or len(losses) != 1
+            or not math.isfinite(losses[0]) or not layout):
+        raise AssertionError(f"{label}: launches {runs[key]}, want {want}; "
+                             f"losses {losses}; grown layout {layout}")
+    op = info["operator_init"]
+    del big, info
+    b = to_device(batch_for_step(c2, 0, batch, flop_seq, seed=14), "cuda")
+
+    def step(o, bb, sp):
+        return value_and_grad(
+            lambda oo, b3: (ligo_loss(oo, sp, c1, c2, b3), {}), o, bb)
+    m = costs.measure_step(f"ligo_step[{c2.name}]", step, op, b, small,
+                           modelled_flops=train_flops_per_step(
+                               c2, batch, flop_seq))
+    print(f"[flops] {label} LiGO step at {batch} x {flop_seq} (kernel route): "
+          f"measured {m['flops']:.4e} (aten {m['flops_aten']:.4e}, K1+K2 "
+          f"{m['flops_kernels']:.4e}) / modelled {m['modelled_flops']:.4e} = "
+          f"{m['ratio']:.3f} (printed, not gated; the 6ND model counts "
+          f"neither the sequence mixers' scans nor the block-diagonal seg "
+          f"products)", flush=True)
+    del small, op
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _gqa_merge(torch, runs, k3):
+    """14 (a)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import grow, plan_for
+    from repro_torch.data import gen_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.model import prefill
+    from repro_torch.optim import AdamWState, grow_adamw_state
+    from repro_torch.tree import tree_map
+    llama = get_config("llama3-8b")
+    c2 = llama.scaled(name=f"{llama.name}-{GQA_LAYERS}l",
+                      n_layers=GQA_LAYERS)
+    c1 = c2.scaled(name=f"{llama.name}-mha-{GQA_LAYERS}l",
+                   n_kv_heads=llama.n_heads)
+    shapes = _k1_shapes(torch, c1, c2)
+    want = {"ligo_blend_expand_grouped": _launches(shapes, False)[0],
+            "ligo_blend_expand_bwd_fused": 0, "flash_attention": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    small = model.init_params(c1, torch.Generator("cuda").manual_seed(0),
+                              device="cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        big, info = grow(small, c1, c2, method="gqa_merge")
+    torch.cuda.synchronize()
+    runs["seqmix a"] = ops.launch_counts()
+    print(f"[seqmix] (a) {c1.name} (kv {c1.n_kv_heads}, "
+          f"{c1.param_count() / 1e9:.2f} B) -> {c2.name} (kv "
+          f"{c2.n_kv_heads}) by grow(method='gqa_merge'): groups "
+          f"{_group_line(shapes)}; launches {runs['seqmix a']}, predicted "
+          f"{want}", flush=True)
+    if runs["seqmix a"] != want:
+        raise AssertionError(f"(a) launches {runs['seqmix a']}, want {want}")
+    plan = plan_for(c1, c2, small)
+    op = info["operator"]
+    with torch.no_grad():
+        plain = plan.apply(op, small, use_kernel=False)
+        worst = _check_trees(torch, big, plain, 1e-2)
+        del plain
+        # the AdamW moments, float32, on K1's FMA route against the plain
+        # route, one moment at a time
+        gen = torch.Generator("cuda").manual_seed(2)
+        st = AdamWState(
+            m=tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                             device="cuda"), small),
+            v=tree_map(lambda p: torch.rand(p.shape, generator=gen,
+                                            device="cuda"), small), count=3)
+        grown = grow_adamw_state(st, op, c1, c2)
+        worst_m = _check_trees(torch, grown.m,
+                               plan.apply(op, st.m, use_kernel=False), 1e-5)
+        worst_v = _check_trees(torch, grown.v,
+                               plan.apply(op, st.v, use_kernel=False,
+                                          square=True), 1e-5)
+        del st, grown
+    print(f"[seqmix] (a) merged tree, K1 route vs plain route: worst "
+          f"normalised {worst:.2e} (tol 1e-02, bf16); AdamW m {worst_m:.2e}, "
+          f"v {worst_v:.2e} (tol 1e-05, float32 K1 route)", flush=True)
+    del small
+    torch.cuda.empty_cache()
+    B, T = GQA_PROMPTS
+    toks = torch.as_tensor(gen_tokens(0, 16, B, T, c2.vocab_size)[:, :T],
+                           device="cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = prefill(big, c2, {"tokens": toks})
+    torch.cuda.synchronize()
+    runs["seqmix a prefill"] = ops.launch_counts()
+    k3["llama3-8b prefill"] = runs["seqmix a prefill"]["flash_attention"]
+    if runs["seqmix a prefill"]["flash_attention"] != c2.n_layers:
+        raise AssertionError(f"(a) prefill launches "
+                             f"{runs['seqmix a prefill']}")
+    _prefill_check(torch, {"cfg": c2, "params": big, "prompts": toks,
+                           "prefill_logits": logits}, None, 1e-4, 1e-2)
+    del big, logits
+    torch.cuda.empty_cache()
+
+
+def _decode_consistency(torch, res, label):
+    """prefill + decode_step logits against one full forward of the same
+    tokens, on a float32 copy of the served parameters (``res`` is a
+    lock-step serve's result)."""
+    from repro_torch.models import model
+    from repro_torch.tree import tree_map
+    cfg = res["cfg"]
+    params = tree_map(lambda t: t.float(), res["params"])
+    cfg32 = cfg.scaled(dtype="float32")
+    toks = torch.cat([res["prompts"], res["tokens"][:, :-1]], dim=1)
+    T = res["prompts"].shape[1]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lg, st = model.prefill(params, cfg32, {"tokens": res["prompts"]},
+                               max_len=toks.shape[1])
+        steps = [lg]
+        for i in range(T, toks.shape[1]):
+            lg, st = model.decode_step(params, cfg32, st,
+                                       {"tokens": toks[:, i:i + 1]})
+            steps.append(lg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hidden, _ = model.forward(params, cfg32, {"tokens": toks})
+        full = model.unembed(params, cfg32, hidden[:, T - 1:])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    got = torch.stack(steps, dim=1)
+    err = ((got - full).abs().max() / full.abs().max()).item()
+    print(f"[seqmix] {label} float32 prefill + {len(steps) - 1} decode steps "
+          f"vs one forward of {toks.shape[1]} tokens: normalised max error "
+          f"{err:.2e} (tol {SEQMIX_TOL32:.0e}); {(t1 - t0) * 1e3:.0f} ms, "
+          f"{(t2 - t1) * 1e3:.0f} ms", flush=True)
+    if not (err <= SEQMIX_TOL32 and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: decode logits disagree with the full "
+                             f"forward ({err:.3e})")
+    del params
+
+
+def _serve_grow_check(torch, res, label, runs, key, k3_layers):
+    """A lock-step hot-grow serve: K1 once per plan group (twice for a
+    right expansion between its steps), K3 once per attention layer of the
+    prefill, the grown tree against the plain route, sane logits."""
+    from repro_torch.core import plan_for
+    shapes = _k1_shapes(torch, res["small_cfg"], res["cfg"])
+    want = {"ligo_blend_expand_grouped": _launches(shapes, False)[0],
+            "ligo_blend_expand_bwd_fused": 0, "flash_attention": k3_layers}
+    runs[key] = res["launches"]
+    print(f"[seqmix] {label} hot-grow {res['small_cfg'].name} -> "
+          f"{res['cfg'].name} ({res['cfg'].param_count() / 1e9:.2f} B) in "
+          f"{res['hot_grow_ms']:.1f} ms: groups {_group_line(shapes)}; "
+          f"launches {runs[key]}, want {want}; prefill "
+          f"{res['prefill_ms']:.1f} ms, decode {res['decode_tok_s']:.1f} "
+          f"tok/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    if runs[key] != want:
+        raise AssertionError(f"{label}: launches {runs[key]}, want {want}")
+    _check_serve(torch, res, *res["tokens"].shape)
+    with torch.no_grad():
+        plan = plan_for(res["small_cfg"], res["cfg"], res["small"])
+        plain = plan.apply(res["ligo"], res["small"], use_kernel=False)
+        worst = _check_trees(torch, res["params"], plain, 1e-2)
+        del plain
+    print(f"[seqmix] {label} kernel grow vs plain grow: worst per-leaf "
+          f"normalised error {worst:.2e} (tol 1e-02, bf16)", flush=True)
+    return shapes
+
+
+def _xlstm(torch, runs):
+    """14 (b)."""
+    from repro_torch.configs import get_config, grow_target
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.main(XLSTM_ARGS)
+    _serve_grow_check(torch, res, "(b)", runs, "seqmix b serve", 0)
+    _decode_consistency(torch, res, "(b)")
+    del res
+    c1 = get_config("xlstm-125m")
+    shapes = _seqmix_ligo(torch, "(b)", c1, grow_target(c1), *SEQ_LIGO,
+                          XLSTM_FLOP_SEQ, runs, "seqmix b ligo")
+    k1, k2 = _seqmix_kernel_checks(torch, "xlstm", shapes, 500)
+    if not any(r["Bd"] == 2 * c1.n_heads for r in k1):
+        raise AssertionError("(b) the checks missed the gates' Bd-8 group")
+    return k1, k2
+
+
+def _zamba(torch, runs, k3):
+    """14 (c)."""
+    from repro_torch.configs import get_config, grow_target
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    z = get_config("zamba2-2.7b")
+    G = z.n_layers // z.shared_attn_every
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.main(ZAMBA_ARGS)
+    runs["seqmix c serve"] = res["launches"]
+    k3["zamba2 prefill"] = res["launches"]["flash_attention"]
+    want = {"ligo_blend_expand_grouped": 0, "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": G}
+    print(f"[seqmix] (c) {z.name}: {z.n_layers} layers, "
+          f"{z.param_count() / 1e9:.2f} B parameters, d_head {z.d_head}, "
+          f"{G} shared-attention insertions: prefill {res['prefill_ms']:.1f} "
+          f"ms, decode {res['decode_tok_s']:.1f} tok/s, launches "
+          f"{res['launches']}, want {want}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    if res["launches"] != want:
+        raise AssertionError(f"(c) launches {res['launches']}, want {want}")
+    _check_serve(torch, res, *res["tokens"].shape)
+    _prefill_check(torch, res, None, 1e-4, 1e-2)
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.main(ZAMBA_GROW_ARGS)
+    k3["zamba2-grown prefill"] = res["launches"]["flash_attention"]
+    _serve_grow_check(torch, res, "(c)", runs, "seqmix c grow",
+                      2 * G)
+    del res
+    torch.cuda.empty_cache()
+    c1 = z.scaled(name=f"{z.name}-{ZAMBA_CUT}l", n_layers=ZAMBA_CUT)
+    shapes = _seqmix_ligo(torch, "(c)", c1, grow_target(c1), *SEQ_LIGO,
+                          SEQ_LIGO[1], runs, "seqmix c ligo")
+    return _seqmix_kernel_checks(torch, "zamba2", shapes, 600)
+
+
+def _seqmix_phase(torch):
+    """Phase 14 (a)-(c). Returns the launches of its runs by run, the K3
+    launches by K3_SHAPES row, and the K1 and K2 check rows."""
+    import gc
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[seqmix] phase 14 starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by "
+          f"earlier phases", flush=True)
+    runs, k3 = {}, {}
+    t = time.perf_counter()
+    _gqa_merge(torch, runs, k3)
+    print(f"[seqmix] (a) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    k1, k2 = _xlstm(torch, runs)
+    print(f"[seqmix] (b) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    zk1, zk2 = _zamba(torch, runs, k3)
+    print(f"[seqmix] (c) {time.perf_counter() - t:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[seqmix] phase 14 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3, k1 + zk1, k2 + zk2
+
+
 def main() -> int:
     # cuBLAS is deterministic under use_deterministic_algorithms (phase 6)
     # only with a fixed workspace, set before its first handle
@@ -3736,6 +4132,14 @@ def main() -> int:
         k3_engine[shape] = k3_engine.get(shape, 0) + n
     rows += moe_k1
     rows2 += moe_k2
+
+    # -- phase 14: the GQA merge and the sequence-mixer families -----------
+    seq_runs, k3_seq, seq_k1, seq_k2 = _seqmix_phase(torch)
+    traj["launches"].update(seq_runs)
+    for shape, n in k3_seq.items():
+        k3_engine[shape] = k3_engine.get(shape, 0) + n
+    rows += seq_k1
+    rows2 += seq_k2
 
     # -- phase 11: the observability layer at full width ---------------------
     obs_runs, k3_obs = _obs_phase(torch, shapes)

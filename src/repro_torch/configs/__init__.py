@@ -1,12 +1,13 @@
-"""Config registry: the paper's models, the assigned dense architectures,
-and the reductions derived from them.
+"""Config registry: the paper's models, the assigned architectures, and the
+reductions derived from them.
 
 The port's registry holds the paper models (``configs/paper_models.py``)
 and the JAX package's assigned architectures of the dense family
-(llama3-8b, phi4-mini-3.8b, starcoder2-7b, deepseek-coder-33b) and the MoE
-family (mixtral-8x7b, qwen3-moe-30b-a3b), each a copy of the JAX package's
-config. The other assigned architectures (SSM, hybrid, VLM, audio) join it
-with the slices that port their model families.
+(llama3-8b, phi4-mini-3.8b, starcoder2-7b, deepseek-coder-33b), the MoE
+family (mixtral-8x7b, qwen3-moe-30b-a3b), the xLSTM family (xlstm-125m,
+``family="ssm"``) and the Mamba2 hybrid (zamba2-2.7b), each a copy of the
+JAX package's config. The audio and VLM architectures join it with the
+slice that ports their inputs ("the other families, d" in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,14 +15,15 @@ from typing import Dict, List
 
 from repro_torch.configs import (deepseek_coder_33b, llama3_8b,
                                  mixtral_8x7b, phi4_mini_3_8b,
-                                 qwen3_moe_30b_a3b, starcoder2_7b)
+                                 qwen3_moe_30b_a3b, starcoder2_7b,
+                                 xlstm_125m, zamba2_2_7b)
 from repro_torch.configs.base import MOE, ModelConfig, TrainConfig
 from repro_torch.configs.paper_models import GROWTH_PAIRS, PAPER_MODELS
 
 ASSIGNED: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (llama3_8b, phi4_mini_3_8b, starcoder2_7b, deepseek_coder_33b,
-              mixtral_8x7b, qwen3_moe_30b_a3b)
+              mixtral_8x7b, qwen3_moe_30b_a3b, xlstm_125m, zamba2_2_7b)
 }
 
 REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}

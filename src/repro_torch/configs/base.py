@@ -106,6 +106,13 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.d_head
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch supports O(T·w)/O(T) attention for long context."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.window > 0
+
     def param_count(self) -> int:
         """Exact parameter count (mirrors models.init_params leaf-for-leaf)."""
         D, H, KV, dh, F, V, L = (self.d_model, self.n_heads, self.n_kv_heads,

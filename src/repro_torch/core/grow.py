@@ -318,6 +318,8 @@ def grow(small_params, cfg1: ModelConfig, cfg2: ModelConfig, *,
     elif method == "upcycle":
         from repro_torch.core.upcycle import upcycle_operator
         op = upcycle_operator(cfg1, cfg2, device=dev)
+    elif method == "gqa_merge":
+        op = ops.gqa_merge_operator(cfg1, cfg2, device=dev)
     elif method == "ligo":
         op = init_ligo_params(gen, cfg1, cfg2, device=dev,
                               depth_init=depth_init)

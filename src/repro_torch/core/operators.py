@@ -8,13 +8,14 @@ width with count-normalised fan-in) and bert2BERT-FPI (Net2Net width with
 the StackBERT depth pattern). Random selections come from a
 ``torch.Generator``, so they differ from the JAX package's draws for the
 same seed; their structure is the same. The LEMON operator (zero-padded
-identity) is deterministic and matches the JAX package's exactly. The
-GQA-merge operator is not ported yet.
+identity) and the MHA→GQA merge operator (group means of the K/V heads)
+are deterministic and match the JAX package's exactly.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -162,6 +163,55 @@ def lemon_operator(cfg1: ModelConfig, cfg2: ModelConfig, *,
     # eye(d2, d1) is [I; 0]: zero rows kill new out-features, zero in-rows
     # drop the (all-zero) new in-features
     width = {n: torch.eye(d2s[n], d1s[n], device=dev) for n in d2s}
+
+    def identity(L2, L1, device):
+        return torch.eye(L1, device=device)
+    return {"width": width, "depth": _depth(cfg1, cfg2, identity, dev)}
+
+
+def gqa_merge_operator(cfg1: ModelConfig, cfg2: ModelConfig, *,
+                       device="cuda") -> Dict:
+    """MHA→GQA head merging: each kv group's K/V heads become their mean.
+
+    The k/v width expander is ``kron(M, I_dhead)`` where ``M`` is the
+    (KV2, H1) group-mean matrix: row g averages the G = H1/KV2 source heads
+    of group g. ``wo``'s in-expander then resolves through ``gamma_expand``
+    (G1 = 1, so Γ block-repeats the kv rows over each group's query heads
+    with no extra scaling), the grouped-gamma lift whose Σcᵢ² second-moment
+    form :func:`repro_torch.optim.grow_adamw_state` carries the AdamW state
+    through.
+
+    Head merging is a compression (GQA, Ainslie et al. 2023), not a
+    lossless expansion: queries keep their heads, keys and values are
+    averaged per group. Everything outside the kv space is the identity.
+    ``M`` is built in numpy, as the JAX package builds it, so the two
+    operators are equal bit for bit.
+    """
+    S.check_growable(cfg1, cfg2)
+    if cfg1.n_kv_heads != cfg1.n_heads:
+        raise ValueError("gqa_merge_operator: source must be MHA "
+                         f"(n_kv_heads {cfg1.n_kv_heads} != n_heads "
+                         f"{cfg1.n_heads})")
+    if cfg2.n_kv_heads >= cfg1.n_kv_heads:
+        raise ValueError("gqa_merge_operator: target must merge kv heads "
+                         f"({cfg1.n_kv_heads} -> {cfg2.n_kv_heads})")
+    for field in ("d_model", "d_head", "n_heads", "n_layers", "d_ff"):
+        v1, v2 = getattr(cfg1, field), getattr(cfg2, field)
+        if v1 != v2:
+            raise ValueError(f"gqa_merge_operator: {field} must match "
+                             f"({v1} vs {v2}) — only kv heads merge")
+    if cfg1.n_heads % cfg2.n_kv_heads:
+        raise ValueError(f"gqa_merge_operator: n_heads {cfg1.n_heads} not "
+                         f"divisible by target kv heads {cfg2.n_kv_heads}")
+    dev = resolve_device(device)
+    KV2, H1, dh = cfg2.n_kv_heads, cfg1.n_heads, cfg1.d_head
+    G = H1 // KV2
+    M = np.repeat(np.eye(KV2), G, axis=1) / G            # (KV2, H1) group mean
+    kv = torch.as_tensor(np.kron(M, np.eye(dh)), dtype=torch.float32,
+                         device=dev)                     # (KV2·dh, H1·dh)
+    d1s, d2s = S.width_dims(cfg1), S.width_dims(cfg2)
+    width = {n: (kv if n in ("k", "v")
+                 else torch.eye(d2s[n], d1s[n], device=dev)) for n in d2s}
 
     def identity(L2, L1, device):
         return torch.eye(L1, device=device)

@@ -13,10 +13,12 @@ A spec entry is ``(in_expr, out_expr)`` where an expr is None (axis not
 grown), a learnable width matrix by name ("emb", "q", "k", "v", "fc", ...),
 ``("gamma", "v")`` (GQA group-expanded value expander) or ``("seg", [(expr,
 n1, n2), ...])`` (block-diagonal over column segments). Vectors use only
-``out_expr``. A copy of the JAX package's rules for the dense attention
-and MoE families, and for the one cross-family hop (dense→MoE upcycling,
-:func:`family_hop`); the SSM / xLSTM stack specs come with their model
-families.
+``out_expr``. A copy of the JAX package's rules for every block kind (the
+dense attention and MoE families, xLSTM's mLSTM and sLSTM, Mamba2 and the
+hybrid's shared attention block), and for the one cross-family hop
+(dense→MoE upcycling, :func:`family_hop`). The sequence mixers' fused
+projections grow block-diagonally (``"seg"``): one expander a segment,
+``(None, N, N)`` for the Mamba2 state segments, which are not grown.
 """
 from __future__ import annotations
 
@@ -76,15 +78,62 @@ def _moe_spec(cfg1: ModelConfig) -> Dict[str, Spec]:
     return s
 
 
+def _mlstm_spec(cfg1: ModelConfig, cfg2: ModelConfig) -> Dict[str, Spec]:
+    di1, di2 = cfg1.ssm_expand * cfg1.d_model, cfg2.ssm_expand * cfg2.d_model
+    H1, H2 = cfg1.n_heads, cfg2.n_heads
+    return {
+        "ln/scale": (None, "emb"), "ln/bias": (None, "emb"),
+        "up": ("emb", ("seg", [("inner", di1, di2), ("inner", di1, di2)])),
+        "conv": (None, "inner"),
+        "wqkv": ("inner", ("seg", [("inner", di1, di2)] * 3)),
+        "gates": ("inner", ("seg", [("xheads", H1, H2)] * 2)),
+        "gates_b": (None, ("seg", [("xheads", H1, H2)] * 2)),
+        "down": ("inner", "emb"),
+    }
+
+
+def _slstm_spec(cfg1: ModelConfig, cfg2: ModelConfig) -> Dict[str, Spec]:
+    D1, D2 = cfg1.d_model, cfg2.d_model
+    seg4 = ("seg", [("emb", D1, D2)] * 4)
+    return {
+        "ln/scale": (None, "emb"), "ln/bias": (None, "emb"),
+        "w": ("emb", seg4), "r": ("emb", seg4), "b": (None, seg4),
+        "out": ("emb", "emb"),
+    }
+
+
+def _mamba2_spec(cfg1: ModelConfig, cfg2: ModelConfig) -> Dict[str, Spec]:
+    di1, di2 = cfg1.ssm_expand * cfg1.d_model, cfg2.ssm_expand * cfg2.d_model
+    N = cfg1.ssm_state
+    assert N == cfg2.ssm_state, "ssm_state is architectural; not grown"
+    H1, H2 = cfg1.mamba_heads, cfg2.mamba_heads
+    in_seg = ("seg", [("inner", di1, di2), ("inner", di1, di2),
+                      (None, N, N), (None, N, N), ("mheads", H1, H2)])
+    conv_seg = ("seg", [("inner", di1, di2), (None, N, N), (None, N, N)])
+    return {
+        "ln/scale": (None, "emb"), "ln/bias": (None, "emb"),
+        "in_proj": ("emb", in_seg),
+        "conv": (None, conv_seg),
+        "A_log": (None, "mheads"), "Dskip": (None, "mheads"),
+        "dt_bias": (None, "mheads"),
+        "gn/scale": (None, "inner"),
+        "out_proj": ("inner", "emb"),
+    }
+
+
 def layer_spec(kind: str, cfg1: ModelConfig, cfg2: ModelConfig
                ) -> Dict[str, Spec]:
     if kind in ("attn", "shared_attn"):
         return _attn_spec(cfg1)
     if kind == "moe":
         return _moe_spec(cfg1)
-    raise NotImplementedError(
-        f"layer kind {kind!r} is not ported yet (ROADMAP, 'the other "
-        f"families')")
+    if kind == "mlstm":
+        return _mlstm_spec(cfg1, cfg2)
+    if kind == "slstm":
+        return _slstm_spec(cfg1, cfg2)
+    if kind == "mamba2":
+        return _mamba2_spec(cfg1, cfg2)
+    raise KeyError(kind)
 
 
 def top_spec() -> Dict[str, Spec]:

@@ -16,6 +16,12 @@ is kernel K3. Without ``--grow-to`` the model is served as initialised, e.g.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --batch 4 --prompt-len 2048 --gen 32
 
+The sequence-mixer families (xlstm-125m, zamba2-2.7b) serve on this
+lock-step path, at the prompt's own length, hot-grown or not::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --grow-to 2x --batch 2 --prompt-len 1024 --gen 4
+
 ``--ckpt DIR`` serves the newest checkpoint in DIR (the ``params`` of a
 trainer or trajectory checkpoint, or a bare parameter tree) in place of
 the random init, e.g. the end of a trajectory::
@@ -41,6 +47,10 @@ back and retries with backoff; admitted requests never drop either way::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-base \\
         --grow-to gpt2-medium --live-grow-at 8 --batch 8 --requests 16 \\
         --prompt-len 128 --gen 32
+
+The live path serves the attention-cache families only: it refuses
+xlstm-125m and zamba2-2.7b, whose recurrent state its padded prefills and
+positional rollback would corrupt.
 
 ``--speculative K`` keeps the pre-hop model resident after the live hop as
 a drafter: each round it drafts K tokens a slot and the grown model

@@ -6,7 +6,7 @@ Vision models receive precomputed patch embeddings, as in the JAX package
 (its frontends are stubs). :func:`dummy_batch` makes each batch from
 ``np.random.RandomState(seed)`` with the JAX package's draws, in its order,
 so the two packages see the same arrays. The audio and VLM inputs come
-with their model families ("the other families" in ROADMAP.md).
+with their model families ("the other families, d" in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ def _refuse(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.modality} inputs are not ported yet; they "
             f"come with their model families (ROADMAP.md, 'the other "
-            f"families')")
+            f"families, d: audio and VLM')")
 
 
 def train_batch_specs(cfg: ModelConfig, batch: int, seq: int

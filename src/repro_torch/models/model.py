@@ -1,24 +1,35 @@
-"""Model API for the dense attention and MoE families: init, forward,
-prefill, decode.
+"""Model API over the ported families: init, forward, prefill, decode.
 
-Text models embed tokens; vision models (DeiT, CaiT: ``modality="vision"``)
+The families: dense attention and MoE (text or vision input), xLSTM
+(``family="ssm"``: (mLSTM, sLSTM) pairs) and the Mamba2 hybrid
+(``family="hybrid"``: groups of ``shared_attn_every`` Mamba2 layers, each
+group followed by the one shared, parameter-tied attention block). Text
+models embed tokens; vision models (DeiT, CaiT: ``modality="vision"``)
 take precomputed patch embeddings behind a learned cls token, as the JAX
-package's do.
+package's do. Audio and VLM inputs are refused ("the other families, d"
+in ROADMAP.md).
 
 ``init_params(cfg, gen, device=...)`` returns the JAX package's parameter
-tree: ``params["layers"][kind][leaf]`` stacked over a leading L dim (kind
-``"attn"``, or ``"moe"`` for the MoE family, whose blocks hold the expert
-layer under ``"moe"``), weights ``(in, out)``. An MoE forward also sums its
-layers' router auxiliary losses (``return_aux``). ``forward`` loops over that dim in Python where the
-JAX package scans; ``remat=True`` checkpoints each layer in training (the
-JAX package's ``jax.checkpoint``). Decode caches are
-``{"k", "v"}: (L, B, S, KV, dh)``;
-``decode_step`` writes each new token into them in place. The decode
-position ``state["pos"]`` is a Python int when all rows of a batch step in
-lock step (``prefill`` and ``init_decode_state`` make it so), or a (B,)
-int64 tensor when each row is at its own position (the serving engine's
-continuous batching); a ``state["pages"]`` (B, P) page table switches the
-caches to the paged block pools of ``serving.kv_pages``.
+tree: ``params["layers"][kind][leaf]`` stacked over a leading L dim, one
+stack per block kind (``"attn"``, ``"moe"``, ``"mlstm"`` and ``"slstm"``,
+``"mamba2"``), the hybrid's shared block unstacked under
+``params["layers"]["shared_attn"]``, weights ``(in, out)``. An MoE forward
+also sums its layers' router auxiliary losses (``return_aux``). ``forward``
+loops over the layers in Python where the JAX package scans;
+``remat=True`` checkpoints each layer (each xLSTM pair, each hybrid group)
+in training (the JAX package's ``jax.checkpoint``).
+
+Decode state. The attention families' caches are ``{"k", "v"}: (L, B, S,
+KV, dh)``; the xLSTM family's a tuple ``(mLSTM {"conv", "S", "n"}, sLSTM
+{"h", "c", "n", "m"})`` stacked over the L/2 pairs; the hybrid's a tuple
+``(Mamba2 {"conv", "S", "n"}`` over L, ``{"k", "v"}`` over the G = L/k
+insertions of the shared block). ``decode_step`` writes each new token's
+cache and state into them in place. The decode position ``state["pos"]``
+is a Python int when all rows of a batch step in lock step (``prefill``
+and ``init_decode_state`` make it so), or a (B,) int64 tensor when each
+row is at its own position (the serving engine's continuous batching,
+attention families only); a ``state["pages"]`` (B, P) page table switches
+the caches to the paged block pools of ``serving.kv_pages``.
 """
 from __future__ import annotations
 
@@ -40,14 +51,22 @@ def _dtype(cfg):
     return DTYPES[cfg.dtype]
 
 
+# block-kind sets of the ported layer stacks, by family dispatch
+_STACKS = ({"attn"}, {"moe"}, {"mlstm", "slstm"}, {"mamba2"})
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     if (cfg.modality not in ("text", "vision")
-            or set(cfg.blocks) not in ({"attn"}, {"moe"})
+            or set(cfg.blocks) not in _STACKS
+            or (cfg.family == "hybrid") != (set(cfg.blocks) == {"mamba2"})
+            or (cfg.family == "ssm") != ("mlstm" in cfg.blocks)
             or cfg.rope not in ("learned", "rope", "none")):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention and MoE families with "
-            f"text or vision input are ported (family={cfg.family!r}, "
-            f"modality={cfg.modality!r}, rope={cfg.rope!r})")
+            f"{cfg.name}: only the dense attention, MoE, xLSTM and Mamba2 "
+            f"hybrid families with text or vision input are ported "
+            f"(family={cfg.family!r}, modality={cfg.modality!r}, "
+            f"rope={cfg.rope!r}); audio and VLM inputs come with ROADMAP.md "
+            f"'the other families, d: audio and VLM'")
 
 
 def _index(tree, i: int):
@@ -76,9 +95,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if cfg.rope == "learned":
         params["embed"]["pos"] = embed_init(gen, cfg.max_seq, cfg.d_model,
                                             dtype=dtype, device=dev)
-    init = B.init_moe_block if cfg.blocks[0] == "moe" else B.init_attn
-    params["layers"][cfg.blocks[0]] = init(gen, cfg, dtype=dtype, device=dev,
-                                           lead=(cfg.n_layers,))
+    counts: Dict[str, int] = {}
+    for kind in cfg.blocks:
+        counts[kind] = counts.get(kind, 0) + 1
+    for kind in sorted(counts):           # the JAX package's stack order
+        params["layers"][kind] = B.INIT[kind](gen, cfg, dtype=dtype,
+                                              device=dev,
+                                              lead=(counts[kind],))
+    if cfg.family == "hybrid":
+        # the single shared attention block, parameter-tied across its G
+        # insertions: unstacked
+        params["layers"]["shared_attn"] = B.init_attn(gen, cfg, dtype=dtype,
+                                                      device=dev)
     params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype=dtype,
                                      device=dev)
     if not (cfg.tie_embeddings and "tok" in params["embed"]):
@@ -172,6 +200,118 @@ def _fwd_homogeneous(params, x, cfg, positions, *, mode, caches, cur_len,
                for kk in ("k", "v")}, aux
 
 
+def _stack_trees(trees):
+    """Per-layer cache dicts → one dict of stacked leaves."""
+    return {kk: torch.stack([t[kk] for t in trees]) for kk in trees[0]}
+
+
+def _write_state(stacked, i: int, new) -> None:
+    """Layer ``i``'s new recurrent state, written in place into the
+    stacked decode state."""
+    for kk, vv in new.items():
+        stacked[kk][i].copy_(vv)
+
+
+def _xlstm_pair(pm, ps, x, cfg, mode, cm=None, cs=None):
+    x, ncm = B.apply_mlstm(pm, x, cfg, mode=mode, cache=cm)
+    x, ncs = B.apply_slstm(ps, x, cfg, mode=mode, cache=cs)
+    return x, ncm, ncs
+
+
+def _xlstm_pair_train(pm, ps, x, cfg):
+    return _xlstm_pair(pm, ps, x, cfg, "train")[0]
+
+
+def _fwd_xlstm(params, x, cfg, *, mode, caches, remat):
+    """(mLSTM, sLSTM) pairs over the L/2 super-blocks. Returns (x, caches):
+    None in train mode, the caches updated in place in decode mode, the
+    stacked prefill state otherwise."""
+    pm_all, ps_all = params["layers"]["mlstm"], params["layers"]["slstm"]
+    new_m, new_s = [], []
+    for i in range(cfg.n_layers // 2):
+        pm, ps = _index(pm_all, i), _index(ps_all, i)
+        if mode == "train":
+            x = (checkpoint(_xlstm_pair_train, pm, ps, x, cfg,
+                            use_reentrant=False) if remat
+                 else _xlstm_pair_train(pm, ps, x, cfg))
+            continue
+        cm = cs = None
+        if caches is not None:
+            cm, cs = _index(caches[0], i), _index(caches[1], i)
+        x, ncm, ncs = _xlstm_pair(pm, ps, x, cfg, mode, cm, cs)
+        if mode == "decode":
+            _write_state(caches[0], i, ncm)
+            _write_state(caches[1], i, ncs)
+        else:
+            new_m.append(ncm)
+            new_s.append(ncs)
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        return x, caches
+    return x, (_stack_trees(new_m), _stack_trees(new_s))
+
+
+def _zamba_group(pms, p_a, x, cfg, positions, mode, cms=None, ca=None, *,
+                 cur_len=None, use_kernel=None):
+    """One group: ``len(pms)`` Mamba2 layers, then the shared attention
+    block. Returns (x, the Mamba2 layers' new caches, the attention
+    cache)."""
+    ncs = []
+    for j, pm in enumerate(pms):
+        x, nc = B.apply_mamba2(pm, x, cfg, mode=mode,
+                               cache=None if cms is None else cms[j])
+        ncs.append(nc)
+    x, nca = B.apply_attn(p_a, x, cfg, positions, mode=mode, cache=ca,
+                          cur_len=cur_len, use_kernel=use_kernel)
+    return x, ncs, nca
+
+
+def _zamba_group_train(pms, p_a, x, cfg, positions, use_kernel):
+    return _zamba_group(pms, p_a, x, cfg, positions, "train",
+                        use_kernel=use_kernel)[0]
+
+
+def _fwd_zamba(params, x, cfg, positions, *, mode, caches, cur_len, remat,
+               use_kernel):
+    """Groups of ``shared_attn_every`` Mamba2 layers, each followed by the
+    one shared attention block (its K/V caches stacked over the G
+    groups). Returns (x, caches) as :func:`_fwd_xlstm` does."""
+    k = cfg.shared_attn_every
+    L = cfg.n_layers
+    if L % k:
+        raise ValueError(f"{cfg.name}: n_layers {L} is not a multiple of "
+                         f"shared_attn_every {k}")
+    p_a = params["layers"]["shared_attn"]
+    pm_all = params["layers"]["mamba2"]
+    new_m, new_a = [], []
+    for g in range(L // k):
+        pms = [_index(pm_all, g * k + j) for j in range(k)]
+        if mode == "train":
+            x = (checkpoint(_zamba_group_train, pms, p_a, x, cfg, positions,
+                            use_kernel, use_reentrant=False) if remat
+                 else _zamba_group_train(pms, p_a, x, cfg, positions,
+                                         use_kernel))
+            continue
+        cms = ca = None
+        if caches is not None:
+            cms = [_index(caches[0], g * k + j) for j in range(k)]
+            ca = _index(caches[1], g)
+        x, ncs, nca = _zamba_group(pms, p_a, x, cfg, positions, mode, cms,
+                                   ca, cur_len=cur_len, use_kernel=use_kernel)
+        if mode == "decode":
+            for j, nc in enumerate(ncs):
+                _write_state(caches[0], g * k + j, nc)
+        else:
+            new_m += ncs
+            new_a.append(nca)
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        return x, caches             # attention caches written in place
+    return x, (_stack_trees(new_m), _stack_trees(new_a))
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             mode: str = "train", caches=None, cur_len=None,
             remat: bool = False, use_kernel: Optional[bool] = None,
@@ -185,7 +325,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     ``core.grow_cache.replay_grow_state``).
 
     ``remat`` (train mode only) recomputes each layer's activations in the
-    backward pass instead of keeping them, one layer at a time.
+    backward pass instead of keeping them, one layer at a time (an xLSTM
+    pair, a hybrid group of Mamba2 layers and the shared block).
     ``use_kernel`` picks the train and prefill attention route: ``None``
     takes kernel K3 on CUDA where autograd records nothing, ``False`` the
     chunked attention (``layers.full_attention``). ``pages`` (decode mode):
@@ -193,9 +334,21 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     _check_ported(cfg)
     offset = cur_len - 1 if mode == "decode" else 0
     x, positions = embed(params, cfg, batch, offset=offset)
-    x, new_caches, aux = _fwd_homogeneous(
-        params, x, cfg, positions, mode=mode, caches=caches, cur_len=cur_len,
-        remat=remat, use_kernel=use_kernel, pages=pages)
+    if cfg.family in ("ssm", "hybrid"):
+        if pages is not None:
+            raise ValueError("paged KV: attention-cache families only")
+        if cfg.family == "ssm":
+            x, new_caches = _fwd_xlstm(params, x, cfg, mode=mode,
+                                       caches=caches, remat=remat)
+        else:
+            x, new_caches = _fwd_zamba(params, x, cfg, positions, mode=mode,
+                                       caches=caches, cur_len=cur_len,
+                                       remat=remat, use_kernel=use_kernel)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, new_caches, aux = _fwd_homogeneous(
+            params, x, cfg, positions, mode=mode, caches=caches,
+            cur_len=cur_len, remat=remat, use_kernel=use_kernel, pages=pages)
     prenorm = x
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return ((x, new_caches) + ((aux,) if return_aux else ())
@@ -207,13 +360,40 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int, *,
                       device="cuda"):
-    """Zero-initialised per-layer caches + position counter."""
+    """Zero-initialised per-layer caches + position counter (the sLSTM
+    stabiliser ``m`` at -1e30)."""
     _check_ported(cfg)
     dev = resolve_device(device)
+    dtype = _dtype(cfg)
     S = min(cfg.window, seq_len) if cfg.window else seq_len
-    shape = (cfg.n_layers, batch_size, S, cfg.n_kv_heads, cfg.d_head)
-    caches = {kk: torch.zeros(shape, dtype=_dtype(cfg), device=dev)
-              for kk in ("k", "v")}
+
+    def zeros(shape, dt=torch.float32):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def attn_cache(n):
+        shape = (n, batch_size, S, cfg.n_kv_heads, cfg.d_head)
+        return {kk: zeros(shape, dtype) for kk in ("k", "v")}
+
+    di = cfg.ssm_expand * cfg.d_model
+    K1 = cfg.conv_kernel - 1
+    if cfg.family == "ssm":
+        n, H = cfg.n_layers // 2, cfg.n_heads
+        dh = di // H
+        m = {"conv": zeros((n, batch_size, K1, di), dtype),
+             "S": zeros((n, batch_size, H, dh, dh)),
+             "n": zeros((n, batch_size, H, dh))}
+        s = {kk: zeros((n, batch_size, cfg.d_model)) for kk in ("h", "c", "n")}
+        s["m"] = torch.full((n, batch_size, cfg.d_model), -1e30,
+                            dtype=torch.float32, device=dev)
+        caches = (m, s)
+    elif cfg.family == "hybrid":
+        L, H, N = cfg.n_layers, cfg.mamba_heads, cfg.ssm_state
+        m = {"conv": zeros((L, batch_size, K1, di + 2 * N), dtype),
+             "S": zeros((L, batch_size, H, N, di // H)),
+             "n": zeros((L, batch_size, H, N))}
+        caches = (m, attn_cache(L // cfg.shared_attn_every))
+    else:
+        caches = attn_cache(cfg.n_layers)
     return {"caches": caches, "pos": 0}
 
 
@@ -238,13 +418,19 @@ def decode_step(params, cfg: ModelConfig, state, batch: Dict[str, torch.Tensor],
 
 
 def _pad_attn_caches(caches, S_target: int):
-    """Grow attention K/V caches (seq axis = -3) to the decode budget."""
+    """Grow the attention K/V caches (seq axis = -3) to the decode budget:
+    every ``{"k", "v"}`` dict of the cache tree, also inside the recurrent
+    families' tuples; recurrent state is left as it is."""
     def pad(leaf):
         S = leaf.shape[-3]
         if S >= S_target:
             return leaf
         return F.pad(leaf, (0, 0, 0, 0, 0, S_target - S))
-    return {kk: pad(vv) for kk, vv in caches.items()}
+    if isinstance(caches, tuple):
+        return tuple(_pad_attn_caches(c, S_target) for c in caches)
+    if isinstance(caches, dict) and set(caches) == {"k", "v"}:
+        return {kk: pad(vv) for kk, vv in caches.items()}
+    return caches
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,

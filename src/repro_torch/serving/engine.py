@@ -112,6 +112,24 @@ def make_serving_fns(cfg: ModelConfig, cap: int, layout: str = "dense",
     return prefill_one, decode_many, insert
 
 
+def refuse_recurrent(cfg: ModelConfig) -> None:
+    """The engine serves attention-cache families only. It right-pads
+    every prompt to the prompt budget and every re-prefill to ``max_len``,
+    and rolls speculation back by position: sound for attention caches,
+    whose padded and rolled-back rows are never attended to, but a
+    recurrent state (mLSTM and Mamba2 ``S``, ``n`` and conv tails, sLSTM
+    ``h``, ``c``, ``n``, ``m``) absorbs every pad and drafted token. The
+    lock-step path (``launch.serve`` without ``--live-grow-at``) serves
+    these families at their true prompt length."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine does not serve the recurrent "
+            f"family {cfg.family!r} (padded prefills and positional "
+            f"rollback would corrupt its state); serve it lock-step, "
+            f"without --live-grow-at (ROADMAP.md, 'the other families, e: "
+            f"the engine for recurrent families')")
+
+
 class ServingEngine:
     """Continuous batching over ``slots`` sessions with admission control.
 
@@ -147,6 +165,7 @@ class ServingEngine:
                  use_kernel: Optional[bool] = None, device="cuda"):
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown KV layout {kv_layout!r}")
+        refuse_recurrent(cfg)
         self.device = resolve_device(device)
         leaf = params["final_norm"]["scale"]
         if leaf.device.type != self.device.type:

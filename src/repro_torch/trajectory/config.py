@@ -44,9 +44,6 @@ instead of a fixed count::
 ``Stage.budget`` is the hard upper bound either way; the controller lives
 in the runner, this file stays pure data. The policy block is part of the
 schedule's hash, as in the JAX package.
-
-Not ported yet, and refused with ``NotImplementedError``: the ``gqa_merge``
-method ("the other families" in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -65,7 +62,6 @@ from repro_torch.core import spec as S
 # assume the target tree mirrors the source and would mis-build the expert
 # stack.
 CROSS_FAMILY_METHODS = ("upcycle", "ligo", "random")
-_LATER = {"gqa_merge": "ROADMAP, 'the other families'"}
 
 
 @dataclass(frozen=True)
@@ -73,7 +69,7 @@ class GrowthSpec:
     """How a stage is entered from the previous one."""
     method: str = "ligo"        # ligo | stackbert | interpolation |
     #                             net2net | bert2bert | lemon | upcycle |
-    #                             random
+    #                             gqa_merge | random
     ligo_steps: int = 100       # SGD steps on the operator (ligo only)
     ligo_lr: float = 1e-3
     ligo_momentum: float = 0.9
@@ -138,10 +134,6 @@ class TrajectoryConfig:
             growth = self.stages[i].growth
             if growth is None:
                 raise ValueError(f"stage {i} must carry a GrowthSpec")
-            if growth.method in _LATER:
-                raise NotImplementedError(
-                    f"stage {i}: growth method {growth.method!r} is not "
-                    f"ported yet ({_LATER[growth.method]})")
             prev_cfg, cfg = self.stages[i - 1].cfg, self.stages[i].cfg
             S.check_growable(prev_cfg, cfg)
             if (prev_cfg.family != cfg.family

@@ -17,16 +17,20 @@ NAMES = sorted(tc.REGISTRY)
 
 DENSE = {n for n, c in jc.ASSIGNED.items() if c.family == "dense"}
 MOE = {n for n, c in jc.ASSIGNED.items() if c.family == "moe"}
+SEQMIX = {n for n, c in jc.ASSIGNED.items() if c.family in ("ssm", "hybrid")}
 
 
 def test_registry_is_the_paper_models():
-    """The paper models and the JAX registry's dense- and MoE-family
-    architectures (the other families join with their slices)."""
+    """The paper models and the JAX registry's dense-, MoE-, xLSTM- and
+    hybrid-family architectures (audio and VLM join with their slice)."""
     assert DENSE == {"llama3-8b", "phi4-mini-3.8b", "starcoder2-7b",
                      "deepseek-coder-33b"}
     assert MOE == {"mixtral-8x7b", "qwen3-moe-30b-a3b"}
-    assert set(tc.ASSIGNED) == DENSE | MOE
-    assert set(tc.REGISTRY) == set(jc.PAPER_MODELS) | DENSE | MOE
+    assert SEQMIX == {"xlstm-125m", "zamba2-2.7b"}
+    assert set(tc.ASSIGNED) == DENSE | MOE | SEQMIX
+    assert set(jc.ASSIGNED) - set(tc.ASSIGNED) == {"hubert-xlarge",
+                                                   "qwen2-vl-72b"}
+    assert set(tc.REGISTRY) == set(jc.PAPER_MODELS) | DENSE | MOE | SEQMIX
     assert sorted(tc.GROWTH_PAIRS) == sorted(jc.GROWTH_PAIRS)
     for key, (a, b) in tc.GROWTH_PAIRS.items():
         ja, jb = jc.GROWTH_PAIRS[key]

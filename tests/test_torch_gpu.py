@@ -31,7 +31,11 @@ before its drafter launches. The observability layer on the kernel route:
 a background hop's spans, and a profiler trace that names K1's and K3's
 tensor-core kernels. The MoE family: K1 and K2 on E = 8 expert stacks and
 on the float32 router's Bd = 8 group, and the stable top-k on a zero
-router, where every token ties, choosing the CPU's experts.
+router, where every token ties, choosing the CPU's experts. The
+sequence-mixer families: K1 and K2 on a block-diagonal (``seg``) B with
+identity segments and on xLSTM's Bd 8 gates group, bf16; K3 at zamba2's
+d_head 80 and its grown d_head 120 (the FMA kernel); the xLSTM and
+zamba2 smoke models' decode on the card against the CPU.
 """
 import time
 
@@ -75,6 +79,10 @@ K3_SHAPES = [
     ("bf16-ragged", "bfloat16", (2, 6, 2, 200, 328, 128, True, 0)),
     ("bf16-ragged-window", "bfloat16", (2, 6, 2, 77, 333, 64, True, 100)),
     ("bf16-unaligned-rows", "bfloat16", (2, 6, 2, 200, 328, 64, True, 0, 4)),
+    # zamba2's shared attention block at d_head 80 and, grown, 120: bf16
+    # off the tensor-core kernel's dh, so the FMA kernel
+    ("zamba2-dh80", "bfloat16", (2, 32, 32, 256, 256, 80, True, 0)),
+    ("zamba2-dh120", "bfloat16", (2, 32, 32, 200, 200, 120, True, 0)),
     # the FMA kernel's bodies at 8 and 32 columns a thread (dh <= 32, > 64)
     ("dh32-fma", "float32", (2, 4, 2, 77, 77, 32, True, 0)),
     ("dh32-fma", "bfloat16", (2, 4, 2, 77, 77, 32, True, 0)),
@@ -937,3 +945,92 @@ def test_stable_top_k_on_the_card_matches_the_cpu(cuda):
     err = (out_d.cpu() - out).abs().max() / out.abs().max()
     assert float(err) <= 1e-5
     assert abs(float(aux_d) - float(aux)) <= 1e-6
+
+
+# The sequence mixers' K1 and K2 shapes, cut in depth from chip_smoke.py
+# phase 14's: name, seg (B block-diagonal with identity segments: Mamba2's
+# in_proj expander, [inner, inner, I_N, I_N, mheads], at a cut width), dims
+SEQMIX_SHAPES = [
+    ("seg-B", True, (1, 4, 2, 1, 2 * 512 + 2 * 64 + 16,
+                     2 * 256 + 2 * 64 + 16, 384)),
+    ("gates-Bd8", False, (1, 4, 2, 1, 2304, 1536, 8)),
+]
+
+
+def _seg_B(cuda, gen, I, A):
+    """A (I, A) block-diagonal expander: two dense (512, 256) segments, two
+    64-wide identities, a (16, 16) one — the Mamba2 in_proj layout."""
+    blocks = [torch.randn((512, 256), generator=gen, device=cuda) / 16,
+              torch.randn((512, 256), generator=gen, device=cuda) / 16,
+              torch.eye(64, device=cuda), torch.eye(64, device=cuda),
+              torch.randn((16, 16), generator=gen, device=cuda) / 4]
+    B = torch.block_diag(*blocks)
+    assert tuple(B.shape) == (I, A)
+    return B
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,seg,dims", SEQMIX_SHAPES,
+                         ids=[n for n, _, _ in SEQMIX_SHAPES])
+def test_k1_and_k2_on_seqmix_groups_match_plain(cuda, name, seg, dims):
+    """K1 and K2 (fed K1's U) on a block-diagonal B and on the Bd 8 gates
+    group, bf16, each against its plain version, each twice for bits."""
+    G, L2, L1, E, I, A, Bd = dims
+    dt = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((G, L2, L1), generator=gen, device=cuda) / L1 ** 0.5
+    B = (_seg_B(cuda, gen, I, A) if seg else torch.randn(
+        (I, A), generator=gen, device=cuda) / A ** 0.5).to(dt)
+    W = torch.randn((G, L1, E, A, Bd), generator=gen, device=cuda).to(dt)
+    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device=cuda).to(dt)
+    ops.reset_launch_counts()
+    P, U = ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    got = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U)
+    assert ops.launch_counts() == {"ligo_blend_expand_grouped": 1,
+                                   "ligo_blend_expand_bwd_fused": 1,
+                                   "flash_attention": 0}
+    P2 = ligo_expand.ligo_blend_expand_grouped(w, B, W)
+    got2 = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U)
+    torch.cuda.synchronize()
+    assert torch.equal(P, P2) and all(torch.equal(a, b)
+                                      for a, b in zip(got, got2))
+    want = ref.ligo_blend_expand_grouped_ref(w, B, W)
+    err = (P.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= TOL["bfloat16"]
+    want = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+    for g, r in zip(got[1:], want[1:]):
+        err = (g.float() - r.float()).abs().max() / r.float().abs().max()
+        assert float(err) <= TOL["bfloat16"]
+    T = torch.einsum("ia,gkeib->gkeab", B.float(), dP.float()).abs()
+    terms = torch.einsum("gkeab,gleab->gkl", T, W.float().abs())
+    assert float(((got[0] - want[0].float()).abs() / terms).max()) \
+        <= TOL["bfloat16"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_seqmix_smoke_models_on_the_card_match_the_cpu(cuda, arch):
+    """The smoke model's prefill (K3 for zamba2's shared block) and four
+    decode steps on the card against the CPU, float32 (<= 1e-4)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model
+    from repro_torch.tree import tree_map
+    cfg = smoke_config(get_config(arch))
+    p = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pd = tree_map(lambda t: t.to(cuda), p)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lc, sc = model.prefill(p, cfg, {"tokens": toks[:, :36]}, max_len=40)
+        ld, sd = model.prefill(pd, cfg, {"tokens": toks[:, :36].to(cuda)},
+                               max_len=40)
+        n_attn = (cfg.n_layers // cfg.shared_attn_every
+                  if cfg.family == "hybrid" else 0)
+        assert ops.launch_counts()["flash_attention"] == n_attn
+        for t in range(36, 40):
+            err = (ld.cpu() - lc).abs().max() / lc.abs().max()
+            assert float(err) <= 1e-4
+            lc, sc = model.decode_step(p, cfg, sc, {"tokens": toks[:, t:t + 1]})
+            ld, sd = model.decode_step(pd, cfg, sd,
+                                       {"tokens": toks[:, t:t + 1].to(cuda)})

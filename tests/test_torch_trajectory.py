@@ -171,11 +171,15 @@ def test_trajectory_hash_equals_the_references(tmp_path, source):
 @pytest.mark.parametrize("change", [
     {"grow": "moe"},
 ])
-def test_trajectory_later_slice_features_raise(change):
+def test_trajectory_later_slice_features_raise(change, tmp_path):
     """A ``"grow": "moe"`` stage (the dense→MoE hop, entered by LiGO here,
-    then MoE→MoE growth) resolves and hashes as in the JAX package; the
-    gqa_merge method, whose slice is still to come, raises."""
+    then MoE→MoE growth) resolves and hashes as in the JAX package; so does
+    a ``gqa_merge`` stage (MHA → GQA head merging), which also grows as in
+    the JAX package: the JAX runner pauses in stage 0, and the port's
+    runner resumes that directory through the merge hop to the end within
+    1e-4 of the JAX package's own resume of a copy (losses and params)."""
     from repro import trajectory as jt
+    from repro.trajectory import TrajectoryRunner as JaxRunner
     obj = json.loads(json.dumps(SCHEDULE))
     obj["stages"][1].update(change)
     ours, theirs = (TrajectoryConfig.from_json(obj),
@@ -184,9 +188,29 @@ def test_trajectory_later_slice_features_raise(change):
     assert ours.hash() == theirs.hash() != TRAJ.hash()
     assert [st.cfg.config_hash() for st in ours.stages] \
         == [st.cfg.config_hash() for st in theirs.stages]
-    obj["stages"][1]["method"] = "gqa_merge"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrajectoryConfig.from_json(obj)
+
+    mha = T0.scaled(name="tr0-mha", norm="rms")      # no biases
+    gqa = mha.scaled(name="tr0-gqa", n_kv_heads=2)
+    traj = TrajectoryConfig(stages=(
+        Stage(mha, 3), Stage(gqa, 3, GrowthSpec(method="gqa_merge"))),
+        batch=4, seq=16, lr=1e-3, checkpoint_every=2)
+    jtraj = _jax_twin(traj)
+    assert traj.hash() == jtraj.hash()
+    d = str(tmp_path / "ck")
+    assert JaxRunner(jtraj, ckpt_dir=d, verbose=False).run(
+        max_steps=2)["status"] == "paused"
+    d2 = str(tmp_path / "ck_jax")
+    shutil.copytree(d, d2)
+    want = JaxRunner(jtraj, ckpt_dir=d2, verbose=False).run()
+    got = _runner(traj, d).run()
+    assert got["status"] == want["status"] == "done"
+    assert got["resumed_at"] == tuple(want["resumed_at"]) == (0, 2)
+    assert got["cfg"].n_kv_heads == 2
+    np.testing.assert_allclose([h[2] for h in got["history"]],
+                               [float(h[2]) for h in want["history"]],
+                               rtol=1e-4)
+    assert_trees_close_normalized(_np(got["params"]),
+                                  _jax_np(want["params"]), rel=1e-4)
 
 
 @pytest.mark.parametrize("change", [
