@@ -26,8 +26,9 @@ sources are not beside it. Phases, each fatal on failure:
    the float32 ones the FMA GEMM; and
    K3 (flash attention: the gpt2-medium and llama3-8b prefills, a sliding
    window, bert-large's bidirectional shape, ragged bf16 and float32 shapes,
-   unaligned bf16 rows, and the vision evals at T = 197 (deit at dh 64,
-   cait at dh 48), with SDPA's time; routes checked: bf16 at dh 64 and 128 with
+   unaligned bf16 rows, the vision evals at T = 197 (deit at dh 64,
+   cait at dh 48), and zamba2's exact-length engine prefills at B = 1, T
+   = 1, 37 and 509, d_head 80 and 120, with SDPA's time; routes checked: bf16 at dh 64 and 128 with
    aligned rows on the TMA + wgmma kernel, whose V^T pass and kernel are
    also timed apart under the profiler, the rest on the FMA kernel);
 3. drive the serving path at full width through its entry point —
@@ -202,6 +203,27 @@ sources are not beside it. Phases, each fatal on failure:
    route, 2 x 1024 prompts through K3 at d_head 120); one LiGO step from a
    6-layer cut (one shared-attention group) to 12 layers x 3840 through K1
    and K2, its FLOP ratio printed, and K1 and K2 at its group shapes;
+15. the live engine on the recurrent families at full width, under phase
+   6's deterministic algorithms (after phase 14, before phase 11): (a)
+   ``serve --arch xlstm-125m --grow-to 2x --live-grow-at 8`` (8 slots, 16
+   requests of 32-64 tokens, 16 new): each prompt prefilled at its exact
+   length, the hop in the
+   background re-prefilling every live history, 0 dropped, 0 rejected, K1
+   once per plan group at ``warm()`` and at the hop, no K3; (b) the same
+   for zamba2-2.7b at 54 layers (4 slots, 8 requests of 256-512 tokens, 8
+   new) hopping to 108 x 3840: K1 likewise, K3 once per shared-block
+   insertion of every prefill and re-prefill the engine counted, then K3
+   against its plain version at every exact length it was sent; (c) the
+   runs of (a) and (b) in float32 through the engine API ((a) with 3 more
+   requests of 1, 2 and 5 tokens, zamba2 cut to 12 layers), the hop
+   synchronous: each request's greedy tokens equal to
+   a lock-step ``prefill`` + ``decode_step`` of the same models at its
+   true length, its first-token logits and its logits on its first step
+   after the swap within 1e-4; (d) chaos at cache-grow on (a)'s model,
+   the hop synchronous: one rollback, the engine's state bitwise as it was
+   before the failing poll, the retry landing with 0 dropped. Decode
+   p50/p99 before, during and after each hop, its stage walls, the state
+   a slot holds and the peak memory printed;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -290,6 +312,18 @@ K3_SHAPES = [
     ("zamba2 prefill", "bfloat16", (4, 32, 32, 2048, 2048, 80, True, 0)),
     ("zamba2-grown prefill", "bfloat16",
      (2, 32, 32, 1024, 1024, 120, True, 0)),
+    # phase 15: the engine prefills a recurrent family's prompt (and
+    # re-prefills its history) at its exact length, B = 1: T off the
+    # kernel's tiles, at zamba2's d_head 80 and, grown, 120
+    ("zamba2 engine T=1", "bfloat16", (1, 32, 32, 1, 1, 80, True, 0)),
+    ("zamba2 engine T=37", "bfloat16", (1, 32, 32, 37, 37, 80, True, 0)),
+    ("zamba2 engine T=509", "bfloat16", (1, 32, 32, 509, 509, 80, True, 0)),
+    ("zamba2-grown engine T=1", "bfloat16",
+     (1, 32, 32, 1, 1, 120, True, 0)),
+    ("zamba2-grown engine T=37", "bfloat16",
+     (1, 32, 32, 37, 37, 120, True, 0)),
+    ("zamba2-grown engine T=509", "bfloat16",
+     (1, 32, 32, 509, 509, 120, True, 0)),
 ]
 
 # K1's and K2's shapes besides the main path's six groups (gpt2-base ->
@@ -3793,6 +3827,353 @@ def _seqmix_phase(torch):
     return runs, k3, k1 + zk1, k2 + zk2
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the live engine on the recurrent families at full width, bf16,
+# under phase 6's deterministic algorithms (after phase 14, before phase
+# 11). (a) xlstm-125m through `serve --live-grow-at` with a background LiGO
+# hop (re-prefill); (b) zamba2-2.7b at its 54 layers the same way, K3 at
+# every exact prompt and history length it sent held against its plain
+# version; (c) float32 runs of (a), with prompts of 1, 2 and 5 tokens added
+# through the engine API, and of (b) ((b) cut to RECUR_F32_ZAMBA layers: the
+# float32 grown model at 108 layers, 39 GB, and its double-buffered grow
+# do not fit beside the source) held to a lock-step prefill + decode_step
+# of the same models at each request's true length; (d) chaos at
+# cache-grow on (a)'s model, hop synchronous: the failing poll leaves the
+# engine's state bitwise as it was.
+RECUR_XLSTM_ARGS = ["--arch", "xlstm-125m", "--grow-to", "2x",
+                    "--live-grow-at", "8", "--batch", "8", "--requests",
+                    "16", "--prompt-len", "64", "--gen", "16"]
+RECUR_SHORT = (1, 2, 5)          # (c)'s extra prompts, below the conv tail
+RECUR_ZAMBA_ARGS = ["--arch", "zamba2-2.7b", "--grow-to", "2x",
+                    "--live-grow-at", "3", "--batch", "4", "--requests", "8",
+                    "--prompt-len", "512", "--gen", "8"]
+RECUR_F32_ZAMBA = 12
+RECUR_TOL32 = 1e-4               # engine vs lock-step logits, float32
+
+
+def _short_prompts(vocab):
+    from repro_torch.data import gen_tokens
+    rows = gen_tokens(0, 15, len(RECUR_SHORT), max(RECUR_SHORT), vocab)
+    return [[int(t) for t in rows[i, :n]] for i, n in enumerate(RECUR_SHORT)]
+
+
+def _attn_layers(cfg):
+    """K3 launches of one prefill: the hybrid's shared-block insertions."""
+    return cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" \
+        else 0
+
+
+def _recur_k3_want(eng, cfgs):
+    return sum(n * _attn_layers(cfgs[name])
+               for (name, _, _), n in eng.prefill_lengths.items())
+
+
+def _recur_live_serve(torch, argv, label, runs):
+    """(a) or (b): one `serve --live-grow-at` run; checks done / dropped /
+    rejected, the hop (attempt 1, re-prefill), K1 once per plan group at
+    warm() and at the hop, K3 once per attention layer of every prefill
+    the engine counted; prints decode p50/p99 before, during and after the
+    hop, the hop's stage walls and the per-slot state."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs[f"recurrent {label}"] = ops.launch_counts()
+    eng, hop = res["engine"], res["hop"]
+    cfg1, cfg2 = res["small_cfg"], res["cfg2"]
+    shapes = _k1_shapes(torch, cfg1, cfg2)
+    k1 = _launches(shapes, False)[0]
+    want = {"ligo_blend_expand_grouped": 2 * k1,
+            "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": _recur_k3_want(eng, {cfg1.name: cfg1,
+                                                    cfg2.name: cfg2})}
+    gen = int(argv[argv.index("--gen") + 1])
+    n_req = int(argv[argv.index("--requests") + 1])
+    _live_check(res, n_req, gen)
+    pc = eng.prefill_counts
+    print(f"[recur] {label} {cfg1.name} ({cfg1.param_count() / 1e9:.3f} B) -> "
+          f"{cfg2.name} ({cfg2.param_count() / 1e9:.3f} B): {n_req} requests "
+          f"(prompt lengths {sorted(len(r.prompt) for r in eng.requests)}) "
+          f"through {eng.slots} slots, hop attempt {hop.attempts} cache "
+          f"{hop.cache_path}, prefills {dict(pc)}; launches "
+          f"{runs[f'recurrent {label}']} (hop alone: {res['launches']}), want "
+          f"{want}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {wall:.1f} s",
+          flush=True)
+    _decode_report(f"{label} {cfg1.name}", eng, hop)
+    sb = res["slot_bytes"]
+    print(f"[recur] {label} hop stages ms {hop.timings} (migration = "
+          f"cache-grow, {pc[(cfg2.name, 'reprefill')]} re-prefills); state a "
+          f"slot: {cfg1.name} recurrent {sb['before']['recurrent']} B + "
+          f"attention {sb['before']['attention']} B -> {cfg2.name} recurrent "
+          f"{sb['after']['recurrent']} B + attention "
+          f"{sb['after']['attention']} B ({eng.cap} cache rows)", flush=True)
+    if not (hop.completed and hop.attempts == 1
+            and hop.cache_path == "reprefill"
+            and res["launches"]["ligo_blend_expand_grouped"] == k1
+            and runs[f"recurrent {label}"] == want):
+        raise AssertionError(f"{label}: hop {hop.completed} attempt "
+                             f"{hop.attempts} cache {hop.cache_path}; "
+                             f"launches {runs[f'recurrent {label}']}, want "
+                             f"{want}")
+    return res
+
+
+def _recur_k3_rows(torch, eng, cfgs, label, seed):
+    """K3 against its plain version at every (config, prefill length) the
+    engine sent it: B = 1, the exact prompt and history lengths, off the
+    kernel's tiles. Returns the rows and their launches by row name."""
+    rows, counts = [], {}
+    for i, ((name, kind, T), n) in enumerate(sorted(
+            eng.prefill_lengths.items())):
+        cfg = cfgs[name]
+        key = f"{label} {name} T={T}"
+        if key not in counts:
+            rows.append(_check_k3(
+                torch, key, cfg.dtype,
+                1, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.d_head, True, 0,
+                seed=seed + i))
+            counts[key] = 0
+        counts[key] += n * _attn_layers(cfg)
+    return rows, counts
+
+
+class _Recorder:
+    """A live run through the engine API: the engine records the logits of
+    every pick by (request uid, token index), and the run loop notes each
+    request's token count at the swap (None: done before it; 0: admitted
+    after it)."""
+
+    def __init__(self, torch, params, cfg, cfg2, ligo, prompts, *, slots,
+                 budget, gen, hop_at, fail_at=None, bitwise=False):
+        from repro_torch.serving import HopController, ServingEngine
+        from repro_torch.tree import tree_leaves
+
+        class Engine(ServingEngine):
+            def _pick_token(self, req, logits_row):
+                self.picked[(req.uid, len(req.tokens))] = logits_row
+                return super()._pick_token(req, logits_row)
+
+        eng = Engine(params, cfg, slots=slots, prompt_budget=budget,
+                     gen_budget=gen, kv_layout="dense", device="cuda")
+        eng.picked = {}
+        for p in prompts:
+            eng.submit(p, max_new=gen)
+        hop = HopController(eng, cfg2, ligo, fail_at=fail_at, backoff=0.01,
+                            background=False)
+        self.eng, self.hop, self.at_swap, self.rolled = eng, hop, {}, []
+
+        def poll(e):
+            before = ([t.clone() for t in tree_leaves(e.state["caches"])]
+                      if bitwise else None)
+            cfg0, params0, n = e.cfg, e.params, len(hop.rollbacks)
+            hop.poll()
+            if len(hop.rollbacks) > n and bitwise:
+                after = tree_leaves(e.state["caches"])
+                same = (e.cfg is cfg0 and e.params is params0
+                        and len(after) == len(before)
+                        and all(torch.equal(a, b)
+                                for a, b in zip(after, before)))
+                self.rolled.append((hop.rollbacks[-1][0], same))
+            if hop.completed and not self.at_swap:
+                for r in e.requests:
+                    self.at_swap[r.uid] = (
+                        len(r.tokens) if r.status == "running"
+                        else 0 if r.status == "queued" else None)
+
+        def on_step(e):
+            if e.decode_steps >= hop_at and hop.attempts == 0:
+                hop.begin()
+            if hop.attempts and not hop.completed:
+                poll(e)
+
+        t0 = time.perf_counter()
+        eng.run(on_step=on_step)
+        while not (hop.completed or hop.failed):
+            time.sleep(0.002)
+            poll(eng)
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - t0
+
+
+def _lockstep_hold(torch, rec, small, big, label):
+    """Each request of a recorded run against the lock-step path of the
+    same models at its true length (``model.prefill`` of the prompt, or
+    of the history after the swap, then ``decode_step`` a token, batch 1):
+    its first-token logits and its logits on its first step after the
+    swap within RECUR_TOL32 (normalised max error), its greedy tokens
+    equal. ``small``/``big``: (params, cfg) before and after the hop."""
+    import numpy as np
+    from repro_torch.models import model
+    eng = rec.eng
+    worst = {"first": 0.0, "after hop": 0.0}
+    n_after = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for r in eng.requests:
+            k = rec.at_swap.get(r.uid)
+
+            def side(i):
+                return big if k is not None and i >= k else small
+            params, cfg = side(0)
+            lg, st = model.prefill(params, cfg, {"tokens": torch.tensor(
+                [r.prompt], device="cuda")}, max_len=eng.max_len)
+            toks, logits = [], {0: lg[0].float().cpu().numpy()}
+            toks.append(int(np.argmax(logits[0])))
+            for i in range(1, len(r.tokens)):
+                if side(i) is not side(i - 1):
+                    params, cfg = side(i)
+                    hist = r.prompt + toks[:-1]
+                    _, st = model.prefill(params, cfg, {"tokens": torch.tensor(
+                        [hist], device="cuda")}, max_len=eng.max_len)
+                lg, st = model.decode_step(params, cfg, st, {
+                    "tokens": torch.tensor([[toks[-1]]], device="cuda")})
+                logits[i] = lg[0].float().cpu().numpy()
+                toks.append(int(np.argmax(logits[i])))
+            if toks != r.tokens:
+                raise AssertionError(f"{label}: request of {len(r.prompt)} "
+                                     f"tokens (swap at {k}): engine tokens "
+                                     f"{r.tokens}, lock-step {toks}")
+            worst["first"] = max(worst["first"], _logit_err(
+                eng.picked[(r.uid, 0)], logits[0]))
+            if k:
+                n_after += 1
+                worst["after hop"] = max(worst["after hop"], _logit_err(
+                    eng.picked[(r.uid, k)], logits[k]))
+    print(f"[recur] {label} float32: {len(eng.requests)} requests' greedy "
+          f"tokens equal to the lock-step path's; logits vs lock-step, "
+          f"normalised max error: first token {worst['first']:.2e}, first "
+          f"step after the hop {worst['after hop']:.2e} over {n_after} "
+          f"sessions live at the swap (tol {RECUR_TOL32:.0e}); engine run "
+          f"{rec.wall:.1f} s, lock-step {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (max(worst.values()) <= RECUR_TOL32 and n_after > 0
+            and any(k == 0 for k in rec.at_swap.values())):
+        raise AssertionError(f"{label}: logits {worst} (tol {RECUR_TOL32}); "
+                             f"{n_after} sessions live at the swap, at swap "
+                             f"{rec.at_swap}")
+
+
+def _recur_f32(torch, cfg, prompts, slots, budget, gen, hop_at, label, runs):
+    """(c): a float32 run of ``cfg`` from the launcher's seeds through the
+    engine API, the hop synchronous at ``hop_at``, held to the lock-step
+    path. Returns the engine (for its prefill lengths) and the configs."""
+    from repro_torch.configs import grow_target
+    from repro_torch.core import init_ligo_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    cfg2 = grow_target(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    ligo = init_ligo_params(torch.Generator("cuda").manual_seed(1), cfg,
+                            cfg2, device="cuda")
+    ops.reset_launch_counts()
+    rec = _Recorder(torch, params, cfg, cfg2, ligo, prompts, slots=slots,
+                    budget=budget, gen=gen, hop_at=hop_at)
+    runs[f"recurrent {label}"] = ops.launch_counts()
+    eng = rec.eng
+    want = {"ligo_blend_expand_grouped":
+            _launches(_k1_shapes(torch, cfg, cfg2), False)[0],
+            "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": _recur_k3_want(eng, {cfg.name: cfg,
+                                                    cfg2.name: cfg2})}
+    print(f"[recur] {label} {cfg.name} -> {cfg2.name}, float32: prefills "
+          f"{dict(eng.prefill_counts)}, launches {runs[f'recurrent {label}']}"
+          f", want {want}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    if runs[f"recurrent {label}"] != want or not rec.hop.completed:
+        raise AssertionError(f"{label}: launches {runs[f'recurrent {label}']}"
+                             f", want {want}; hop {rec.hop.completed}")
+    _lockstep_hold(torch, rec, (params, cfg), (eng.params, cfg2), label)
+    out = (eng, {cfg.name: cfg, cfg2.name: cfg2})
+    del rec, params, ligo
+    return out
+
+
+def _recur_chaos(torch, res, prompts, runs):
+    """(d): (a)'s bf16 model and operator, a failure injected at
+    cache-grow, the hop synchronous: one rollback for the injected cause,
+    the state bitwise as it was before the failing poll, the retry landing
+    with 0 dropped."""
+    from repro_torch.kernels import ops
+    cfg, cfg2 = res["small_cfg"], res["cfg2"]
+    ops.reset_launch_counts()
+    rec = _Recorder(torch, res["small"], cfg, cfg2, res["ligo"], prompts,
+                    slots=8, budget=64, gen=16, hop_at=8,
+                    fail_at="cache-grow", bitwise=True)
+    runs["recurrent d"] = ops.launch_counts()
+    hop, c = rec.hop, rec.eng.counts()
+    k1 = _launches(_k1_shapes(torch, cfg, cfg2), False)[0]
+    print(f"[recur] (d) chaos at 'cache-grow' on {cfg.name}: rollbacks "
+          f"{[(w, str(e)) for w, e in hop.rollbacks]}, state bitwise "
+          f"unchanged by the failing poll {rec.rolled}, attempts "
+          f"{hop.attempts}, {c['done']} done, {c['dropped']} dropped; "
+          f"launches {runs['recurrent d']}", flush=True)
+    if not (hop.completed and hop.attempts == 2
+            and rec.rolled == [("cache-grow", True)]
+            and "injected" in str(hop.rollbacks[0][1])
+            and c["done"] == len(prompts) and c["dropped"] == 0
+            and runs["recurrent d"]["ligo_blend_expand_grouped"] == 2 * k1):
+        raise AssertionError(f"(d): {rec.rolled}, {hop.rollbacks}, {c}, "
+                             f"{runs['recurrent d']}")
+
+
+def _recurrent_phase(torch):
+    """Phase 15 (a)-(d). Returns the launches of its runs by run, K3's
+    launches by row name and the K3 rows at the phase's exact lengths."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import live_prompts
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs, k3, rows = {}, {}, []
+    t = time.perf_counter()
+    xl = get_config("xlstm-125m")
+    res = _recur_live_serve(torch, RECUR_XLSTM_ARGS, "(a)", runs)
+    _recur_chaos(torch, res, live_prompts(8, 64, xl.vocab_size), runs)
+    del res
+    print(f"[recur] (a), (d) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    res = _recur_live_serve(torch, RECUR_ZAMBA_ARGS, "(b)", runs)
+    cfgs = {c.name: c for c in (res["small_cfg"], res["cfg2"])}
+    r, n = _recur_k3_rows(torch, res["engine"], cfgs, "engine prefill", 700)
+    rows += r
+    k3.update(n)
+    del res
+    gc.collect()
+    print(f"[recur] (b) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    xl32 = xl.scaled(dtype="float32")
+    eng, _ = _recur_f32(torch, xl32, live_prompts(16, 64, xl.vocab_size)
+                        + _short_prompts(xl.vocab_size), 8, 64, 16, 8,
+                        "(c) xlstm", runs)
+    if sorted(len(r.prompt) for r in eng.requests)[:3] != list(RECUR_SHORT):
+        raise AssertionError("(c) xlstm: the short prompts were not served")
+    del eng
+    z = get_config("zamba2-2.7b")
+    z32 = z.scaled(name=f"{z.name}-{RECUR_F32_ZAMBA}l",
+                   n_layers=RECUR_F32_ZAMBA, dtype="float32")
+    eng, cfgs = _recur_f32(torch, z32, live_prompts(8, 512, z.vocab_size),
+                           4, 512, 8, 3, "(c) zamba2", runs)
+    r, n = _recur_k3_rows(torch, eng, cfgs, "engine prefill f32", 760)
+    rows += r
+    k3.update(n)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[recur] (c) {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[recur] phase 15 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3, rows
+
+
 def main() -> int:
     # cuBLAS is deterministic under use_deterministic_algorithms (phase 6)
     # only with a fixed workspace, set before its first handle
@@ -4141,6 +4522,12 @@ def main() -> int:
     rows += seq_k1
     rows2 += seq_k2
 
+    # -- phase 15: the live engine on the recurrent families ----------------
+    recur_runs, k3_recur, recur_rows = _recurrent_phase(torch)
+    traj["launches"].update(recur_runs)
+    k3_engine.update(k3_recur)
+    k3_rows += recur_rows
+
     # -- phase 11: the observability layer at full width ---------------------
     obs_runs, k3_obs = _obs_phase(torch, shapes)
     traj["launches"].update(obs_runs)
@@ -4178,7 +4565,8 @@ def main() -> int:
         # K3's times: its work in one gpt2-medium prefill (24 launches at
         # shape (a)) plus one llama3-8b prefill (32 launches at shape (b)),
         # plus the engine's prefills and re-prefills of phase 9 (a) and (f)
-        # and phase 10 (a) (its drafter prefills too)
+        # and phase 10 (a) (its drafter prefills too), and phases 13-15's
+        # prefills (phase 15's at each exact length it sent)
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:72",
               total("flash_attention"), k3_rows,

@@ -22,6 +22,8 @@ lock-step path, at the prompt's own length, hot-grown or not::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --grow-to 2x --batch 2 --prompt-len 1024 --gen 4
 
+and through the live engine below with ``--live-grow-at``.
+
 ``--ckpt DIR`` serves the newest checkpoint in DIR (the ``params`` of a
 trainer or trajectory checkpoint, or a bare parameter tree) in place of
 the random init, e.g. the end of a trajectory::
@@ -48,9 +50,19 @@ back and retries with backoff; admitted requests never drop either way::
         --grow-to gpt2-medium --live-grow-at 8 --batch 8 --requests 16 \\
         --prompt-len 128 --gen 32
 
-The live path serves the attention-cache families only: it refuses
-xlstm-125m and zamba2-2.7b, whose recurrent state its padded prefills and
-positional rollback would corrupt.
+The live path serves the recurrent families too (xlstm-125m, zamba2-2.7b):
+each request prefills at its true length into its slot's row of the
+dense recurrent state, the hop re-prefills every live history, and the
+report prints the state's bytes a slot, recurrent and attention, in place
+of the paged-KV line::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        --grow-to 2x --live-grow-at 8 --batch 8 --requests 16 \
+        --prompt-len 64 --gen 16
+
+There ``--speculative``, ``--cache-mode grow`` and ``--cache-mode replay``
+are refused: a recurrent state cannot be rolled back by position, grown in
+place, or replayed layer by layer.
 
 ``--speculative K`` keeps the pre-hop model resident after the live hop as
 a drafter: each round it drafts K tokens a slot and the grown model
@@ -239,12 +251,18 @@ def _live_operator(args, cfg, dev):
     return chain[-1], compose_chain(ops_, chain)
 
 
+def _slot_line(cfg, sizes) -> str:
+    return (f"{cfg.name} recurrent {sizes['recurrent'] / 1e6:.3f} MB + "
+            f"attention {sizes['attention'] / 1e6:.3f} MB")
+
+
 def _serve_live(args, cfg, params, dev, *,
                 use_kernel: Optional[bool] = None,
                 spec_autodisable: bool = True) -> Dict[str, Any]:
     """Engine-backed serving with a mid-serve hop (``--live-grow-at``).
     ``use_kernel=False`` serves on the plain route (K1 and K3 off);
     ``spec_autodisable`` as in :class:`ServingEngine`."""
+    from repro_torch.models.model import slot_bytes
     from repro_torch.serving import HopController, ServingEngine
     if cfg.modality != "text":
         raise SystemExit(f"--live-grow-at: {cfg.name} is not a token model")
@@ -268,6 +286,7 @@ def _serve_live(args, cfg, params, dev, *,
     n_req = args.requests or args.batch * 2
     for prompt in live_prompts(n_req, args.prompt_len, cfg.vocab_size):
         engine.submit(prompt, max_new=args.gen)
+    sizes0 = slot_bytes(engine.state["caches"])
 
     launches0 = ops.launch_counts()
     t0 = time.perf_counter()
@@ -333,7 +352,15 @@ def _serve_live(args, cfg, params, dev, *,
                            "ligo": ligo, "wall_s": wall,
                            "tok_s": total / max(wall, 1e-9), "p50": p50,
                            "p99": p99, "launches": launches}
-    if engine.alloc is not None:
+    if engine.alloc is None:
+        # a dense state: what one slot's row holds, before and after the hop
+        res["slot_bytes"] = {"before": sizes0,
+                             "after": slot_bytes(engine.state["caches"])}
+        print(f"[state] per slot: {_slot_line(cfg, sizes0)}"
+              + (f" -> {_slot_line(cfg2, res['slot_bytes']['after'])}"
+                 if hop.completed else "")
+              + f" (dense, {engine.cap} cache rows)")
+    else:
         a = engine.alloc
         pool = engine.state["caches"]["k"]   # (L, n_blocks + 1, bs, KV, dh)
         block_bytes = (2 * pool.shape[0] * int(np.prod(pool.shape[2:]))

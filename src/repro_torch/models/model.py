@@ -27,9 +27,12 @@ insertions of the shared block). ``decode_step`` writes each new token's
 cache and state into them in place. The decode position ``state["pos"]``
 is a Python int when all rows of a batch step in lock step (``prefill``
 and ``init_decode_state`` make it so), or a (B,) int64 tensor when each
-row is at its own position (the serving engine's continuous batching,
-attention families only); a ``state["pages"]`` (B, P) page table switches
-the caches to the paged block pools of ``serving.kv_pages``.
+row is at its own position (the serving engine's continuous batching; a
+recurrent leaf needs no position, the hybrid's attention caches write each
+row at its own); a ``state["pages"]`` (B, P) page table switches the
+caches to the paged block pools of ``serving.kv_pages`` (attention
+families only). ``write_slot`` overwrites one batch row of every leaf from
+a batch-1 prefill, ``slot_bytes`` counts the bytes of one row.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import apply_norm, embed_init, init_norm
+from repro_torch.tree import tree_leaves, tree_map
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -415,6 +419,37 @@ def decode_step(params, cfg: ModelConfig, state, batch: Dict[str, torch.Tensor],
     if return_prenorm:
         return logits, new_state, out[2]
     return logits, new_state
+
+
+def write_slot(caches, caches1, slot: int) -> None:
+    """Write row ``slot`` of every leaf of the decode-state tree ``caches``
+    from the batch-1 tree ``caches1`` of the same structure, in place.
+    Every leaf carries the batch at axis 1 (the attention K/V caches, the
+    recurrent ``conv``, ``S``, ``n`` and the sLSTM's ``h``, ``c``, ``n``,
+    ``m``), so one rule covers the whole tree: a slot's row is overwritten
+    completely, the sLSTM stabiliser's -1e30 start and the zero conv tail
+    included, whatever its previous session left there."""
+    def write(leaf, row):
+        if row.shape != leaf.shape[:1] + (1,) + leaf.shape[2:]:
+            # no silent broadcast of a short row
+            raise ValueError(f"a slot row of shape {tuple(row.shape)} does "
+                             f"not fit the state leaf {tuple(leaf.shape)}")
+        leaf[:, slot] = row[:, 0]
+    tree_map(write, caches, caches1)
+
+
+def slot_bytes(caches) -> Dict[str, int]:
+    """Bytes one batch row of the decode-state tree ``caches`` holds,
+    split into ``"attention"`` (every ``{"k", "v"}`` block of the tree:
+    the whole of an attention family's, the hybrid's second) and
+    ``"recurrent"`` (every other leaf): each leaf's bytes over its batch
+    axis (axis 1)."""
+    def row(tree):
+        return sum(x.numel() // x.shape[1] * x.element_size()
+                   for x in tree_leaves(tree))
+    blocks = caches if isinstance(caches, tuple) else (caches,)
+    attn = sum(row(b) for b in blocks if set(b) == {"k", "v"})
+    return {"recurrent": row(caches) - attn, "attention": attn}
 
 
 def _pad_attn_caches(caches, S_target: int):

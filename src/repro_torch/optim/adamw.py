@@ -13,7 +13,8 @@ from typing import Any, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import sorted_leaves, tree_map
+from repro_torch.tree import (sorted_leaves, tree_leaves, tree_map,
+                              tree_unflatten)
 
 Params = Any
 F32 = torch.float32
@@ -59,8 +60,9 @@ def adamw_update(grads: Params, state: AdamWState, params: Params, *,
             step = step + weight_decay * p.to(F32)
         return (p.to(F32) - lr * step).to(p.dtype), m_new, v_new
 
-    out = tree_map(upd, grads, state.m, state.v, params, decay_mask(params))
-    p, m, v = (tree_map(lambda t, i=i: t[i], out) for i in range(3))
+    flat = tree_leaves(tree_map(upd, grads, state.m, state.v, params,
+                                decay_mask(params)))   # p, m, v a leaf
+    p, m, v = (tree_unflatten(grads, flat[i::3]) for i in range(3))
     return p, AdamWState(m, v, count)
 
 

@@ -10,7 +10,10 @@ or re-prefill through kernel K3), buffers swapped between decode steps,
 with chaos hooks, rollback, bounded retry and a watchdog around the whole
 hop. The KV cache defaults to a *paged* block-pool layout (``kv_pages``).
 Speculative decoding (``serving.speculative``) runs through the hop: the
-pre-hop model drafts, the grown model verifies.
+pre-hop model drafts, the grown model verifies. The recurrent families
+(xLSTM, the Mamba2 hybrid) serve on a dense per-slot state, prefilled at
+each request's true length and migrated by re-prefill; speculation
+refuses them.
 """
 from repro_torch.serving.admission import AdmissionQueue, Request
 from repro_torch.serving.engine import ServingEngine, make_serving_fns

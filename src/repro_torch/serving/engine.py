@@ -15,11 +15,22 @@ after a successful swap; ``serving.speculative``).
 blocks through per-slot page tables (``serving.kv_pages``), so a slot pays
 for the pages its sequence actually covers instead of a dense ``max_len``
 row. The dense layout survives behind ``kv_layout="dense"`` as the
-correctness oracle (and for windowed configs, which the paged path does
-not cover). The engine owns positions host-side (``self.pos_host``) and
-re-asserts them into the device state before every launch; that single
-convention is also what makes speculative rollback free: a rejected draft
-just means the position does not advance over it.
+correctness oracle (and for windowed configs and the recurrent families,
+which the paged path does not cover). The engine owns positions host-side
+(``self.pos_host``) and re-asserts them into the device state before every
+launch; that single convention is also what makes speculative rollback
+free: a rejected draft just means the position does not advance over it.
+
+**Recurrent families** (xLSTM, ``family="ssm"``, and the Mamba2 hybrid):
+each slot's row of the tuple decode state holds its session's recurrent
+state, which absorbs every token it is fed. So these families prefill at
+each request's true length, never right-padded (an attention cache never
+reads its padded rows; a recurrent state would take them in), and a
+re-prefill after a hop runs over each session's history at its length;
+``insert`` overwrites every leaf of the slot's row
+(``models.model.write_slot``). The hop migrates their state by re-prefill
+only, and speculation, whose rollback is positional, is refused
+(:func:`refuse_recurrent`).
 
 The engine's serving buffers, ``(cfg, params, state)`` plus the prefill,
 decode and insert functions, are swapped as a unit by :meth:`install`,
@@ -43,7 +54,7 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (_pad_attn_caches, decode_step, forward,
-                                      init_decode_state, unembed)
+                                      init_decode_state, unembed, write_slot)
 from repro_torch.serving import speculative as spec
 from repro_torch.serving.admission import AdmissionQueue, Request
 from repro_torch.serving.kv_pages import (PageAllocator, init_paged_caches,
@@ -51,6 +62,13 @@ from repro_torch.serving.kv_pages import (PageAllocator, init_paged_caches,
 
 _EMA = 0.3          # telemetry smoothing for acceptance and launch costs
 _RECENT_STEPS = 4096  # exact-window size behind decode_step_percentiles
+RECURRENT = ("ssm", "hybrid")   # families with a recurrent decode state
+
+
+def exact_length_prefill(cfg: ModelConfig) -> bool:
+    """True where a prefill must run at the request's true length: the
+    recurrent families, whose state would absorb a right pad."""
+    return cfg.family in RECURRENT
 
 
 @functools.lru_cache(maxsize=16)
@@ -72,14 +90,20 @@ def make_serving_fns(cfg: ModelConfig, cap: int, layout: str = "dense",
     ``use_kernel`` picks the prefill attention route
     (``models.layers.full_attention``: ``None`` is K3 on the card).
 
-    ``prefill_one`` takes a right-padded (1, Tp) prompt plus its true
-    length and returns the logits at ``true_len - 1``; padding positions
-    write garbage cache entries *beyond* the session's position, and
-    decode overwrites each one exactly when it becomes valid, so they are
-    never attended to.
+    ``prefill_one`` takes a (1, Tp) prompt plus its true length and
+    returns the logits at ``true_len - 1``. An attention family's prompt is
+    right-padded: padding positions write garbage cache entries *beyond*
+    the session's position, and decode overwrites each one exactly when it
+    becomes valid, so they are never attended to. A recurrent family's
+    prompt comes at its true length (:func:`exact_length_prefill`); only
+    the hybrid's attention caches are padded to ``cap``. A dense ``insert``
+    writes every leaf of the slot's row (``models.model.write_slot``).
     """
     if layout not in ("dense", "paged"):
         raise ValueError(f"unknown KV layout {layout!r}")
+    if exact_length_prefill(cfg) and layout != "dense":
+        raise ValueError(f"{cfg.name}: a recurrent state has no paged "
+                         f"layout; serve it dense")
 
     @torch.no_grad()
     def prefill_one(params, tokens, true_len: int):
@@ -99,8 +123,7 @@ def make_serving_fns(cfg: ModelConfig, cap: int, layout: str = "dense",
     @torch.no_grad()
     def insert(state, caches1, pos1: int, slot: int):
         if layout == "dense":
-            for kk in ("k", "v"):
-                state["caches"][kk][:, slot] = caches1[kk][:, 0]
+            write_slot(state["caches"], caches1, slot)
         else:
             for kk in ("k", "v"):
                 scatter_row_blocks(state["caches"][kk], state["pages"][slot],
@@ -112,22 +135,17 @@ def make_serving_fns(cfg: ModelConfig, cap: int, layout: str = "dense",
     return prefill_one, decode_many, insert
 
 
-def refuse_recurrent(cfg: ModelConfig) -> None:
-    """The engine serves attention-cache families only. It right-pads
-    every prompt to the prompt budget and every re-prefill to ``max_len``,
-    and rolls speculation back by position: sound for attention caches,
-    whose padded and rolled-back rows are never attended to, but a
-    recurrent state (mLSTM and Mamba2 ``S``, ``n`` and conv tails, sLSTM
-    ``h``, ``c``, ``n``, ``m``) absorbs every pad and drafted token. The
-    lock-step path (``launch.serve`` without ``--live-grow-at``) serves
-    these families at their true prompt length."""
-    if cfg.family in ("ssm", "hybrid"):
+def refuse_recurrent(cfg: ModelConfig, spec_k: int) -> None:
+    """Speculation on a recurrent family is out of scope: its rollback is
+    positional (a rejected draft is a position that does not advance),
+    which cannot undo drafted tokens a recurrent state has absorbed."""
+    if spec_k > 0 and cfg.family in RECURRENT:
         raise NotImplementedError(
-            f"{cfg.name}: the serving engine does not serve the recurrent "
-            f"family {cfg.family!r} (padded prefills and positional "
-            f"rollback would corrupt its state); serve it lock-step, "
-            f"without --live-grow-at (ROADMAP.md, 'the other families, e: "
-            f"the engine for recurrent families')")
+            f"{cfg.name}: speculative decoding (spec_k={spec_k}) does not "
+            f"serve the recurrent family {cfg.family!r}: its positional "
+            f"rollback cannot undo drafted tokens in a recurrent state "
+            f"(ROADMAP.md, 'the other families, e2: speculation for "
+            f"recurrent families')")
 
 
 class ServingEngine:
@@ -148,10 +166,12 @@ class ServingEngine:
     the pre-hop model over through :meth:`adopt_drafter`, and stops for good
     when the measured speedup estimate drops below 1, unless
     ``spec_autodisable=False`` (the estimate reads wall clocks, so
-    deterministic runs turn it off). ``device`` is where ``params`` must
-    lie: the card unless the caller asks for the CPU. ``use_kernel`` as in
-    :func:`make_serving_fns` (the hop's grow takes it too: ``False`` is the
-    plain route, K1 and K3 off).
+    deterministic runs turn it off); a recurrent family refuses it. A
+    recurrent family falls back from ``kv_layout="paged"`` to its dense
+    state with a warning, and keeps no residual stream. ``device`` is
+    where ``params`` must lie: the card unless the caller asks for the
+    CPU. ``use_kernel`` as in :func:`make_serving_fns` (the hop's grow
+    takes it too: ``False`` is the plain route, K1 and K3 off).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
@@ -165,7 +185,7 @@ class ServingEngine:
                  use_kernel: Optional[bool] = None, device="cuda"):
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown KV layout {kv_layout!r}")
-        refuse_recurrent(cfg)
+        refuse_recurrent(cfg, spec_k)
         self.device = resolve_device(device)
         leaf = params["final_norm"]["scale"]
         if leaf.device.type != self.device.type:
@@ -195,8 +215,11 @@ class ServingEngine:
         for k in ("submitted", "done", "rejected", "dropped", "deferred"):
             self._c_req.inc(k, 0)       # declare: explicit zeros
         # prefills this engine ran, keyed (config name, "admit" | "draft" |
-        # "reprefill"): each is one K3 launch per layer on the card
+        # "reprefill"): each is one K3 launch per attention layer on the
+        # card; prefill_lengths adds the tokens each one ran over (the
+        # shape K3 saw) to the key
         self.prefill_counts: Counter = Counter()
+        self.prefill_lengths: Counter = Counter()
         self.decode_steps = 0
         self.temperature = float(temperature)
         self.top_p = float(top_p)
@@ -206,8 +229,9 @@ class ServingEngine:
         self.kv_layout_requested = kv_layout
         self.kv_fallback = False
         if kv_layout == "paged" and not paged_supported(cfg):
-            # windowed: dense ring cache. Fall back loudly: a silent switch
-            # would make the serve report lie about the layout.
+            # windowed: dense ring cache; recurrent: a dense tuple state.
+            # Fall back loudly: a silent switch would make the serve report
+            # lie about the layout.
             kv_layout = "dense"
             self.kv_fallback = True
             warnings.warn(
@@ -432,6 +456,16 @@ class ServingEngine:
     def _tokens(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
 
+    @staticmethod
+    def _prompt_row(cfg: ModelConfig, hist, pad_to: int) -> np.ndarray:
+        """(1, n) tokens of one prefill: ``hist`` right-padded to
+        ``pad_to`` for an attention family, at its true length for a
+        recurrent one."""
+        n = len(hist) if exact_length_prefill(cfg) else pad_to
+        toks = np.zeros((1, n), np.int64)
+        toks[0, :len(hist)] = hist
+        return toks
+
     def _admit(self) -> None:
         for slot in range(self.slots):
             if self.slot_req[slot] is not None:
@@ -451,13 +485,12 @@ class ServingEngine:
             req.true_len = len(req.prompt)
             if self.alloc is not None:
                 self.alloc.admit(slot, req.true_len, self._worst_len(req))
-            toks = np.zeros((1, self.prompt_budget), np.int64)
-            toks[0, :req.true_len] = req.prompt
+            toks = self._prompt_row(self.cfg, req.prompt, self.prompt_budget)
             with obs.span("serve.prefill", slot=slot, uid=req.uid,
                           prompt_len=req.true_len):
                 out = self._prefill(self.params, self._tokens(toks),
                                     req.true_len)
-                self.prefill_counts[(self.cfg.name, "admit")] += 1
+                self._count_prefill(self.cfg, "admit", toks)
                 self.state = self._insert(self._sync_state(self.state),
                                           out[1], req.true_len, slot)
             self.pos_host[slot] = req.true_len
@@ -469,7 +502,7 @@ class ServingEngine:
                 # the drafter's cache needs every admitted prompt too
                 d_out = self._d_prefill(self.d_params, self._tokens(toks),
                                         req.true_len)
-                self.prefill_counts[(self.d_cfg.name, "draft")] += 1
+                self._count_prefill(self.d_cfg, "draft", toks)
                 self.d_state = self._d_insert(self._sync_state(self.d_state),
                                               d_out[1], req.true_len, slot)
             req.first_logits = out[0].float().cpu().numpy()
@@ -481,6 +514,10 @@ class ServingEngine:
             self._finish_if_done(req)
             if req.status == "done":
                 req.last_logits = req.first_logits
+
+    def _count_prefill(self, cfg: ModelConfig, kind: str, toks) -> None:
+        self.prefill_counts[(cfg.name, kind)] += 1
+        self.prefill_lengths[(cfg.name, kind, toks.shape[1])] += 1
 
     def _finish_if_done(self, req: Request) -> None:
         if (len(req.tokens) >= req.max_new
@@ -664,7 +701,8 @@ class ServingEngine:
         session's decode state by re-running prefill over its token history
         under ``params``/``cfg``, into a fresh state. Exact by construction
         (it *is* the grown model's own prefill), at the cost of one
-        ``max_len`` forward per live session."""
+        ``max_len`` forward per live session (one at the history's length
+        for a recurrent family)."""
         prefill_one, _, insert = self._fns(cfg)
         state = self.fresh_state(cfg)
         for slot, req in enumerate(self.slot_req):
@@ -673,10 +711,9 @@ class ServingEngine:
             # the cache holds prompt + every generated token but the newest
             # (decode writes its *input* token); the same layout here
             hist = (list(req.prompt) + list(req.tokens))[:-1]
-            toks = np.zeros((1, self.max_len), np.int64)
-            toks[0, :len(hist)] = hist
+            toks = self._prompt_row(cfg, hist, self.max_len)
             out = prefill_one(params, self._tokens(toks), len(hist))
-            self.prefill_counts[(cfg.name, "reprefill")] += 1
+            self._count_prefill(cfg, "reprefill", toks)
             state = insert(self._sync_paged(state), out[1], len(hist), slot)
         return state
 

@@ -11,7 +11,9 @@ Stage machine (driven by :meth:`HopController.poll` between decode steps):
    ``core.grow_cache`` when the operator is LEMON-lossless (bit-exact),
    by replaying only the new layers for a depth-append hop, otherwise by
    re-prefilling each session's token history under the grown weights
-   (exact by construction; kernel K3 on the card).
+   (exact by construction; kernel K3 on the card). A recurrent family's
+   state (xLSTM, the Mamba2 hybrid) always re-prefills, each history at
+   its true length.
 3. **swap**: ``engine.install`` flips the serving buffers between two
    decode steps; then the pre-hop model, with its live decode state, is
    handed to the engine as a speculative-decoding drafter
@@ -55,6 +57,7 @@ from repro_torch.core.grow_cache import (CacheGrowthError, can_grow_cache,
                                          is_lossless_operator,
                                          replay_grow_state)
 from repro_torch.core.plan import plan_for
+from repro_torch.serving.engine import RECURRENT
 from repro_torch.serving.kv_pages import paged_supported
 from repro_torch.tree import tree_leaves
 
@@ -68,6 +71,28 @@ def _ledger_event(name: str, **attrs) -> None:
     led = obs.active_ledger()
     if led is not None:
         led.record_event(name, **attrs)
+
+
+def refuse_recurrent_cache_mode(cfg1: ModelConfig, cfg2: ModelConfig,
+                                cache_mode: str) -> None:
+    """A recurrent state (xLSTM, the Mamba2 hybrid) migrates by re-prefill
+    only: no rule grows it in place (``can_grow_cache``), and a hop's
+    depth blend is no depth-append whose old layers' state could be kept
+    (``depth_replay_plan``)."""
+    if cache_mode not in ("grow", "replay"):
+        return
+    fams = {cfg1.family, cfg2.family} & set(RECURRENT)
+    if not fams:
+        return
+    why = ("core.grow_cache.can_grow_cache: no in-place growth rule for a "
+           "recurrent state" if cache_mode == "grow" else
+           "core.grow_cache.depth_replay_plan: no new-layer replay over a "
+           "recurrent state")
+    raise ValueError(
+        f"cache_mode={cache_mode!r}: {cfg1.name} -> {cfg2.name} carries the "
+        f"recurrent family {sorted(fams)[0]!r} ({why}); its state migrates "
+        f"by re-prefill, cache_mode 'auto' or 'reprefill' (ROADMAP.md, 'the "
+        f"other families, e: the engine for recurrent families')")
 
 
 class HopError(RuntimeError):
@@ -127,8 +152,10 @@ class HopController:
     ``cache_mode``: "auto" grows the cache in place iff the operator is
     provably lossless, replays only the new layers for a depth-only hop
     (when the engine kept the residual stream), else re-prefills;
-    "grow"/"replay"/"reprefill" force a path. The grow and the migration
-    take the engine's ``use_kernel`` route.
+    "grow"/"replay"/"reprefill" force a path. A hop from or to a
+    recurrent family takes "reprefill" under "auto" and refuses "grow" and
+    "replay" (:func:`refuse_recurrent_cache_mode`). The grow and the
+    migration take the engine's ``use_kernel`` route.
 
     ``timings`` holds the last attempt's stage walls in ms, read from the
     stage spans' ``dur_ms`` (``grow``: the ``hop.grow`` span in the grow
@@ -154,6 +181,7 @@ class HopController:
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         if fail_at not in (None, "hang") + STAGES:
             raise ValueError(f"unknown chaos stage {fail_at!r}")
+        refuse_recurrent_cache_mode(engine.cfg, cfg2, cache_mode)
         if fail_at == "hang" and not background:
             raise ValueError("fail_at='hang' wedges the grow thread until "
                              "the watchdog aborts it: it needs a background "

@@ -1,13 +1,20 @@
 """Nested-dict trees of tensors: the port's stand-in for ``jax.tree``.
 
 Parameter trees, LiGO operators and optimizer moments are nested dicts whose
-leaves are tensors. Keys may hold ``/`` (the depth blends are keyed by leaf
-paths such as ``"mlp/w1"``), so these helpers walk the dicts themselves
-instead of flattening to path strings. Leaves come in insertion order.
+leaves are tensors; a decode state nests dicts in tuples (the recurrent
+families' ``(mLSTM, sLSTM)`` and ``(Mamba2, attention)`` blocks). Keys may
+hold ``/`` (the depth blends are keyed by leaf paths such as ``"mlp/w1"``),
+so these helpers walk the dicts and tuples themselves instead of flattening
+to path strings. Leaves come in insertion order; tuple and list items in
+theirs.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List
+
+
+def _is_seq(tree: Any) -> bool:
+    return type(tree) in (tuple, list)      # a NamedTuple stays a leaf
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -15,12 +22,17 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if _is_seq(tree):
+        return type(tree)(tree_map(fn, *xs)
+                          for xs in zip(tree, *rest, strict=True))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if _is_seq(tree):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -31,6 +43,8 @@ def sorted_leaves(tree: Any) -> List[Any]:
     from a checkpoint)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if _is_seq(tree):
+        return [x for v in tree for x in sorted_leaves(v)]
     return [tree]
 
 
@@ -45,8 +59,11 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
 
 
 def same_structure(a: Any, b: Any) -> bool:
-    if isinstance(a, dict) != isinstance(b, dict):
+    if isinstance(a, dict) != isinstance(b, dict) or _is_seq(a) != _is_seq(b):
         return False
+    if _is_seq(a):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_structure(x, y) for x, y in zip(a, b)))
     if not isinstance(a, dict):
         return True
     return a.keys() == b.keys() and all(same_structure(a[k], b[k])

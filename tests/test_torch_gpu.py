@@ -34,8 +34,10 @@ on the float32 router's Bd = 8 group, and the stable top-k on a zero
 router, where every token ties, choosing the CPU's experts. The
 sequence-mixer families: K1 and K2 on a block-diagonal (``seg``) B with
 identity segments and on xLSTM's Bd 8 gates group, bf16; K3 at zamba2's
-d_head 80 and its grown d_head 120 (the FMA kernel); the xLSTM and
-zamba2 smoke models' decode on the card against the CPU.
+d_head 80 and its grown d_head 120 (the FMA kernel), also at B = 1 and the
+odd lengths of the engine's exact-length prefills; the xLSTM and zamba2
+smoke models' decode on the card against the CPU, and their live engine
+through a LiGO hop on the card, its tokens the CPU engine's.
 """
 import time
 
@@ -83,6 +85,14 @@ K3_SHAPES = [
     # off the tensor-core kernel's dh, so the FMA kernel
     ("zamba2-dh80", "bfloat16", (2, 32, 32, 256, 256, 80, True, 0)),
     ("zamba2-dh120", "bfloat16", (2, 32, 32, 200, 200, 120, True, 0)),
+    # the engine's exact-length prefills of a recurrent family: B = 1, T
+    # off the kernel's tiles, at zamba2's d_head 80 and 120
+    ("engine-T1-dh80", "bfloat16", (1, 32, 32, 1, 1, 80, True, 0)),
+    ("engine-T37-dh80", "bfloat16", (1, 32, 32, 37, 37, 80, True, 0)),
+    ("engine-T509-dh80", "bfloat16", (1, 32, 32, 509, 509, 80, True, 0)),
+    ("engine-T1-dh120", "bfloat16", (1, 32, 32, 1, 1, 120, True, 0)),
+    ("engine-T37-dh120", "bfloat16", (1, 32, 32, 37, 37, 120, True, 0)),
+    ("engine-T509-dh120", "bfloat16", (1, 32, 32, 509, 509, 120, True, 0)),
     # the FMA kernel's bodies at 8 and 32 columns a thread (dh <= 32, > 64)
     ("dh32-fma", "float32", (2, 4, 2, 77, 77, 32, True, 0)),
     ("dh32-fma", "bfloat16", (2, 4, 2, 77, 77, 32, True, 0)),
@@ -1034,3 +1044,55 @@ def test_seqmix_smoke_models_on_the_card_match_the_cpu(cuda, arch):
             lc, sc = model.decode_step(p, cfg, sc, {"tokens": toks[:, t:t + 1]})
             ld, sd = model.decode_step(pd, cfg, sd,
                                        {"tokens": toks[:, t:t + 1].to(cuda)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_recurrent_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke model through the live engine with a synchronous LiGO hop
+    (re-prefill), prompts of 1, 2, 5, 9 and 16 tokens through 3 slots,
+    float32, on the card and on the CPU: the same greedy tokens, first-
+    token logits within 1e-4, and K3 once per shared-block insertion of
+    every prefill the card's engine counted."""
+    import numpy as np
+    from repro_torch.configs import get_config, grow_target, smoke_config
+    from repro_torch.core import init_ligo_params
+    from repro_torch.models import model
+    from repro_torch.serving import HopController, ServingEngine
+    from repro_torch.tree import tree_map
+    cfg = smoke_config(get_config(arch))
+    cfg2 = grow_target(cfg)
+    p = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    op = init_ligo_params(torch.Generator().manual_seed(1), cfg, cfg2,
+                          device="cpu")
+    rng = np.random.RandomState(4)
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in
+               (1, 2, 5, 9, 16)]
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(tree_map(lambda t: t.to(dev), p), cfg, slots=3,
+                            prompt_budget=16, gen_budget=6,
+                            kv_layout="dense", device=dev)
+        reqs = [eng.submit(q, max_new=6) for q in prompts]
+        hop = HopController(eng, cfg2, tree_map(lambda t: t.to(dev), op),
+                            background=False)
+        ops.reset_launch_counts()
+
+        def on_step(e):
+            if e.decode_steps >= 2 and hop.attempts == 0:
+                hop.begin()
+            if hop.attempts:
+                hop.poll()
+        eng.run(on_step=on_step)
+        assert hop.completed and hop.cache_path == "reprefill"
+        n_attn = {c.name: (c.n_layers // c.shared_attn_every
+                           if c.family == "hybrid" else 0)
+                  for c in (cfg, cfg2)}
+        if dev != "cpu":
+            assert ops.launch_counts()["flash_attention"] == sum(
+                n * n_attn[name]
+                for (name, _, _), n in eng.prefill_lengths.items())
+        out[str(dev)] = [(r.tokens, r.first_logits) for r in reqs]
+    for (tc_, lc), (td, ld) in zip(out["cpu"], out[str(cuda)]):
+        assert td == tc_
+        assert np.abs(ld - lc).max() <= 1e-4 * np.abs(lc).max()

@@ -14,8 +14,9 @@ shared attention block, ``family="hybrid"``).
   consistency of ``tests/test_models.py``, ``loss_fn`` and its gradients;
 - growth: ``init_ligo_params``' tree, ``apply_ligo`` of a bridged operator
   (plan on both routes, legacy), ``grow_adamw_state``, and three
-  ``train_ligo`` steps of ``grow(method="ligo")`` into ``grow_target``;
-- the serving engine's refusal of both families.
+  ``train_ligo`` steps of ``grow(method="ligo")`` into ``grow_target``.
+The serving engine's and the launcher's cases of both families are in
+``test_torch_recurrent_engine.py``.
 
 Tolerances, scale-normalised per leaf (max |a - b| <= tol * max |b|):
 1e-5 for the seqmix ops and single blocks, 1e-4 for the model's outputs,
@@ -49,7 +50,6 @@ from repro_torch.data import batch_for_step                  # noqa: E402
 from repro_torch.models import blocks as tblocks             # noqa: E402
 from repro_torch.models import loss_fn, model as tmodel      # noqa: E402
 from repro_torch.models import seqmix as tseq                # noqa: E402
-from repro_torch.serving import ServingEngine                # noqa: E402
 from repro_torch.tree import sorted_leaves                   # noqa: E402
 from torch_parity import assert_close, jax_cfg, to_numpy     # noqa: E402
 
@@ -499,29 +499,3 @@ def test_train_ligo_three_steps_match_jax(models, arch, monkeypatch):
     np.testing.assert_allclose(tinfo["ligo_losses"], jinfo["ligo_losses"],
                                rtol=MODEL_TOL)
     assert_close(tbig, jbig, MODEL_TOL)
-
-
-# ---------------------------------------------------------------------------
-# Serving
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_engine_refuses_the_recurrent_families(models, arch):
-    """The engine's padded prefills and positional rollback would corrupt
-    a recurrent state: refused, naming the ROADMAP item; the lock-step
-    serve takes the family."""
-    from repro_torch.launch import serve
-    cfg = ARCHS[arch]
-    _, tp = models[arch]
-    with pytest.raises(NotImplementedError,
-                       match="the other families, e: the engine for "
-                             "recurrent families"):
-        ServingEngine(tp, cfg, slots=2, device="cpu")
-    argv = ["--arch", tc.get_config(cfg.name[:-len("-smoke")]).name,
-            "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len",
-            "8", "--gen", "3"]
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        serve.main(argv + ["--live-grow-at", "1"])
-    res = serve.main(argv + ["--grow-to", "2x"])
-    assert res["cfg"].name == cfg.name + "-grown"
-    assert res["tokens"].shape == (2, 3)
-    assert res["launches"]["ligo_blend_expand_grouped"] == 0
