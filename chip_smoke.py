@@ -224,6 +224,33 @@ sources are not beside it. Phases, each fatal on failure:
    before the failing poll, the retry landing with 0 dropped. Decode
    p50/p99 before, during and after each hop, its stage walls, the state
    a slot holds and the peak memory printed;
+16. the audio and VLM families at full width, under phase 6's
+   deterministic algorithms (after phase 15, before phase 11): (a)
+   hubert-xlarge (48 x 1280, 16 heads of 80, bidirectional) grown from its
+   half model (24 x 640) by 2 LiGO steps on target-width batches of 8 x
+   512 frames, 15 % masked, then ``grow()`` with the AdamW moments and an
+   autograd-free encode (K3 once a layer, the FMA kernel at d_head 80) and
+   its MLM loss at the masked frames; the same on the bf16 and float32
+   plain routes, the kernel route held against them as phase 8 holds the
+   vision pairs; K1, K2 and K3 launches as the plan and the layers
+   predict; the LiGO step's FLOP ratio printed; (b) qwen2-vl-72b at full
+   width cut to 8 layers (9.51 B) hot-grown through K1 from its half model
+   cut to 4 (4096 wide, 64 heads of 64), the tree against the plain
+   route; a 4 x 2048 prefill through K3 (once a layer, 64/8 heads at
+   d_head 128, the tensor cores) whose first 256 tokens are patch
+   embeddings on Qwen2-VL's 16 x 16 grid positions, held against the plain
+   attention route in bf16 and float32, then 31 greedy decode steps with
+   positions; the same prefill check in the launcher's form
+   (``serve.lockstep_batch``: zero patches, arange positions); one LiGO
+   step from the half model cut to 2 layers into the target cut to 4 at 4
+   x 512 tokens (256 of them patches) through K1 and K2, its FLOP ratio
+   printed; the peak memory printed (the cut shrinks if the card cannot
+   leave 10 GB free); (c) ``serve --arch qwen2-vl-72b --smoke --grow-to
+   2x`` through the launcher, float32, on the kernel route and on the
+   plain route: greedy tokens equal, logits within 1e-4. Phase 2 holds K1
+   and K2 at every group shape of (a) and (b) and K3 at hubert's encode
+   (d_head 80, and 40 for its half model) and qwen2-vl's prefill (d_head
+   128, and 64 for its half model);
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
@@ -324,6 +351,15 @@ K3_SHAPES = [
      (1, 32, 32, 37, 37, 120, True, 0)),
     ("zamba2-grown engine T=509", "bfloat16",
      (1, 32, 32, 509, 509, 120, True, 0)),
+    # phase 16: hubert-xlarge's autograd-free encode of 8 x 512 frames
+    # (bidirectional, d_head 80) and its half model's (d_head 40), both on
+    # the FMA kernel; qwen2-vl-72b's 4 x 2048 prefills (64 query heads over
+    # 8, d_head 128) and its half model's (d_head 64), on the tensor cores
+    ("hubert encode", "bfloat16", (8, 16, 16, 512, 512, 80, False, 0)),
+    ("hubert-half encode", "bfloat16", (8, 16, 16, 512, 512, 40, False, 0)),
+    ("qwen2-vl prefill", "bfloat16", (4, 64, 8, 2048, 2048, 128, True, 0)),
+    ("qwen2-vl-half prefill", "bfloat16",
+     (4, 64, 8, 2048, 2048, 64, True, 0)),
 ]
 
 # K1's and K2's shapes besides the main path's six groups (gpt2-base ->
@@ -355,9 +391,34 @@ TRAIN_ARGS = ["--arch", "gpt2-medium", "--grow-from", "gpt2-base", "--method",
               "--steps", "4", "--batch", "8", "--seq", "128"]
 
 
-def _time_ms(torch, fn, reps):
-    fn()
+# A call longer than this is timed once: repeating it would spend seconds
+# of the script's time limit (the float32 plain K2 at mixtral's and
+# qwen2-vl-72b's widest groups takes 7-14 s a call) to save set-up costs
+# far smaller than that (SDPA's first calls, the longest set-up seen, take
+# under 1.6 s).
+LONG_CALL_MS = 5000.0
+
+
+def _timed(torch, fn):
+    """(fn(), its ms by CUDA events)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
     torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _time_ms(torch, fn, reps, first_ms=None):
+    """Mean ms of ``reps`` calls of ``fn`` after one warm-up call.
+    ``first_ms``: the ms of a call the caller has just made on the same
+    inputs, which is then the warm-up. A warm-up over LONG_CALL_MS is the
+    time."""
+    if first_ms is None:
+        _, first_ms = _timed(torch, fn)
+    if first_ms > LONG_CALL_MS:
+        return first_ms
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -553,7 +614,9 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
             return (torch.einsum("gkl,gleib->gkeib", w.to(dtype),
                                  torch.matmul(B, W)),)
 
-    got, want, again = kernel(), plain(), kernel()
+    got = kernel()
+    want, plain_first = _timed(torch, plain)
+    again = kernel()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"K1 is not deterministic at {name}: two runs "
@@ -588,7 +651,7 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         "G": G, "L2": L2, "L1": L1, "E": E, "I": I, "A": A, "Bd": Bd,
         "j": j, "max_abs_err": diff, "max_norm_err": norm, "tol": TOL[tname],
         "ms": _time_ms(torch, kernel, reps),
-        "plain_ms": _time_ms(torch, plain, reps),
+        "plain_ms": _time_ms(torch, plain, reps, plain_first),
         "library_ms": _time_ms(torch, library, reps),
         "library_minflop_ms": _time_ms(torch, library_minflop, reps),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -700,7 +763,9 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         keys = ("dw", "dB", "dW")
         terms = _dw_terms(torch, dP, U)
 
-    got, want, again = kernel(), plain(), kernel()
+    got = kernel()
+    want, plain_first = _timed(torch, plain)
+    again = kernel()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)
                if a is not None):
@@ -755,13 +820,18 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         "max_abs_err": max(diffs), "norm_err": errs, "tol": TOL[tname],
         "u_bitwise": bitwise,
         "ms": _time_ms(torch, kernel, reps),
-        "plain_ms": _time_ms(torch, plain, reps),
+        "plain_ms": _time_ms(torch, plain, reps, plain_first),
         "library_ms": _time_ms(torch, library, reps),
-        "library_minflop_ms": _time_ms(torch, library_minflop, reps),
+        # the min-FLOP order's einsums are as slow as the plain version
+        # (13 s a call at mixtral's expert-wide group): not timed where the
+        # plain version took over LONG_CALL_MS (no main-path row)
+        "library_minflop_ms": (None if plain_first > LONG_CALL_MS
+                               else _time_ms(torch, library_minflop, reps)),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "tensor_cores": tc,
     }
+    minflop = row["library_minflop_ms"]
     split = f" (halves: blend at {j}, dB at {Bd})" if j else ""
     ubits = ("" if j else ", K1's U = K2's own U bit for bit")
     shown = " ".join(f"{k} {v:.2e}" for k, v in errs.items())
@@ -770,7 +840,8 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
           f"({'wgmma' if tc else 'fma'}){ubits}: norm err {shown} (tol "
           f"{TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, plain "
           f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
-          f"library min-FLOP order {row['library_minflop_ms']:.3f} ms, bound "
+          f"library min-FLOP order "
+          f"{'not timed' if minflop is None else f'{minflop:.3f} ms'}, bound "
           f"{row['bound_ms']:.3f} ms ({row['bound_by']}) "
           f"{'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -907,10 +978,13 @@ def _prefill_check(torch, res, tol16, tol32, tol_far):
     LiGO gradient).
     The bf16 routes must also agree to ``tol16`` where it is given; where
     the bf16 rounding of the whole depth sets the gap between them, it is
-    None and the gap is printed only. Returns the warm ms of each route."""
+    None and the gap is printed only. ``res["batch"]``, where it is given,
+    is the prefill's batch (a VLM's patches and positions). Returns the
+    warm ms of each route."""
     from repro_torch.models.model import prefill
     from repro_torch.tree import tree_map
-    cfg, batch = res["cfg"], {"tokens": res["prompts"]}
+    cfg = res["cfg"]
+    batch = res.get("batch") or {"tokens": res["prompts"]}
 
     def run(params, use_kernel):
         torch.cuda.synchronize()
@@ -1619,17 +1693,18 @@ VISION = [("deit-s", "deit-b", 32, 3, 4, 3), ("cait-xs", "cait-s", 32, 2, 2, 2)]
 VISION_TOL = 1e-2
 
 
-def _vision_batches(torch, cfg, batch, seed, n, f32=False):
+def _vision_batches(torch, cfg, batch, seed, n, f32=False, seq=0):
     """``n`` ``dummy_batch`` training batches of ``cfg`` on the card, seeds
-    ``seed``, ``seed + 1``, ...; with ``f32`` their patches in float32."""
+    ``seed``, ``seed + 1``, ...; with ``f32`` their patches (an audio
+    model's frames) in float32. ``seq``: an audio model's frames a row."""
     from repro_torch.models.inputs import dummy_batch
     for i in range(n):
-        b = dummy_batch(cfg, batch, 0, "train", seed=seed + i)
+        b = dummy_batch(cfg, batch, seq, "train", seed=seed + i)
         yield {k: v.float() if f32 and v.is_floating_point() else v
                for k, v in b.items()}
 
 
-def _vision_source(torch, c1, batch, steps):
+def _vision_source(torch, c1, batch, steps, seq=0):
     """``c1`` from a seeded generator, then ``steps`` AdamW steps on
     ``dummy_batch`` batches: (params, AdamW state, losses)."""
     from repro_torch.configs import TrainConfig
@@ -1639,14 +1714,17 @@ def _vision_source(torch, c1, batch, steps):
     step = make_train_step(c1, TrainConfig(steps=steps, warmup_steps=1,
                                            lr=1e-3))
     losses = []
-    for s_, b in enumerate(_vision_batches(torch, c1, batch, 100, steps)):
+    for s_, b in enumerate(_vision_batches(torch, c1, batch, 100, steps,
+                                           seq=seq)):
         params, opt, m = step(params, opt, b, s_)
         losses.append(float(m["loss"]))
     return params, opt, losses
 
 
-def _vision_run(torch, c1, c2, small, opt, batch, ligo_steps, tsteps, route):
-    """The rest of the paper's pipeline for one vision pair on one route,
+def _vision_run(torch, c1, c2, small, opt, batch, ligo_steps, tsteps, route,
+                seq=0):
+    """The rest of the paper's pipeline for one vision pair (or the audio
+    pair, ``seq`` frames a row) on one route,
     from the trained source ``small`` and its AdamW state ``opt``: a LiGO
     phase of ``ligo_steps`` SGD steps on target batches, ``grow()`` with the
     AdamW moments, an autograd-free eval forward of the grown model, then
@@ -1667,21 +1745,21 @@ def _vision_run(torch, c1, c2, small, opt, batch, ligo_steps, tsteps, route):
     big, info = grow(small, d1, d2, method="ligo",
                      gen=torch.Generator(device="cuda").manual_seed(1),
                      data_it=_vision_batches(torch, c2, batch, 200,
-                                             ligo_steps, f32),
+                                             ligo_steps, f32, seq),
                      ligo_steps=ligo_steps,
                      engine="plan" if route == "kernel" else "legacy",
                      opt_state=opt)
     grown = tree_map(lambda x: x.clone(), big)
-    eval_b = next(_vision_batches(torch, c2, batch, 300, 1, f32))
+    eval_b = next(_vision_batches(torch, c2, batch, 300, 1, f32, seq))
     with torch.no_grad():
         eval_loss, _ = loss_fn(big, d2, eval_b,
                                use_kernel=None if route == "kernel"
                                else False)
-    step = make_train_step(d2, TrainConfig(steps=tsteps, warmup_steps=1,
-                                           lr=1e-3))
+    step = make_train_step(d2, TrainConfig(steps=max(tsteps, 1),
+                                           warmup_steps=1, lr=1e-3))
     opt2, tgt = info["opt_state"], []
     for s_, b in enumerate(_vision_batches(torch, c2, batch, 400, tsteps,
-                                           f32)):
+                                           f32, seq)):
         big, opt2, m = step(big, opt2, b, s_)
         tgt.append(float(m["loss"]))
     torch.cuda.synchronize()
@@ -1704,18 +1782,18 @@ def _tree_dist(torch, got, want):
                for k in fw)
 
 
-def _vision_flops(torch, c1, c2, batch, operator, small):
+def _vision_flops(torch, c1, c2, batch, operator, small, seq=0):
     """The measured-cost pass over one LiGO step of the pair (batch of
     ``batch`` images) on the kernel route and on the plain route (the
     plan's min-FLOP contractions), against the 6ND model at 196 tokens an
-    image."""
+    image (``seq`` frames a row for the audio pair)."""
     from repro_torch.core.grow import ligo_loss
     from repro_torch.models.inputs import dummy_batch
     from repro_torch.obs import costs
     from repro_torch.roofline import train_flops_per_step
     from repro_torch.training import value_and_grad
-    b = dummy_batch(c2, batch, 0, "train", seed=500)
-    modelled = train_flops_per_step(c2, batch, c2.num_patches - 1)
+    b = dummy_batch(c2, batch, seq, "train", seed=500)
+    modelled = train_flops_per_step(c2, batch, seq or c2.num_patches - 1)
     out = {}
     for route, uk in (("kernel", None), ("plain", False)):
         def step(o, bb, sp, uk=uk):
@@ -1727,91 +1805,104 @@ def _vision_flops(torch, c1, c2, batch, operator, small):
     return out
 
 
-def _vision_phase(torch):
-    """Phase 8: each vision pair on the kernel route (launches counted from
-    0 just before and read just after), the bf16 plain route and the
-    float32 plain route; the kernel route held against the plain routes;
-    the LiGO step's FLOPs on both routes."""
-    from repro_torch.configs import get_config
+def _pair_routes(torch, c1, c2, batch, steps, lsteps, tsteps, seq=0,
+                 tag="vision"):
+    """One pair through the train path's pieces on the kernel route
+    (launches counted from 0 just before and read just after), the bf16
+    plain route and the float32 plain route: the kernel route held against
+    the plain routes, the LiGO step's FLOPs on both routes. Returns the
+    kernel route's launches and the report's numbers."""
     from repro_torch.kernels import ops
+    a, b = c1.name, c2.name
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    small, opt, src = _vision_source(torch, c1, batch, steps, seq)
+    res = _vision_run(torch, c1, c2, small, opt, batch, lsteps, tsteps,
+                      "kernel", seq)
+    got = ops.launch_counts()
+    sec_k = time.perf_counter() - t0
+    shapes = _k1_shapes(torch, c1, c2)
+    k1_grad, k2_grad = _launches(shapes, True)
+    want = {"ligo_blend_expand_grouped": (lsteps * k1_grad + 3
+                                          * _launches(shapes, False)[0]),
+            "ligo_blend_expand_bwd_fused": lsteps * k2_grad,
+            "flash_attention": c2.n_layers}
+    print(f"[{tag}] {a} -> {b} kernel route ({sec_k:.1f} s): launches "
+          f"{got}, want {want}", flush=True)
+    if got != want or not all(v > 0 for v in got.values()):
+        raise AssertionError(f"{a} -> {b}: launches {got}, want {want} "
+                             f"(K1 and K2 on every LiGO step's groups and "
+                             f"K1 on the grow of the params and both "
+                             f"moments; K3 once a layer of the eval)")
+    plain, ref32 = (_vision_run(torch, c1, c2, small, opt, batch, lsteps,
+                                tsteps, route, seq)
+                    for route in ("plain", "plain32"))
+
+    def rel(x, y):
+        return abs(x - y) / max(abs(y), 1e-30)
+    worst = {}
+    for key in ("ligo", "tgt"):
+        for i, (k, p, r) in enumerate(zip(res[key], plain[key],
+                                          ref32[key])):
+            ek, ep = rel(k, r), rel(p, r)
+            worst[f"{key}[{i}]"] = (ek, ep)
+    worst["eval"] = (rel(res["eval"], ref32["eval"]),
+                     rel(plain["eval"], ref32["eval"]))
+    worst["grown"] = (_tree_dist(torch, res["grown"], ref32["grown"]),
+                      _tree_dist(torch, plain["grown"], ref32["grown"]))
+    bad = {k: v for k, v in worst.items()
+           if not v[0] <= 2 * v[1] + VISION_TOL}
+    finite = all(math.isfinite(x) for x in src) and all(
+        math.isfinite(x) for r in (res, plain) for key in ("ligo", "tgt")
+        for x in r[key])
+    print(f"[{tag}] {a} -> {b}: losses source {src}, LiGO "
+          f"{res['ligo']}, eval {res['eval']:.4f}, target {res['tgt']} "
+          f"(kernel route) | plain route LiGO {plain['ligo']}, eval "
+          f"{plain['eval']:.4f} | float32 plain LiGO {ref32['ligo']}, "
+          f"eval {ref32['eval']:.4f}", flush=True)
+    print(f"[{tag}] {a} -> {b}: normalised distance to the float32 "
+          f"plain route (bf16 kernel route, bf16 plain route): "
+          + ", ".join(f"{k} {v[0]:.2e}/{v[1]:.2e}"
+                      for k, v in worst.items())
+          + f" (kernel within 2x plain + {VISION_TOL:.0e})", flush=True)
+    if bad or not finite or not math.isfinite(res["eval"]):
+        raise AssertionError(f"{a} -> {b}: the kernel route disagrees "
+                             f"with the plain route at {bad}, or a loss "
+                             f"is not finite")
+    del plain, ref32
+    torch.cuda.empty_cache()
+    m = _vision_flops(torch, c1, c2, batch, res["operator"], small, seq)
+    tokens = seq or c2.num_patches - 1
+    print(f"[flops] LiGO step {a} -> {b} (batch {batch} x {tokens} "
+          f"{'frames' if seq else 'patches'}): kernel route measured "
+          f"{m['kernel']['flops']:.4e} (aten {m['kernel']['flops_aten']:.4e}"
+          f", K1+K2 {m['kernel']['flops_kernels']:.4e}) / modelled "
+          f"{m['kernel']['modelled_flops']:.4e} = "
+          f"{m['kernel']['ratio']:.3f}; plain route "
+          f"{m['plain']['flops']:.4e} = {m['plain']['ratio']:.3f}",
+          flush=True)
+    want_k = _kernel_operations(shapes)
+    if m["kernel"]["flops_kernels"] != want_k:
+        raise AssertionError(f"{a} -> {b}: K1+K2 counted "
+                             f"{m['kernel']['flops_kernels']:.6e}, the "
+                             f"plan's groups need {want_k:.6e}")
+    report = {"ratio": m["kernel"]["ratio"],
+              "plain_ratio": m["plain"]["ratio"], "eval": res["eval"],
+              "seconds": time.perf_counter() - t0}
+    del res, small, opt
+    torch.cuda.empty_cache()
+    return got, report
+
+
+def _vision_phase(torch):
+    """Phase 8: each vision pair on the kernel route, the bf16 plain route
+    and the float32 plain route (:func:`_pair_routes`)."""
+    from repro_torch.configs import get_config
     launches, report = {}, {}
     for a, b, batch, steps, lsteps, tsteps in VISION:
-        c1, c2 = get_config(a), get_config(b)
-        t0 = time.perf_counter()
-        ops.reset_launch_counts()
-        small, opt, src = _vision_source(torch, c1, batch, steps)
-        res = _vision_run(torch, c1, c2, small, opt, batch, lsteps, tsteps,
-                          "kernel")
-        got = ops.launch_counts()
-        sec_k = time.perf_counter() - t0
-        shapes = _k1_shapes(torch, c1, c2)
-        k1_grad, k2_grad = _launches(shapes, True)
-        want = {"ligo_blend_expand_grouped": (lsteps * k1_grad + 3
-                                              * _launches(shapes, False)[0]),
-                "ligo_blend_expand_bwd_fused": lsteps * k2_grad,
-                "flash_attention": c2.n_layers}
-        print(f"[vision] {a} -> {b} kernel route ({sec_k:.1f} s): launches "
-              f"{got}, want {want}", flush=True)
-        if got != want or not all(v > 0 for v in got.values()):
-            raise AssertionError(f"{a} -> {b}: launches {got}, want {want} "
-                                 f"(K1 and K2 on every LiGO step's groups and "
-                                 f"K1 on the grow of the params and both "
-                                 f"moments; K3 once a layer of the eval)")
-        launches[b] = got
-        plain, ref32 = (_vision_run(torch, c1, c2, small, opt, batch, lsteps,
-                                    tsteps, route)
-                        for route in ("plain", "plain32"))
-
-        def rel(x, y):
-            return abs(x - y) / max(abs(y), 1e-30)
-        worst = {}
-        for key in ("ligo", "tgt"):
-            for i, (k, p, r) in enumerate(zip(res[key], plain[key],
-                                              ref32[key])):
-                ek, ep = rel(k, r), rel(p, r)
-                worst[f"{key}[{i}]"] = (ek, ep)
-        worst["eval"] = (rel(res["eval"], ref32["eval"]),
-                         rel(plain["eval"], ref32["eval"]))
-        worst["grown"] = (_tree_dist(torch, res["grown"], ref32["grown"]),
-                          _tree_dist(torch, plain["grown"], ref32["grown"]))
-        bad = {k: v for k, v in worst.items()
-               if not v[0] <= 2 * v[1] + VISION_TOL}
-        finite = all(math.isfinite(x) for x in src) and all(
-            math.isfinite(x) for r in (res, plain) for key in ("ligo", "tgt")
-            for x in r[key])
-        print(f"[vision] {a} -> {b}: losses source {src}, LiGO "
-              f"{res['ligo']}, eval {res['eval']:.4f}, target {res['tgt']} "
-              f"(kernel route) | plain route LiGO {plain['ligo']}, eval "
-              f"{plain['eval']:.4f} | float32 plain LiGO {ref32['ligo']}, "
-              f"eval {ref32['eval']:.4f}", flush=True)
-        print(f"[vision] {a} -> {b}: normalised distance to the float32 "
-              f"plain route (bf16 kernel route, bf16 plain route): "
-              + ", ".join(f"{k} {v[0]:.2e}/{v[1]:.2e}"
-                          for k, v in worst.items())
-              + f" (kernel within 2x plain + {VISION_TOL:.0e})", flush=True)
-        if bad or not finite or not math.isfinite(res["eval"]):
-            raise AssertionError(f"{a} -> {b}: the kernel route disagrees "
-                                 f"with the plain route at {bad}, or a loss "
-                                 f"is not finite")
-        m = _vision_flops(torch, c1, c2, batch, res["operator"], small)
-        print(f"[flops] LiGO step {a} -> {b} (batch {batch} x "
-              f"{c2.num_patches - 1} patches): kernel route measured "
-              f"{m['kernel']['flops']:.4e} (aten {m['kernel']['flops_aten']:.4e}"
-              f", K1+K2 {m['kernel']['flops_kernels']:.4e}) / modelled "
-              f"{m['kernel']['modelled_flops']:.4e} = "
-              f"{m['kernel']['ratio']:.3f}; plain route "
-              f"{m['plain']['flops']:.4e} = {m['plain']['ratio']:.3f}",
-              flush=True)
-        want_k = _kernel_operations(shapes)
-        if m["kernel"]["flops_kernels"] != want_k:
-            raise AssertionError(f"{a} -> {b}: K1+K2 counted "
-                                 f"{m['kernel']['flops_kernels']:.6e}, the "
-                                 f"plan's groups need {want_k:.6e}")
-        report[b] = {"ratio": m["kernel"]["ratio"],
-                     "plain_ratio": m["plain"]["ratio"],
-                     "seconds": time.perf_counter() - t0}
-        del res, plain, ref32, small, opt
-        torch.cuda.empty_cache()
+        launches[b], report[b] = _pair_routes(
+            torch, get_config(a), get_config(b), batch, steps, lsteps,
+            tsteps)
     return launches, report
 
 
@@ -3520,11 +3611,17 @@ def _seqmix_kernel_checks(torch, label, shapes, seed):
     return k1, k2
 
 
-def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key):
+SEQMIX_FLOP_NOTE = ("the 6ND model counts neither the sequence mixers' "
+                    "scans nor the block-diagonal seg products")
+
+
+def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key,
+                 make=None, tag="seqmix", note=SEQMIX_FLOP_NOTE):
     """grow(method="ligo", ligo_steps=1) from a seeded source on the card:
     K1 and K2 launches as the plan predicts, a finite loss, the grown tree's
     layout; the step's measured / modelled FLOPs printed (not gated).
-    Returns the group shapes."""
+    ``make(step, seq)`` gives the target's batch of a step on the card (the
+    synthetic corpus by default). Returns the group shapes."""
     from repro_torch.core import init_ligo_params
     from repro_torch.core.grow import grow, ligo_loss
     from repro_torch.data import batch_for_step
@@ -3538,7 +3635,7 @@ def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key):
     want = {"ligo_blend_expand_grouped": (k1_grad
                                           + _launches(shapes, False)[0]),
             "ligo_blend_expand_bwd_fused": k2_grad, "flash_attention": 0}
-    print(f"[seqmix] {label} LiGO step {c1.name} ({c1.param_count() / 1e9:.3f}"
+    print(f"[{tag}] {label} LiGO step {c1.name} ({c1.param_count() / 1e9:.3f}"
           f" B) -> {c2.name} ({c2.param_count() / 1e9:.3f} B), batch "
           f"{batch} x {seq}: groups {_group_line(shapes)}; predicted "
           f"launches {want}", flush=True)
@@ -3547,11 +3644,15 @@ def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key):
     small = model.init_params(c1, torch.Generator("cuda").manual_seed(0),
                               device="cuda")
 
+    if make is None:
+        def make(step, s):
+            return to_device(batch_for_step(c2, step, batch, s, seed=14),
+                             "cuda")
+
     def data():
         step = 0
         while True:
-            yield to_device(batch_for_step(c2, step, batch, seq, seed=14),
-                            "cuda")
+            yield make(step, seq)
             step += 1
     step_ms = []
     ops.reset_launch_counts()
@@ -3566,7 +3667,7 @@ def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key):
     from repro_torch.tree import sorted_leaves
     layout = ([tuple(x.shape) for x in sorted_leaves(big)]
               == [tuple(x.shape) for x in sorted_leaves(ref)])
-    print(f"[seqmix] {label} LiGO loss {losses}, step wall {step_ms} ms, "
+    print(f"[{tag}] {label} LiGO loss {losses}, step wall {step_ms} ms, "
           f"launches {runs[key]}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
     if (runs[key] != want or len(losses) != 1
@@ -3575,7 +3676,7 @@ def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key):
                              f"losses {losses}; grown layout {layout}")
     op = info["operator_init"]
     del big, info
-    b = to_device(batch_for_step(c2, 0, batch, flop_seq, seed=14), "cuda")
+    b = make(0, flop_seq)
 
     def step(o, bb, sp):
         return value_and_grad(
@@ -3586,9 +3687,7 @@ def _seqmix_ligo(torch, label, c1, c2, batch, seq, flop_seq, runs, key):
     print(f"[flops] {label} LiGO step at {batch} x {flop_seq} (kernel route): "
           f"measured {m['flops']:.4e} (aten {m['flops_aten']:.4e}, K1+K2 "
           f"{m['flops_kernels']:.4e}) / modelled {m['modelled_flops']:.4e} = "
-          f"{m['ratio']:.3f} (printed, not gated; the 6ND model counts "
-          f"neither the sequence mixers' scans nor the block-diagonal seg "
-          f"products)", flush=True)
+          f"{m['ratio']:.3f} (printed, not gated; {note})", flush=True)
     del small, op
     torch.cuda.empty_cache()
     return shapes
@@ -4174,6 +4273,330 @@ def _recurrent_phase(torch):
     return runs, k3, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the audio and VLM families at full width, bf16, under phase 6's
+# deterministic algorithms (after phase 15, before phase 11). (a)
+# hubert-xlarge grown from its half model through a LiGO phase, grow() with
+# the AdamW moments and an autograd-free encode, on the kernel route and the
+# bf16 and float32 plain routes; (b) qwen2-vl-72b at full width cut to
+# VLM_LAYERS layers, hot-grown from its half model cut to half as many,
+# prefilled through K3 with patches on Qwen2-VL's grid positions and with
+# the launcher's positions, decoded, and a LiGO step of a shallower cut;
+# (c) `serve --arch qwen2-vl-72b --smoke --grow-to 2x` on the kernel route
+# against the plain route.
+# (a): batch, frames a row, source AdamW steps, LiGO steps (target batches
+# of hubert-xlarge's width, 15 % of the frames masked)
+HUBERT_RUN = (8, 512, 2, 2)
+# (b): the target's layers (the source has half as many), prompts of
+# VLM_PROMPTS[0] x VLM_PROMPTS[1] tokens whose first VLM_SIDE^2 are patch
+# embeddings on a VLM_SIDE x VLM_SIDE grid, VLM_GEN tokens a row (the first
+# from the prefill), and the LiGO step's (source layers, target layers,
+# batch, tokens a row); the cut is the deepest (even, at most VLM_LAYERS)
+# that leaves VLM_FREE_GB free beside the source, both grows and the
+# float32 copy of the prefill check
+VLM_LAYERS = 8
+VLM_PROMPTS = (4, 2048)
+VLM_SIDE = 16
+VLM_GEN = 32
+VLM_LIGO = (2, 4, 4, 512)
+VLM_FREE_GB = 10
+# (c): float32 smoke models, grown 2 -> 4 layers, 64 -> 96 wide
+VLM_SERVE_ARGS = ["--arch", "qwen2-vl-72b", "--smoke", "--grow-to", "2x",
+                  "--batch", "4", "--prompt-len", "64", "--gen", "16"]
+VLM_TOL32 = 1e-4                  # (c) kernel vs plain route logits
+
+
+def _audio_vlm_pairs():
+    """The pairs whose K1 and K2 group shapes phase 2 checks: (a)'s grow
+    and LiGO step, (b)'s hot-grow and (b)'s LiGO step."""
+    from repro_torch.configs import get_config, half_config
+    h = get_config("hubert-xlarge")
+    q = get_config("qwen2-vl-72b")
+    hq = half_config(q)
+    s1, s2 = VLM_LIGO[:2]
+    return {"hubert": (half_config(h), h),
+            "qwen2-vl grow": (hq.scaled(name=f"{hq.name}-{VLM_LAYERS // 2}l",
+                                        n_layers=VLM_LAYERS // 2),
+                              q.scaled(name=f"{q.name}-{VLM_LAYERS}l",
+                                       n_layers=VLM_LAYERS)),
+            "qwen2-vl ligo": (hq.scaled(name=f"{hq.name}-{s1}l",
+                                        n_layers=s1),
+                              q.scaled(name=f"{q.name}-{s2}l", n_layers=s2))}
+
+
+def _audio_vlm_kernel_checks(torch):
+    """Phase 2's rows at the audio and VLM pairs' groups, bf16: K1 at every
+    group of each grow and LiGO forward, K2 at every group of the LiGO
+    steps (hubert's and qwen2-vl's, not the hot-grow's), each held against
+    its plain version and run twice for bits by the checks."""
+    k1, k2 = [], []
+    for i, (label, (c1, c2)) in enumerate(_audio_vlm_pairs().items()):
+        shapes = _k1_shapes(torch, c1, c2)
+        k1 += [_check_k1(torch, f"{label} {name}", torch.bfloat16, *d,
+                         seed=800 + 20 * i + n, j=j)
+               for n, (name, d, j) in enumerate(_k1_checks(shapes))]
+        if label != "qwen2-vl grow":
+            k2 += [_check_k2(torch, f"{label} {name}", torch.bfloat16, *d,
+                             seed=900 + 20 * i + n, need_dW=need, j=j)
+                   for n, (name, d, j, need) in enumerate(_k2_checks(shapes))]
+        torch.cuda.empty_cache()
+    return k1, k2
+
+
+def _vlm_cut(torch):
+    """(source, target) of (b): the deepest even cut of qwen2-vl-72b up to
+    VLM_LAYERS whose bf16 tree twice (the kernel and the plain grow) beside
+    the source, then once in bf16 and once in float32 (the prefill check),
+    leaves VLM_FREE_GB free."""
+    from repro_torch.configs import get_config, half_config
+    q = get_config("qwen2-vl-72b")
+    hq = half_config(q)
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+
+    def nbytes(cfg, per_param):
+        return per_param * cfg.param_count()
+
+    L = VLM_LAYERS
+    while True:
+        c2 = q.scaled(name=f"{q.name}-{L}l", n_layers=L)
+        c1 = hq.scaled(name=f"{hq.name}-{L // 2}l", n_layers=L // 2)
+        need = max(nbytes(c1, 2) + nbytes(c2, 4), nbytes(c2, 6))
+        if L <= 2 or free0 - need >= VLM_FREE_GB * 1e9:
+            break
+        L -= 2
+    print(f"[vlm] (b) cut: {c1.name} ({c1.param_count() / 1e9:.2f} B) -> "
+          f"{c2.name} ({c2.param_count() / 1e9:.2f} B, "
+          f"{2 * c2.param_count() / 1e9:.1f} GB bf16); {free0 / 1e9:.1f} GB "
+          f"free, {need / 1e9:.1f} GB needed at the peak", flush=True)
+    return c1, c2
+
+
+def _vlm_grid_batch(torch, cfg, B, T, seed):
+    """A prefill batch of ``B`` x ``T`` tokens from the synthetic corpus
+    whose first VLM_SIDE^2 are patch embeddings (normal, in the model's
+    dtype) at Qwen2-VL's grid positions: patch i at (t 0, h i // VLM_SIDE,
+    w i % VLM_SIDE), the text after it counting on from VLM_SIDE on all
+    three streams (positions that make M-RoPE differ from RoPE)."""
+    from repro_torch.data import gen_tokens
+    from repro_torch.models.model import DTYPES
+    P = VLM_SIDE ** 2
+    toks = torch.as_tensor(gen_tokens(0, 16, B, T, cfg.vocab_size)[:, :T],
+                           device="cuda")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    pe = torch.randn((B, P, cfg.d_model), generator=gen,
+                     device="cuda").to(DTYPES[cfg.dtype])
+    i = torch.arange(P, device="cuda")
+    pos = torch.zeros((B, T, 3), dtype=torch.int32, device="cuda")
+    pos[:, :P, 1], pos[:, :P, 2] = i // VLM_SIDE, i % VLM_SIDE
+    pos[:, P:] = (VLM_SIDE + torch.arange(T - P, device="cuda")
+                  ).to(torch.int32)[None, :, None]
+    return {"tokens": toks, "patch_embeds": pe, "positions": pos}
+
+
+def _vlm_prefill(torch, params, cfg, batch, label, runs, key, max_len):
+    """One counted prefill of ``batch`` (K3 once a layer), then
+    ``_prefill_check``: the K3 route against the plain attention route,
+    in bf16 and float32. Returns (logits, state)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import prefill
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, state = prefill(params, cfg, batch, max_len=max_len)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    runs[key] = ops.launch_counts()
+    want = {"ligo_blend_expand_grouped": 0, "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": cfg.n_layers}
+    print(f"[vlm] (b) {label} prefill of {tuple(batch['tokens'].shape)} "
+          f"tokens: {ms:.1f} ms (first call), launches {runs[key]}, want "
+          f"{want}", flush=True)
+    if runs[key] != want or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"(b) {label} prefill: launches {runs[key]}, "
+                             f"want {want}, or the logits are not finite")
+    _prefill_check(torch, {"cfg": cfg, "params": params, "batch": batch,
+                           "prefill_logits": logits}, None, 1e-4, 1e-2)
+    return logits, state
+
+
+def _hubert(torch, runs):
+    """16 (a)."""
+    from repro_torch.configs import get_config, half_config
+    c2 = get_config("hubert-xlarge")
+    c1 = half_config(c2)
+    batch, seq, steps, lsteps = HUBERT_RUN
+    print(f"[audio] (a) {c1.name} ({c1.n_layers} x {c1.d_model}, d_head "
+          f"{c1.d_head}, {c1.param_count() / 1e9:.3f} B) -> {c2.name} "
+          f"({c2.n_layers} x {c2.d_model}, d_head {c2.d_head}, "
+          f"{c2.param_count() / 1e9:.3f} B), batch {batch} x {seq} frames",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    runs["audio a"], rep = _pair_routes(torch, c1, c2, batch, steps, lsteps,
+                                        0, seq, tag="audio")
+    print(f"[audio] (a) encode MLM loss at the masked frames (kernel route) "
+          f"{rep['eval']:.4f}; LiGO step FLOPs / 6ND {rep['ratio']:.3f} "
+          f"(plain route {rep['plain_ratio']:.3f}); {rep['seconds']:.1f} s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+          f"GB", flush=True)
+
+
+def _qwen2_vl(torch, runs):
+    """16 (b)."""
+    from repro_torch.core import init_ligo_params, plan_for
+    from repro_torch.data import gen_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import lockstep_batch
+    from repro_torch.models import model
+    from repro_torch.models.inputs import dummy_batch
+    c1, c2 = _vlm_cut(torch)
+    torch.cuda.reset_peak_memory_stats()
+    shapes = _k1_shapes(torch, c1, c2)
+    with torch.no_grad():
+        small = model.init_params(c1, torch.Generator("cuda").manual_seed(0),
+                                  device="cuda")
+        ligo = init_ligo_params(torch.Generator("cuda").manual_seed(1), c1,
+                                c2, device="cuda")
+        plan = plan_for(c1, c2, small)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big = plan.apply(ligo, small)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs["vlm b grow"] = ops.launch_counts()
+        want = {"ligo_blend_expand_grouped": _launches(shapes, False)[0],
+                "ligo_blend_expand_bwd_fused": 0, "flash_attention": 0}
+        print(f"[vlm] (b) hot-grow {c1.name} -> {c2.name} in {ms:.1f} ms "
+              f"(first call): groups {_group_line(shapes)}; launches "
+              f"{runs['vlm b grow']}, want {want}", flush=True)
+        if runs["vlm b grow"] != want:
+            raise AssertionError(f"(b) grow launches {runs['vlm b grow']}, "
+                                 f"want {want}")
+        plain = plan.apply(ligo, small, use_kernel=False)
+        worst = _check_trees(torch, big, plain, 1e-2)
+        del plain, small, ligo, plan
+    torch.cuda.empty_cache()
+    print(f"[vlm] (b) kernel grow vs plain grow: worst per-leaf normalised "
+          f"error {worst:.2e} (tol 1e-02, bf16)", flush=True)
+    B, T = VLM_PROMPTS
+    grid = _vlm_grid_batch(torch, c2, B, T, seed=16)
+    logits, state = _vlm_prefill(torch, big, c2, grid, "grid positions",
+                                 runs, "vlm b prefill grid", T + VLM_GEN)
+    # greedy decode, each step at the text's next position on all streams
+    nxt = torch.argmax(logits, -1)[:, None]
+    toks, dec, fin = [nxt], [], True
+    start = VLM_SIDE + T - VLM_SIDE ** 2
+    with torch.no_grad():
+        for i in range(VLM_GEN - 1):
+            t0 = time.perf_counter()
+            lg, state = model.decode_step(big, c2, state,
+                                          lockstep_batch(c2, nxt, start + i))
+            torch.cuda.synchronize()
+            dec.append((time.perf_counter() - t0) * 1e3)
+            fin = fin and bool(torch.isfinite(lg).all())
+            nxt = torch.argmax(lg, -1)[:, None]
+            toks.append(nxt)
+    toks = torch.cat(toks, 1)
+    ok = (fin and state["pos"] == T + VLM_GEN - 1
+          and bool(((toks >= 0) & (toks < c2.vocab_size)).all()))
+    print(f"[vlm] (b) {VLM_GEN - 1} decode steps of {B} rows at positions "
+          f"{start}..{start + VLM_GEN - 2}: ms "
+          f"{[round(x, 2) for x in dec]}; row 0 {toks[0, :16].tolist()}",
+          flush=True)
+    if not ok:
+        raise AssertionError("(b) decode: logits not finite or tokens out "
+                             "of range")
+    del state, logits, lg, grid
+    # the launcher's form: zero patches, arange positions on all streams
+    prompts = torch.as_tensor(gen_tokens(0, 0, B, T, c2.vocab_size)[:, :T],
+                              device="cuda")
+    lb = lockstep_batch(c2, prompts)
+    _vlm_prefill(torch, big, c2, lb, "launcher positions", runs,
+                 "vlm b prefill launcher", T)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[vlm] (b) peak device memory {peak:.1f} GB", flush=True)
+    del big, lb
+    torch.cuda.empty_cache()
+    s1, s2, lbatch, lseq = VLM_LIGO
+    l1, l2 = _audio_vlm_pairs()["qwen2-vl ligo"]
+
+    def make(step, s):
+        return dummy_batch(l2, lbatch, s, "train", seed=40 + step)
+    _seqmix_ligo(torch, "(b)", l1, l2, lbatch, lseq, lseq, runs,
+                 "vlm b ligo", make=make, tag="vlm",
+                 note=f"{min(l2.num_patches, lseq)} of the {lseq} tokens a "
+                      f"row are patch embeddings")
+
+
+def _vlm_serve(torch, runs):
+    """16 (c)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    out = {}
+    for route, uk in (("kernel", None), ("plain", False)):
+        ops.reset_launch_counts()
+        res = serve.main(VLM_SERVE_ARGS, use_kernel=uk)
+        out[route] = res
+        runs[f"vlm c serve {route}"] = ops.launch_counts()
+    k, p = out["kernel"], out["plain"]
+    cfg, cfg1 = k["cfg"], k["small_cfg"]
+    want = {"ligo_blend_expand_grouped": _launches(
+                _k1_shapes(torch, cfg1, cfg), False)[0],
+            "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": cfg.n_layers}
+    zero = dict.fromkeys(want, 0)
+
+    def err(a, b):
+        return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    e_pre = err(k["prefill_logits"], p["prefill_logits"])
+    e_dec = err(k["decode_logits"], p["decode_logits"])
+    same = bool(torch.equal(k["tokens"], p["tokens"]))
+    print(f"[vlm] (c) serve {cfg1.name} -> {cfg.name} ({cfg.dtype}): "
+          f"launches kernel route {runs['vlm c serve kernel']} (want {want}),"
+          f" plain route {runs['vlm c serve plain']}; logits kernel vs plain "
+          f"prefill {e_pre:.2e}, decode {e_dec:.2e} (tol {VLM_TOL32:.0e}); "
+          f"greedy tokens equal {same}", flush=True)
+    _check_serve(torch, k, *k["tokens"].shape)
+    if not (runs["vlm c serve kernel"] == want
+            and runs["vlm c serve plain"] == zero and same
+            and e_pre <= VLM_TOL32 and e_dec <= VLM_TOL32):
+        raise AssertionError(f"(c): launches {runs['vlm c serve kernel']}, "
+                             f"{runs['vlm c serve plain']}; tokens equal "
+                             f"{same}; logits {e_pre:.3e}, {e_dec:.3e}")
+
+
+def _audio_vlm_phase(torch):
+    """Phase 16 (a)-(c). Returns the launches of its runs by run and K3's
+    launches by K3_SHAPES row."""
+    import gc
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[audio] phase 16 starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by "
+          f"earlier phases", flush=True)
+    runs = {}
+    t = time.perf_counter()
+    _hubert(torch, runs)
+    print(f"[audio] (a) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    _qwen2_vl(torch, runs)
+    print(f"[vlm] (b) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    _vlm_serve(torch, runs)
+    print(f"[vlm] (c) {time.perf_counter() - t:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3 = {"hubert encode": runs["audio a"]["flash_attention"],
+          "qwen2-vl prefill": (runs["vlm b prefill grid"]["flash_attention"]
+                               + runs["vlm b prefill launcher"][
+                                   "flash_attention"])}
+    print(f"[audio] phase 16 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3
+
+
 def main() -> int:
     # cuBLAS is deterministic under use_deterministic_algorithms (phase 6)
     # only with a fixed workspace, set before its first handle
@@ -4299,6 +4722,15 @@ def main() -> int:
         raise AssertionError("the LEMON hop's bf16 K1 shapes must take the "
                              "tensor cores")
     rows += lemon_rows
+    # phase 16's groups: hubert-xlarge's grow and LiGO step, qwen2-vl-72b's
+    # hot-grow and LiGO step, bf16
+    av_k1, av_k2 = _audio_vlm_kernel_checks(torch)
+    if not all(r["tensor_cores"] for r in av_k1 + av_k2):
+        raise AssertionError("the audio and VLM pairs' bf16 K1 and K2 shapes "
+                             "have widths that are multiples of 8 and must "
+                             "take the tensor cores")
+    rows += av_k1
+    rows2 += av_k2
 
     k3_rows = [_check_k3(torch, name, dtype, *dims, seed=300 + i)
                for i, (name, dtype, dims) in enumerate(K3_SHAPES)]
@@ -4528,6 +4960,11 @@ def main() -> int:
     k3_engine.update(k3_recur)
     k3_rows += recur_rows
 
+    # -- phase 16: the audio and VLM families -------------------------------
+    av_runs, k3_av = _audio_vlm_phase(torch)
+    traj["launches"].update(av_runs)
+    k3_engine.update(k3_av)
+
     # -- phase 11: the observability layer at full width ---------------------
     obs_runs, k3_obs = _obs_phase(torch, shapes)
     traj["launches"].update(obs_runs)
@@ -4565,8 +5002,9 @@ def main() -> int:
         # K3's times: its work in one gpt2-medium prefill (24 launches at
         # shape (a)) plus one llama3-8b prefill (32 launches at shape (b)),
         # plus the engine's prefills and re-prefills of phase 9 (a) and (f)
-        # and phase 10 (a) (its drafter prefills too), and phases 13-15's
-        # prefills (phase 15's at each exact length it sent)
+        # and phase 10 (a) (its drafter prefills too), and phases 13-16's
+        # prefills (phase 15's at each exact length it sent; phase 16's
+        # hubert encode and qwen2-vl prefills)
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:72",
               total("flash_attention"), k3_rows,

@@ -190,8 +190,12 @@ def probe_methods(params, opt_state, cfg1, cfg2, spec: PolicySpec, *,
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.grow import grow
     from repro_torch.data import batch_for_step
+    from repro_torch.data.synthetic import require_token_stream
     from repro_torch.training import make_train_step, to_device
     from repro_torch.tree import tree_leaves
+
+    for c in (cfg1, cfg2):
+        require_token_stream(c, "autogrow probe")
 
     dev = tree_leaves(params)[0].device
 

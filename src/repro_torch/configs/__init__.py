@@ -5,25 +5,26 @@ The port's registry holds the paper models (``configs/paper_models.py``)
 and the JAX package's assigned architectures of the dense family
 (llama3-8b, phi4-mini-3.8b, starcoder2-7b, deepseek-coder-33b), the MoE
 family (mixtral-8x7b, qwen3-moe-30b-a3b), the xLSTM family (xlstm-125m,
-``family="ssm"``) and the Mamba2 hybrid (zamba2-2.7b), each a copy of the
-JAX package's config. The audio and VLM architectures join it with the
-slice that ports their inputs ("the other families, d" in ROADMAP.md).
+``family="ssm"``), the Mamba2 hybrid (zamba2-2.7b), the audio encoder
+(hubert-xlarge) and the VLM backbone with M-RoPE (qwen2-vl-72b): all ten
+of the JAX package's assigned architectures, each a copy of its config.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import (deepseek_coder_33b, llama3_8b,
-                                 mixtral_8x7b, phi4_mini_3_8b,
-                                 qwen3_moe_30b_a3b, starcoder2_7b,
-                                 xlstm_125m, zamba2_2_7b)
+from repro_torch.configs import (deepseek_coder_33b, hubert_xlarge,
+                                 llama3_8b, mixtral_8x7b, phi4_mini_3_8b,
+                                 qwen2_vl_72b, qwen3_moe_30b_a3b,
+                                 starcoder2_7b, xlstm_125m, zamba2_2_7b)
 from repro_torch.configs.base import MOE, ModelConfig, TrainConfig
 from repro_torch.configs.paper_models import GROWTH_PAIRS, PAPER_MODELS
 
 ASSIGNED: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (llama3_8b, phi4_mini_3_8b, starcoder2_7b, deepseek_coder_33b,
-              mixtral_8x7b, qwen3_moe_30b_a3b, xlstm_125m, zamba2_2_7b)
+    for m in (hubert_xlarge, llama3_8b, phi4_mini_3_8b, starcoder2_7b,
+              deepseek_coder_33b, mixtral_8x7b, qwen3_moe_30b_a3b, xlstm_125m,
+              zamba2_2_7b, qwen2_vl_72b)
 }
 
 REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}

@@ -64,6 +64,23 @@ def optimal_loss(vocab: int) -> float:
     return float(ent_branch + ent_noise)
 
 
+def require_token_stream(cfg, who: str) -> None:
+    """Refuse, up front, a model whose batches this corpus cannot make.
+
+    The corpus is tokens only, as the JAX package's is
+    (``data/synthetic.py``): an audio model needs ``frames`` and a VLM its
+    M-RoPE ``positions``, which neither package's :func:`batch_for_step`
+    yields (the JAX package's ``train``, trajectory and autogrow die on
+    the missing key). ``who`` names the caller in the message."""
+    need = {"audio": "frames", "vlm": "positions"}.get(cfg.modality)
+    if need is not None:
+        raise ValueError(
+            f"{who}: {cfg.name} ({cfg.modality}) needs '{need}' in every "
+            f"batch, and the synthetic stream (batch_for_step) makes tokens "
+            f"only, as the JAX package's does: that package has no "
+            f"{cfg.modality} path here either")
+
+
 def batch_for_step(cfg, step: int, batch: int, seq: int, *, seed: int = 0,
                    row_offset: int = 0) -> Dict[str, np.ndarray]:
     """Objective-appropriate batch dict (numpy) for a global step."""

@@ -22,6 +22,16 @@ lock-step path, at the prompt's own length, hot-grown or not::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --grow-to 2x --batch 2 --prompt-len 1024 --gen 4
 
+So does the VLM (qwen2-vl-72b), with the JAX launcher's inputs
+(:func:`lockstep_batch`: zero patch embeddings in place of the first
+tokens, M-RoPE positions counting on all three streams)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
+        --smoke --grow-to 2x --device cpu
+
+An encoder-only model (hubert-xlarge) has no decode step and is refused,
+as the JAX launcher refuses it.
+
 and through the live engine below with ``--live-grow-at``.
 
 ``--ckpt DIR`` serves the newest checkpoint in DIR (the ``params`` of a
@@ -118,6 +128,28 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def lockstep_batch(cfg, tokens: torch.Tensor, start: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+    """The lock-step path's batch for ``tokens`` (B, T) at positions
+    ``start`` .. ``start + T - 1``, as the JAX launcher's ``_serve`` makes
+    it: the tokens alone, and for a VLM their M-RoPE ``positions`` (B, T,
+    3), the same on all three streams, and on the prefill (``start`` 0)
+    ``patch_embeds`` of float32 zeros (B, min(num_patches, T), d_model) in
+    place of the first token embeddings. A decode step ``i`` is at
+    ``start = prompt_len + i``."""
+    batch = {"tokens": tokens}
+    if cfg.modality == "vlm":
+        B, T = tokens.shape
+        pos = torch.arange(start, start + T, dtype=torch.int32,
+                           device=tokens.device)
+        batch["positions"] = pos[None, :, None].expand(B, T, 3).contiguous()
+        if start == 0:
+            batch["patch_embeds"] = torch.zeros(
+                (B, min(cfg.num_patches, T), cfg.d_model),
+                dtype=torch.float32, device=tokens.device)
+    return batch
+
+
 def _target_chain(cfg, target: str, *, smoke: bool):
     """Resolve a (possibly multi-hop) ``--grow-to`` spec into a config chain.
 
@@ -151,7 +183,7 @@ def _target_chain(cfg, target: str, *, smoke: bool):
 
 
 def hot_grow(params, cfg, target: str, *, smoke: bool = False, seed: int = 1,
-             device="cuda"):
+             device="cuda", use_kernel: Optional[bool] = None):
     """Grow ``params`` (cfg) to the ``target`` architecture(s) at startup.
 
     Multi-hop targets compose their per-hop operators into ONE
@@ -159,6 +191,7 @@ def hot_grow(params, cfg, target: str, *, smoke: bool = False, seed: int = 1,
     exists. Returns ``(grown_params, final_cfg, info)`` with ``info`` holding
     the operator (``"ligo"``), the apply's wall time (``"ms"``, synchronised,
     kernel build excluded) and the K1 launches it made (``"k1_launches"``).
+    ``use_kernel=False`` grows on the plan's plain route (K1 off).
     """
     dev = resolve_device(device)
     chain = [cfg] + _target_chain(cfg, target, smoke=smoke)
@@ -172,7 +205,8 @@ def hot_grow(params, cfg, target: str, *, smoke: bool = False, seed: int = 1,
     launches0 = ops.launch_counts()["ligo_blend_expand_grouped"]
     _sync(dev)
     t0 = time.perf_counter()
-    grown = plan_for(cfg, cfg2, params).apply(ligo, params)
+    grown = plan_for(cfg, cfg2, params).apply(ligo, params,
+                                              use_kernel=use_kernel)
     _sync(dev)
     ms = (time.perf_counter() - t0) * 1e3
     k1 = ops.launch_counts()["ligo_blend_expand_grouped"] - launches0
@@ -402,7 +436,7 @@ def _serve(args, use_kernel: Optional[bool] = None,
         if args.grow_to:
             params, cfg, info = hot_grow(params, cfg, args.grow_to,
                                          smoke=args.smoke, seed=args.seed + 1,
-                                         device=dev)
+                                         device=dev, use_kernel=use_kernel)
             res.update(ligo=info["ligo"], hot_grow_ms=info["ms"],
                        k1_launches=info["k1_launches"])
         res["cfg"], res["params"] = cfg, params
@@ -413,8 +447,8 @@ def _serve(args, use_kernel: Optional[bool] = None,
 
         _sync(dev)
         t0 = time.perf_counter()
-        logits, state = prefill(params, cfg, {"tokens": prompts},
-                                max_len=max_len)
+        logits, state = prefill(params, cfg, lockstep_batch(cfg, prompts),
+                                max_len=max_len, use_kernel=use_kernel)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
@@ -422,8 +456,10 @@ def _serve(args, use_kernel: Optional[bool] = None,
         out: List[torch.Tensor] = [tokens]
         step_logits: List[torch.Tensor] = []
         t0 = time.perf_counter()
-        for _ in range(args.gen - 1):
-            step, state = decode_step(params, cfg, state, {"tokens": tokens})
+        for i in range(args.gen - 1):
+            step, state = decode_step(
+                params, cfg, state,
+                lockstep_batch(cfg, tokens, args.prompt_len + i))
             tokens = torch.argmax(step, dim=-1)[:, None]
             out.append(tokens)
             step_logits.append(step)
@@ -542,9 +578,10 @@ def main(argv: Optional[List[str]] = None, *,
          spec_autodisable: bool = True) -> Dict[str, Any]:
     """Serve once; returns the results (params, logits, tokens, times; on
     the live path the engine and the hop controller). ``use_kernel=False``
-    runs the live path on the plain route, K1 and K3 off (``chip_smoke.py``
-    holds the kernel route against it); ``spec_autodisable=False`` keeps
-    drafting whatever the wall-clock speedup estimate says, so that
+    serves on the plain route, K1 and K3 off, on either path
+    (``chip_smoke.py`` holds the kernel route against it);
+    ``spec_autodisable=False`` keeps drafting whatever the wall-clock
+    speedup estimate says, so that
     speculative rounds are deterministic (``chip_smoke.py`` compares them
     token for token with greedy decoding). With ``--metrics-port`` the
     result's ``metrics_server`` is the running ``/metrics`` server, which

@@ -84,6 +84,7 @@ from repro_torch.configs import (TrainConfig, get_config, half_config,
                                  smoke_config)
 from repro_torch.core.grow import grow
 from repro_torch.data import GlobalBatchLoader, batch_for_step
+from repro_torch.data.synthetic import require_token_stream
 from repro_torch.device import resolve_device
 from repro_torch.distributed import Supervisor
 from repro_torch.kernels import _build, ops
@@ -200,6 +201,10 @@ def _train(args) -> Dict[str, Any]:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    try:
+        require_token_stream(cfg, "train")
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if cfg.objective != "clm":
         raise SystemExit("the train driver runs CLM archs")
     tcfg = TrainConfig(steps=args.steps, warmup_steps=max(args.steps // 20, 5),

@@ -40,10 +40,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
-                                       decode_attention, dense_init,
-                                       full_attention, init_mlp, init_norm,
-                                       paged_decode_attention,
+from repro_torch.models.layers import (apply_mlp, apply_mrope, apply_norm,
+                                       apply_rope, decode_attention,
+                                       dense_init, full_attention, init_mlp,
+                                       init_norm, paged_decode_attention,
                                        write_token_paged)
 from repro_torch.models import seqmix
 from repro_torch.models.moe import apply_moe, init_moe
@@ -92,9 +92,8 @@ def _qkv(p, h, cfg, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported yet; it comes with the VLM inputs "
-            "(ROADMAP.md, 'the other families, d: audio and VLM')")
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 

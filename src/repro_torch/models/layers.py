@@ -1,4 +1,4 @@
-"""Core neural-net layers: inits, norms, RoPE, attention, MLP.
+"""Core neural-net layers: inits, norms, RoPE / M-RoPE, attention, MLP.
 
 All weights use the ``y = x @ W`` convention, i.e. ``W`` has shape
 ``(in_dim, out_dim)``, exactly as in the JAX package, so parameter trees
@@ -73,7 +73,7 @@ def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies, shape (d_head // 2,), float32."""
@@ -87,6 +87,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     dh = x.shape[-1]
     inv = rope_freqs(dh, theta, x.device)                        # (dh/2,)
     ang = positions[..., None].float() * inv                     # (..., T, dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: (..., T, H, dh); positions3: (..., T, 3) integers — the (t, h, w)
+    position ids. ``sections`` splits the dh/2 frequency channels among the
+    three id streams, in order: channel c takes the stream
+    ``repeat(arange(3), sections)[c]`` (built by slices, so the shapes do
+    not depend on tensor values).
+    """
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not split "
+                         f"d_head / 2 = {dh // 2}")
+    inv = rope_freqs(dh, theta, x.device)                        # (dh/2,)
+    p3 = positions3.float()
+    pos = torch.cat([p3[..., i:i + 1].expand(p3.shape[:-1] + (n,))
+                     for i, n in enumerate(sections)], -1)   # (..., T, dh/2)
+    ang = pos * inv
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,13 +1,16 @@
 """Model API over the ported families: init, forward, prefill, decode.
 
-The families: dense attention and MoE (text or vision input), xLSTM
-(``family="ssm"``: (mLSTM, sLSTM) pairs) and the Mamba2 hybrid
-(``family="hybrid"``: groups of ``shared_attn_every`` Mamba2 layers, each
-group followed by the one shared, parameter-tied attention block). Text
-models embed tokens; vision models (DeiT, CaiT: ``modality="vision"``)
-take precomputed patch embeddings behind a learned cls token, as the JAX
-package's do. Audio and VLM inputs are refused ("the other families, d"
-in ROADMAP.md).
+The families: dense attention and MoE (text, vision, audio or VLM
+input), xLSTM (``family="ssm"``: (mLSTM, sLSTM) pairs) and the Mamba2
+hybrid (``family="hybrid"``: groups of ``shared_attn_every`` Mamba2
+layers, each group followed by the one shared, parameter-tied attention
+block). Text models embed tokens; vision models (DeiT, CaiT:
+``modality="vision"``) take precomputed patch embeddings behind a learned
+cls token; audio models (hubert-xlarge) take precomputed frame
+embeddings, a learned ``mask_emb`` in place of each masked frame; VLM
+models (qwen2-vl-72b) embed tokens and put precomputed patch embeddings
+in place of the first ones, with (t, h, w) M-RoPE position ids read from
+the batch. The frontends are the JAX package's stubs.
 
 ``init_params(cfg, gen, device=...)`` returns the JAX package's parameter
 tree: ``params["layers"][kind][leaf]`` stacked over a leading L dim, one
@@ -60,17 +63,16 @@ _STACKS = ({"attn"}, {"moe"}, {"mlstm", "slstm"}, {"mamba2"})
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.modality not in ("text", "vision")
+    if (cfg.modality not in ("text", "vision", "audio", "vlm")
             or set(cfg.blocks) not in _STACKS
             or (cfg.family == "hybrid") != (set(cfg.blocks) == {"mamba2"})
             or (cfg.family == "ssm") != ("mlstm" in cfg.blocks)
-            or cfg.rope not in ("learned", "rope", "none")):
+            or cfg.rope not in ("learned", "rope", "mrope", "none")):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention, MoE, xLSTM and Mamba2 "
-            f"hybrid families with text or vision input are ported "
-            f"(family={cfg.family!r}, modality={cfg.modality!r}, "
-            f"rope={cfg.rope!r}); audio and VLM inputs come with ROADMAP.md "
-            f"'the other families, d: audio and VLM'")
+            f"{cfg.name}: the JAX package's models have no such "
+            f"configuration (family={cfg.family!r}, "
+            f"modality={cfg.modality!r}, rope={cfg.rope!r}, "
+            f"blocks={sorted(set(cfg.blocks))})")
 
 
 def _index(tree, i: int):
@@ -90,8 +92,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     params: Dict[str, Any] = {"embed": {}, "layers": {}}
-    if cfg.modality == "vision":
-        params["embed"]["cls"] = (torch.randn(
+    if cfg.modality in ("audio", "vision"):
+        # hubert's mask embedding, the vision models' cls token
+        name = "mask_emb" if cfg.modality == "audio" else "cls"
+        params["embed"][name] = (torch.randn(
             (cfg.d_model,), generator=gen, device=dev) * 0.02).to(dtype)
     else:
         params["embed"]["tok"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
@@ -125,17 +129,31 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 def embed(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
           offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B,T,D), positions). A vision batch's ``patches`` (B, P,
-    D) follow the cls token: T = P + 1. ``offset`` is an int (positions
-    (1, T), every row from the same start) or a (B,) tensor (positions
-    (B, T), each row from its own start: continuous batching)."""
+    D) follow the cls token: T = P + 1. An audio batch's ``frames`` (B, T,
+    D) are cast to the model's dtype, ``mask_emb`` in place of each frame
+    whose ``mask`` is set. A VLM batch's ``patch_embeds`` (B, P, D), cast
+    to the embedding's dtype, replace the first P token embeddings.
+    ``offset`` is an int (positions (1, T), every row from the same start)
+    or a (B,) tensor (positions (B, T), each row from its own start:
+    continuous batching); with M-RoPE the positions are the batch's own
+    ``positions`` (B, T, 3) and ``offset`` is not read."""
     emb = params["embed"]
-    if cfg.modality == "vision":
+    if cfg.modality == "audio":
+        x = batch["frames"].to(_dtype(cfg))
+        if "mask" in batch:
+            x = torch.where(batch["mask"][..., None], emb["mask_emb"], x)
+    elif cfg.modality == "vision":
         patches = batch["patches"].to(_dtype(cfg))
         cls = emb["cls"].expand(patches.shape[0], 1, cfg.d_model)
         x = torch.cat([cls, patches], dim=1)
     else:
         x = emb["tok"][batch["tokens"]]
+        if cfg.modality == "vlm" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     T = x.shape[1]
+    if cfg.rope == "mrope":
+        return x, batch["positions"]
     if isinstance(offset, torch.Tensor) and offset.dim():
         positions = torch.arange(T, device=x.device)[None] + offset[:, None]
         if cfg.rope == "learned":
@@ -403,7 +421,9 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, seq_len: int, *,
 
 def decode_step(params, cfg: ModelConfig, state, batch: Dict[str, torch.Tensor],
                 *, return_prenorm: bool = False) -> Tuple[torch.Tensor, Any]:
-    """One-token decode: batch["tokens"]: (B, 1). Returns (logits (B,V),
+    """One-token decode: batch["tokens"]: (B, 1), and with M-RoPE its
+    ``positions`` (B, 1, 3), which set the rotary angles (the cache row
+    still comes from ``state["pos"]``). Returns (logits (B,V),
     state); the state's caches are updated in place. A ``state["pages"]``
     entry switches to the paged layout and rides through unchanged (the
     host owns the table). With ``return_prenorm`` the result is (logits,
@@ -477,7 +497,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     the prompt length — no room to decode). ``use_kernel`` as in
     :func:`forward` (``False``: the plain attention route on the card).
     """
-    T = batch["tokens"].shape[1]
+    T = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[1]
     hidden, caches = forward(params, cfg, batch, mode="prefill",
                              use_kernel=use_kernel)
     if max_len is not None and max_len > T:

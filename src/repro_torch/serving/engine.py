@@ -148,6 +148,20 @@ def refuse_recurrent(cfg: ModelConfig, spec_k: int) -> None:
             f"recurrent families')")
 
 
+def refuse_inputs(cfg: ModelConfig) -> None:
+    """The engine feeds its model tokens only, as the JAX package's engine
+    does (its prefill and decode build ``{"tokens": ...}``): a model that
+    needs more in its batch has no path through either engine."""
+    need = {"audio": "frames", "vlm": "M-RoPE positions and patch "
+            "embeddings", "vision": "patches"}.get(cfg.modality)
+    if need is not None:
+        raise ValueError(
+            f"{cfg.name}: the serving engine feeds tokens only, as the JAX "
+            f"package's engine does, and a {cfg.modality} model needs "
+            f"{need}; serve it on the lock-step path (serve without "
+            f"--live-grow-at)")
+
+
 class ServingEngine:
     """Continuous batching over ``slots`` sessions with admission control.
 
@@ -186,6 +200,7 @@ class ServingEngine:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown KV layout {kv_layout!r}")
         refuse_recurrent(cfg, spec_k)
+        refuse_inputs(cfg)
         self.device = resolve_device(device)
         leaf = params["final_norm"]["scale"]
         if leaf.device.type != self.device.type:

@@ -60,6 +60,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import apply_ligo, compose_chain, grow
 from repro_torch.data import GlobalBatchLoader
+from repro_torch.data.synthetic import require_token_stream
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.optim import adamw_init, grow_adamw_state_chain
@@ -81,6 +82,8 @@ class TrajectoryRunner:
                  ligo_fail_at: Optional[int] = None, ledger=None,
                  device="cuda"):
         from repro_torch.obs.ledger import active_ledger
+        for st in traj.stages:
+            require_token_stream(st.cfg, "trajectory")
         self.traj = traj
         self.mgr = CheckpointManager(ckpt_dir, keep=keep)
         self.verbose = verbose

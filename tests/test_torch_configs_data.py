@@ -18,19 +18,21 @@ NAMES = sorted(tc.REGISTRY)
 DENSE = {n for n, c in jc.ASSIGNED.items() if c.family == "dense"}
 MOE = {n for n, c in jc.ASSIGNED.items() if c.family == "moe"}
 SEQMIX = {n for n, c in jc.ASSIGNED.items() if c.family in ("ssm", "hybrid")}
+OTHER = {n for n, c in jc.ASSIGNED.items() if c.family in ("audio", "vlm")}
 
 
 def test_registry_is_the_paper_models():
-    """The paper models and the JAX registry's dense-, MoE-, xLSTM- and
-    hybrid-family architectures (audio and VLM join with their slice)."""
+    """The paper models and every one of the JAX registry's assigned
+    architectures: the dense, MoE, xLSTM and hybrid families, the audio
+    encoder and the VLM."""
     assert DENSE == {"llama3-8b", "phi4-mini-3.8b", "starcoder2-7b",
                      "deepseek-coder-33b"}
     assert MOE == {"mixtral-8x7b", "qwen3-moe-30b-a3b"}
     assert SEQMIX == {"xlstm-125m", "zamba2-2.7b"}
-    assert set(tc.ASSIGNED) == DENSE | MOE | SEQMIX
-    assert set(jc.ASSIGNED) - set(tc.ASSIGNED) == {"hubert-xlarge",
-                                                   "qwen2-vl-72b"}
-    assert set(tc.REGISTRY) == set(jc.PAPER_MODELS) | DENSE | MOE | SEQMIX
+    assert OTHER == {"hubert-xlarge", "qwen2-vl-72b"}
+    assert set(tc.ASSIGNED) == set(jc.ASSIGNED) == DENSE | MOE | SEQMIX | OTHER
+    assert list(tc.ASSIGNED) == list(jc.ASSIGNED)
+    assert set(tc.REGISTRY) == set(jc.REGISTRY)
     assert sorted(tc.GROWTH_PAIRS) == sorted(jc.GROWTH_PAIRS)
     for key, (a, b) in tc.GROWTH_PAIRS.items():
         ja, jb = jc.GROWTH_PAIRS[key]

@@ -37,7 +37,13 @@ identity segments and on xLSTM's Bd 8 gates group, bf16; K3 at zamba2's
 d_head 80 and its grown d_head 120 (the FMA kernel), also at B = 1 and the
 odd lengths of the engine's exact-length prefills; the xLSTM and zamba2
 smoke models' decode on the card against the CPU, and their live engine
-through a LiGO hop on the card, its tokens the CPU engine's.
+through a LiGO hop on the card, its tokens the CPU engine's. The audio and
+VLM families: K3 at hubert-xlarge's encode shapes (bidirectional, d_head
+80 and 40) and qwen2-vl-72b's prefill shapes (64/8 heads, d_head 128 and
+64); ``apply_mrope`` on the card against the CPU at qwen2-vl's head
+shape, three distinct position streams (float32 <= 1e-6, bf16 within one
+bf16 ulp); and hubert's encode at full width on the K3 route against the
+plain attention route.
 """
 import time
 
@@ -93,6 +99,14 @@ K3_SHAPES = [
     ("engine-T1-dh120", "bfloat16", (1, 32, 32, 1, 1, 120, True, 0)),
     ("engine-T37-dh120", "bfloat16", (1, 32, 32, 37, 37, 120, True, 0)),
     ("engine-T509-dh120", "bfloat16", (1, 32, 32, 509, 509, 120, True, 0)),
+    # hubert-xlarge's autograd-free encode (bidirectional, d_head 80, and 40
+    # at its half model: the FMA kernel) and qwen2-vl-72b's prefill (64
+    # query heads over 8, d_head 128, and 64 at its half model: the tensor
+    # cores)
+    ("hubert-encode", "bfloat16", (8, 16, 16, 512, 512, 80, False, 0)),
+    ("hubert-half", "bfloat16", (8, 16, 16, 512, 512, 40, False, 0)),
+    ("qwen2-vl-prefill", "bfloat16", (4, 64, 8, 2048, 2048, 128, True, 0)),
+    ("qwen2-vl-half", "bfloat16", (4, 64, 8, 2048, 2048, 64, True, 0)),
     # the FMA kernel's bodies at 8 and 32 columns a thread (dh <= 32, > 64)
     ("dh32-fma", "float32", (2, 4, 2, 77, 77, 32, True, 0)),
     ("dh32-fma", "bfloat16", (2, 4, 2, 77, 77, 32, True, 0)),
@@ -1096,3 +1110,58 @@ def test_recurrent_engine_on_the_card_matches_the_cpu(cuda, arch):
     for (tc_, lc), (td, ld) in zip(out["cpu"], out[str(cuda)]):
         assert td == tc_
         assert np.abs(ld - lc).max() <= 1e-4 * np.abs(lc).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mrope_on_the_card_matches_the_cpu(cuda, dtype):
+    """qwen2-vl-72b's shape (64 heads of 128, sections (16, 24, 24), theta
+    1e6) with three distinct position streams: the card against the CPU,
+    <= 1e-6 in float32 (sin and cos of two libraries), within one bf16
+    ulp in bf16."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-vl-72b")
+    gen = torch.Generator().manual_seed(5)
+    dt = getattr(torch, dtype)
+    x = torch.randn((2, 512, cfg.n_heads, cfg.d_head), generator=gen).to(dt)
+    pos = torch.stack([torch.randint(0, 4, (2, 512), generator=gen),
+                       torch.randint(0, 64, (2, 512), generator=gen),
+                       torch.randint(0, 4096, (2, 512), generator=gen)], -1)
+    want = layers.apply_mrope(x, pos, cfg.rope_theta, cfg.mrope_sections)
+    got = layers.apply_mrope(x.to(cuda), pos.to(cuda), cfg.rope_theta,
+                             cfg.mrope_sections)
+    assert got.dtype == dt and got.device.type == "cuda"
+    err = (got.cpu().float() - want.float()).abs().max() / want.abs().max()
+    assert float(err) <= (1e-6 if dtype == "float32" else 2.0 ** -8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-4)])
+def test_hubert_encode_k3_route_matches_plain_route(cuda, dtype, tol):
+    """hubert-xlarge at full width (1280, 16 heads of 80) cut to 2 layers:
+    an autograd-free encode of 2 x 256 frames, 15 % masked, on the K3
+    route (one bidirectional launch a layer, the FMA kernel) against the
+    plain attention route; hidden states within ``tol`` (normalised), the
+    MLM loss within ``tol`` relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import inputs, model
+    from repro_torch.models.losses import loss_fn
+    cfg = get_config("hubert-xlarge")
+    cfg = cfg.scaled(name=f"{cfg.name}-2l", n_layers=2, dtype=dtype)
+    p = model.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    b = inputs.dummy_batch(cfg, 2, 256, "train", seed=1, device=cuda)
+    out = {}
+    with torch.no_grad():
+        for use_kernel in (None, False):
+            ops.reset_launch_counts()
+            h, _ = model.forward(p, cfg, b, use_kernel=use_kernel)
+            loss, _ = loss_fn(p, cfg, b, use_kernel=use_kernel)
+            n = ops.launch_counts()["flash_attention"]
+            assert n == (2 * cfg.n_layers if use_kernel is None else 0)
+            out[use_kernel] = (h.float(), float(loss))
+    torch.cuda.synchronize()
+    (hk, lk), (hp, lp) = out[None], out[False]
+    assert bool(torch.isfinite(hk).all())
+    assert float((hk - hp).abs().max() / hp.abs().max()) <= tol
+    assert abs(lk - lp) <= tol * abs(lp)

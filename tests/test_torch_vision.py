@@ -117,13 +117,24 @@ def test_train_batch_specs_match_jax(name):
 
 @pytest.mark.parametrize("modality", ["audio", "vlm"])
 def test_audio_and_vlm_inputs_are_refused(modality):
-    """Their inputs come with their model families: refused, naming the
-    ROADMAP item by its title."""
-    cfg = TEXT["gpt2"].scaled(modality=modality)
-    for fn in (lambda: inputs.dummy_batch(cfg, 2, 8, "train", device="cpu"),
-               lambda: inputs.train_batch_specs(cfg, 2, 8)):
-        with pytest.raises(NotImplementedError, match="the other families"):
-            fn()
+    """Audio and VLM inputs are refused where the JAX package has no path
+    for them: the synthetic stream makes tokens only (its train,
+    trajectory and autogrow die on the missing key), and the serving
+    engine feeds tokens only. Each refusal names that reason; the model's
+    own inputs (``dummy_batch``) are served."""
+    from repro_torch.data.synthetic import require_token_stream
+    from repro_torch.serving.engine import refuse_inputs
+    name = {"audio": "hubert-xlarge", "vlm": "qwen2-vl-72b"}[modality]
+    cfg = tc.smoke_config(tc.get_config(name))
+    with pytest.raises(ValueError, match="synthetic stream"):
+        require_token_stream(cfg, "train")
+    with pytest.raises(ValueError, match="feeds tokens only"):
+        refuse_inputs(cfg)
+    b = inputs.dummy_batch(cfg, 2, 8, "train", device="cpu")
+    assert sorted(b) == sorted(inputs.train_batch_specs(cfg, 2, 8))
+    for c in (TEXT["gpt2"], TEXT["bert"]):
+        require_token_stream(c, "train")
+        refuse_inputs(c)
 
 
 @pytest.mark.parametrize("name", sorted(CFGS))
