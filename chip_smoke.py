@@ -82,7 +82,9 @@ sources are not beside it. Phases, each fatal on failure:
    launches to logits bitwise equal to A's final params; and the
    checkpoint size, write and restore ms and the ledger's cost are printed;
 7. run the quickstart twin (``repro_torch.examples.quickstart``) at the
-   script's own size: LiGO's initial loss must be below scratch's;
+   script's own widths and 50 LiGO steps, its small model's pretraining
+   cut to 100 steps and each finetune to 20: LiGO's initial loss must be
+   below scratch's;
 8. run the paper's vision pairs at full width, bf16, batch 32 images:
    deit-s -> deit-b (12 layers, d 384 -> 768, 6 -> 12 heads, 197 tokens,
    1000 classes) and cait-xs -> cait-s (24 layers, d 288 -> 384, dh 48, at
@@ -108,7 +110,8 @@ sources are not beside it. Phases, each fatal on failure:
    gpt2-medium-ff2 (the cache grows in place) against a run with no hop;
    (e) chaos at every hop stage at smoke size, each rollback's cause the
    injected one; (f) llama3-8b (phase 3b's params) through the engine,
-   4 slots, prompts of 1024-2048 tokens, with a profiled decode step;
+   4 slots, prompts of 1024-2048 tokens, 16 new, with a profiled decode
+   step;
 10. speculative decoding through the live hop, under phase 9's settings
    (auto-disable off): (a) ``serve --live-grow-at 8 --hop-sync
    --speculative 4`` (9 (b)'s run, gpt2-base drafting 4 tokens a round for
@@ -119,7 +122,8 @@ sources are not beside it. Phases, each fatal on failure:
    printed; (b) the same dense, tokens equal 9 (c)'s; (c) the LEMON hop
    with speculation (first-round acceptance printed) and the reference
    test's float32 pair on the card (first round 1.0); (d) sampled,
-   temperature 0.8, top-p 0.9: one seed repeats, another differs; (e) a
+   temperature 0.8, top-p 0.9, 16 new tokens: one seed repeats, another
+   differs; (e) a
    second hop failing at swap while the smoke pair drafts: rolled back for
    the injected cause, 0 dropped, 0 rejected, the retry landing;
 11. the observability layer through both launchers' flags, under phase
@@ -143,8 +147,8 @@ sources are not beside it. Phases, each fatal on failure:
    same, the timeline's ledger track one loss point a step; (d) (a)'s
    serve without the obs flags and with ``obs.set_enabled(False)``, decode
    step p50/p99 printed beside (a)'s (not gated); (c) last, (a)'s serve cut
-   to 4 requests with ``--obs-profile``: the Chrome trace names K1's
-   tensor-core GEMM and ``flash_fwd_wgmma``;
+   to 4 requests of 16 new tokens with ``--obs-profile``: the Chrome trace
+   names K1's tensor-core GEMM and ``flash_fwd_wgmma``;
 12. the adaptive growth controller through ``train --autogrow`` at full
    width, under phase 6's deterministic algorithms (run before phase 11,
    whose profiler slows the host for the rest of the process): a schedule
@@ -166,7 +170,7 @@ sources are not beside it. Phases, each fatal on failure:
 13. the MoE family at full width, under phase 6's deterministic
    algorithms (after phase 12, before phase 11): (a) ``serve --arch
    phi4-mini-3.8b --live-grow-at 8 --hop-operator upcycle`` (16 requests
-   of 64-128 tokens through 8 slots, 32 new, paged): the dense model hops
+   of 64-128 tokens through 8 slots, 16 new, paged): the dense model hops
    to its MoE twin (E 4, top 2) with 0 dropped and 0 rejected, the cache
    grown in place, K1 launched once per kernel-route group of the plan
    (warm grow and hop), the served tree bitwise the plain route's, the E
@@ -214,8 +218,9 @@ sources are not beside it. Phases, each fatal on failure:
    new) hopping to 108 x 3840: K1 likewise, K3 once per shared-block
    insertion of every prefill and re-prefill the engine counted, then K3
    against its plain version at every exact length it was sent; (c) the
-   runs of (a) and (b) in float32 through the engine API ((a) with 3 more
-   requests of 1, 2 and 5 tokens, zamba2 cut to 12 layers), the hop
+   runs of (a) and (b) in float32 through the engine API ((a) with 8
+   requests and 3 more of 1, 2 and 5 tokens, zamba2 cut to 12 layers), the
+   hop
    synchronous: each request's greedy tokens equal to
    a lock-step ``prefill`` + ``decode_step`` of the same models at its
    true length, its first-token logits and its logits on its first step
@@ -251,12 +256,38 @@ sources are not beside it. Phases, each fatal on failure:
    and K2 at every group shape of (a) and (b) and K3 at hubert's encode
    (d_head 80, and 40 for its half model) and qwen2-vl's prefill (d_head
    128, and 64 for its half model);
+17. the serving example's twin (``repro_torch.examples.serve_decode``),
+   under phase 6's deterministic algorithms (after phase 16, before phase
+   11): (a) its ``__main__`` as the JAX script runs it (llama3-8b,
+   mixtral-8x7b, zamba2-2.7b and xlstm-125m at ``smoke_config``, float32,
+   batch 2, 48-token prompts, 12 new tokens) on the kernel route and on
+   the plain route: tokens equal, logits within 1e-5, K3 once per
+   attention layer of each prefill; (b) its ``serve()`` at full width in
+   bf16, batch 2, 12 new tokens: llama3-8b whole on 512-token prompts (K3
+   32), mixtral cut to 4 layers on 4160-token prompts past its 4096 window
+   (K3 4, the ring holding the window), zamba2-2.7b at 54 layers (K3 9 at
+   d_head 80) and xlstm-125m whole (no K3) on 512-token prompts, each
+   prefill held to the plain attention route (the MoE with its expert
+   choices replayed), decode tok/s, the cache's kind, rows and bytes a
+   slot, and the peak memory printed; (c) mixtral's 4-layer cut in
+   float32 at capacity E/k: the prefill and 11 decode steps' logits
+   through the ring against one windowed forward of the prompt and the
+   generated tokens on the plain route, with the serve run's expert
+   choices replayed, within 1e-4; (d) the JAX package's public kernel
+   wrappers on CUDA tensors against their plain versions: ``ligo_blend_
+   expand`` and ``ligo_grow`` at one gpt2-base -> gpt2-medium leaf (bf16
+   and float32), ``ligo_blend_expand_vjp``'s forward and gradients (one K1
+   and one K2 launch), ``ligo_blend_expand_bwd_fused`` (K2),
+   ``flash_attention`` at llama3-8b's prefill shape, each call's launches
+   and ``LAUNCH_COUNTS`` counted; then K3 against its plain version at
+   every shape (a)-(c) sent it;
 5. print, last, the kernels' JSON line, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
 """
+import importlib
 import json
 import math
 import os
@@ -390,6 +421,10 @@ TRAIN_ARGS = ["--arch", "gpt2-medium", "--grow-from", "gpt2-base", "--method",
               "ligo", "--pretrain-steps", "2", "--ligo-steps", str(LIGO_STEPS),
               "--steps", "4", "--batch", "8", "--seq", "128"]
 
+
+# K2's min-FLOP library order is timed only where its dw contraction
+# (E·I·Bd products an output) is at most this long
+MINFLOP_MAX_ROWS = 10 ** 8
 
 # A call longer than this is timed once: repeating it would spend seconds
 # of the script's time limit (the float32 plain K2 at mixtral's and
@@ -822,10 +857,12 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         "ms": _time_ms(torch, kernel, reps),
         "plain_ms": _time_ms(torch, plain, reps, plain_first),
         "library_ms": _time_ms(torch, library, reps),
-        # the min-FLOP order's einsums are as slow as the plain version
-        # (13 s a call at mixtral's expert-wide group): not timed where the
-        # plain version took over LONG_CALL_MS (no main-path row)
-        "library_minflop_ms": (None if plain_first > LONG_CALL_MS
+        # the min-FLOP order's dw einsum folds e·i·b into one K-huge
+        # contraction of L2·L1 outputs, which cuBLAS runs on a handful of
+        # blocks (7-14 s a call at qwen2-vl's and mixtral's widest groups on
+        # an NVIDIA H100 80GB HBM3 at 700 W): not timed there (no main-path
+        # row)
+        "library_minflop_ms": (None if E * I * Bd > MINFLOP_MAX_ROWS
                                else _time_ms(torch, library_minflop, reps)),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -890,7 +927,9 @@ def _check_k3(torch, name, dtype, B, H, KV, T, S, dh, causal, window, pad=0,
     ``layers.full_attention`` does."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import ref
+    flash_attention = importlib.import_module(
+        "repro_torch.kernels.flash_attention")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((B, n, heads, dh + pad), generator=gen,
@@ -966,10 +1005,13 @@ def _check_k3(torch, name, dtype, B, H, KV, T, S, dh, causal, window, pad=0,
     return row
 
 
-def _prefill_check(torch, res, tol16, tol32, tol_far):
+def _prefill_check(torch, res, tol16, tol32, tol_far,
+                   turns=("kernel", "plain")):
     """The serve run's prefill logits (through K3) against a prefill of the
     same parameters and prompts through the plain attention
-    (``use_kernel=False``), and a warm prefill timed on each route in turns.
+    (``use_kernel=False``), and a warm prefill timed on each route in
+    ``turns`` (which holds the plain route at least once: its first run is
+    the check's bf16 plain prefill).
 
     With every parameter cast to float32 the two routes must agree to
     ``tol32`` (normalised max error), and the bf16 K3 route may lie no
@@ -998,7 +1040,7 @@ def _prefill_check(torch, res, tol16, tol32, tol_far):
 
     warm, logits = {"kernel": [], "plain": []}, {}
     with torch.no_grad():
-        for route in ("kernel", "plain", "plain", "kernel"):
+        for route in turns:
             logits[route], ms = run(res["params"],
                                     None if route == "kernel" else False)
             warm[route].append(ms)
@@ -1009,14 +1051,15 @@ def _prefill_check(torch, res, tol16, tol32, tol_far):
         del params32
     e16, e32 = err(k16, p16), err(k32, p32)
     ek, ep = err(k16, p32), err(p16, p32)
-    rerun = err(logits["kernel"], k16)
+    rerun = (f"; warm K3 rerun vs first call "
+             f"{err(logits['kernel'], k16):.2e}" if "kernel" in logits
+             else "")
     held = f"tol {tol16:.0e}" if tol16 is not None else "not held"
     print(f"[{cfg.name}] prefill logits, K3 route vs plain route, normalised "
           f"max error: bf16 {e16:.2e} ({held}), float32 {e32:.2e} "
           f"(tol {tol32:.0e}); bf16 vs the float32 plain route: K3 route "
           f"{ek:.2e}, plain route {ep:.2e} (K3 within 2x plain + "
-          f"{tol_far:.0e}); warm K3 rerun vs first call {rerun:.2e}",
-          flush=True)
+          f"{tol_far:.0e}){rerun}", flush=True)
     if not (bool(torch.isfinite(k16).all()) and bool(torch.isfinite(k32).all())
             and (tol16 is None or e16 <= tol16) and e32 <= tol32
             and ek <= 2 * ep + tol_far):
@@ -1927,7 +1970,7 @@ LIVE_TOL = 2e-2
 LAYOUT_TOL = 1e-3
 # llama3-8b through the engine: slots, requests, prompt budget (prompts of
 # 1024-2048 tokens), new tokens
-LLAMA_LIVE = (4, 8, 2048, 32)
+LLAMA_LIVE = (4, 8, 2048, 16)
 
 
 def _logit_err(a, b):
@@ -2274,6 +2317,9 @@ LEMON_SPEC_ARGS = ["--arch", "gpt2-medium", "--hop-operator", "lemon",
                    str(SPEC_REQ), "--prompt-len", "128", "--gen",
                    str(LIVE_GEN), "--hop-sync", "--speculative", str(SPEC_K)]
 SAMPLED = dict(temperature=0.8, top_p=0.9)
+# (d)'s new tokens a request, cut from LIVE_GEN for time: the hop at step 8
+# still meets every slot mid-request, and rounds follow the swap
+SAMPLED_GEN = 16
 
 
 def _spec_smoke_cfgs():
@@ -2491,15 +2537,15 @@ def _spec_phase(torch, shapes, vanilla, device="cuda"):
             ops.reset_launch_counts()
             walls.clear()
             e = ServingEngine(small, cfg1, slots=8, prompt_budget=128,
-                              gen_budget=LIVE_GEN, spec_k=SPEC_K,
+                              gen_budget=SAMPLED_GEN, spec_k=SPEC_K,
                               spec_autodisable=False, seed=seed, device=dev,
                               **SAMPLED)
             for p in live_prompts(SPEC_REQ, 128, cfg1.vocab_size):
-                e.submit(p, max_new=LIVE_GEN)
+                e.submit(p, max_new=SAMPLED_GEN)
             h = HopController(e, cfg2, ligo, background=False)
             _hop_drive(e, [h], 8)
             runs[f"spec d seed {label}"] = ops.launch_counts()
-            _live_check({"engine": e, "hop": h}, SPEC_REQ, LIVE_GEN)
+            _live_check({"engine": e, "hop": h}, SPEC_REQ, SAMPLED_GEN)
             sampled[label] = [list(r.tokens) for r in e.requests]
             _spec_report(f"(d) sampled, seed {label}", e, h, walls)
             del e, h
@@ -2550,7 +2596,9 @@ OBS_TRAJ = {"arch": "gpt2-base", "batch": 8, "seq": 128, "lr": 1e-3,
             "stages": [{"steps": 2},
                        {"steps": 2, "arch": "gpt2-medium", "method": "ligo",
                         "ligo_steps": 2, "ligo_scan_chunk": 1}]}
-OBS_PROFILE_REQ = 4
+# (c): the profiled serve's requests and new tokens (a smaller trace to
+# write and read; the hop at step 8 still meets live sessions)
+OBS_PROFILE_REQ, OBS_PROFILE_GEN = 4, 16
 
 
 def _obs_log(path):
@@ -2619,11 +2667,11 @@ def _obs_phase(torch, shapes):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
     chaos = LIVE_ARGS + ["--fail-at-hop", "cache-grow"]
 
-    def serve_run(label, argv, n_req=LIVE_REQ):
+    def serve_run(label, argv, n_req=LIVE_REQ, gen=LIVE_GEN):
         ops.reset_launch_counts()
         res, out = _main_teed(serve, argv)
         runs[label] = ops.launch_counts()
-        eng, hop = _live_check(res, n_req, LIVE_GEN)
+        eng, hop = _live_check(res, n_req, gen)
         cfg1, cfg2 = res["small_cfg"], res["cfg2"]
         for shape, n in _k3_by_shape(eng, cfg1, cfg2).items():
             k3[shape] = k3.get(shape, 0) + n
@@ -2792,8 +2840,9 @@ def _obs_phase(torch, shapes):
         # rest of the process
         d = os.path.join(tmp, "c")
         res, _, eng, hop, cfg1, cfg2 = serve_run("obs c", LIVE_ARGS + [
-            "--requests", str(OBS_PROFILE_REQ), "--obs-profile", d],
-            n_req=OBS_PROFILE_REQ)
+            "--requests", str(OBS_PROFILE_REQ), "--gen",
+            str(OBS_PROFILE_GEN), "--obs-profile", d],
+            n_req=OBS_PROFILE_REQ, gen=OBS_PROFILE_GEN)
         _live_launch_check("(c)", runs["obs c"], eng, cfg1, cfg2, 2, k1_grow)
         (trace,) = os.listdir(d)
         with open(os.path.join(d, trace)) as f:
@@ -3067,14 +3116,20 @@ def _tele_check(snap, fps, n, label):
           f"{cum:.6e} = {n} x the measured {fps:.6e} a step", flush=True)
 
 
+# Phase 7's quickstart twin: its 50 LiGO steps (K1 and K2 every step), with
+# the small model's pretraining and each finetune cut from 300 and 100 steps
+# for time (the widths stay the script's own)
+QS_ARGS = ["--small-steps", "100", "--finetune-steps", "20"]
+
+
 def _quickstart_phase():
-    """Phase 7: the quickstart twin at the script's own size; returns its
-    kernel launches."""
+    """Phase 7: the quickstart twin at the script's own widths and LiGO
+    steps (``QS_ARGS``); returns its kernel launches."""
     from repro_torch.examples import quickstart
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = quickstart.main([])
+    out = quickstart.main(QS_ARGS)
     launches = ops.launch_counts()
     init, fine = out["initial"], out["finetuned"]
     print(f"[quickstart] initial losses {init} | finetuned {fine} | "
@@ -3100,7 +3155,7 @@ def _quickstart_phase():
 # requests decode through 8 slots, paged; (b) the upcycled model's
 # function against the dense model's; (c) MoE -> MoE LiGO growth at
 # mixtral's full width, cut in depth; (d) qwen3-moe-30b-a3b at full width.
-UPCYCLE_REQ, UPCYCLE_GEN = 16, 32
+UPCYCLE_REQ, UPCYCLE_GEN = 16, 16
 UPCYCLE_ARGS = ["--arch", "phi4-mini-3.8b", "--hop-operator", "upcycle",
                 "--live-grow-at", "8", "--batch", "8", "--requests",
                 str(UPCYCLE_REQ), "--prompt-len", "128", "--gen",
@@ -4251,7 +4306,7 @@ def _recurrent_phase(torch):
     print(f"[recur] (b) {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     xl32 = xl.scaled(dtype="float32")
-    eng, _ = _recur_f32(torch, xl32, live_prompts(16, 64, xl.vocab_size)
+    eng, _ = _recur_f32(torch, xl32, live_prompts(8, 64, xl.vocab_size)
                         + _short_prompts(xl.vocab_size), 8, 64, 16, 8,
                         "(c) xlstm", runs)
     if sorted(len(r.prompt) for r in eng.requests)[:3] != list(RECUR_SHORT):
@@ -4595,6 +4650,361 @@ def _audio_vlm_phase(torch):
                                    "flash_attention"])}
     print(f"[audio] phase 16 {time.perf_counter() - t0:.1f} s", flush=True)
     return runs, k3
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the serving example's twin (repro_torch.examples.serve_decode),
+# under phase 6's deterministic algorithms, after phase 16 and before phase
+# 11's profiler. (a) its __main__ as the JAX script runs it (smoke_config,
+# float32), on the kernel route and on the plain route; (b) serve() at full
+# width in bf16, batch 2, 12 new tokens: llama3-8b whole on 512-token
+# prompts (a linear KV cache), mixtral cut to 4 layers as phase 13 (c) cuts
+# it on prompts past its 4096 window (the ring buffer), zamba2-2.7b at its
+# 54 layers (SSM states and the shared block's KV cache) and xlstm-125m
+# whole (recurrent memories) on 512-token prompts; (c) mixtral's ring at
+# full width in float32, held against one windowed forward; (d) the JAX
+# package's public kernel wrappers on CUDA tensors.
+SD_BATCH, SD_GEN = 2, 12
+# arch, prompt length, depth cut (0: whole)
+SD_FULL = (("llama3-8b", 512, 0), ("mixtral-8x7b", 4160, MIX_LAYERS),
+           ("zamba2-2.7b", 512, 0), ("xlstm-125m", 512, 0))
+# (a): the float32 smoke models' logits, K3 route against the plain route
+# (only the summation order differs); (c): the ring's decode logits against
+# the full forward (the CPU tests' bound for decode against a forward)
+SD_ROUTES_TOL = 1e-5
+SD_RING_TOL = 1e-4
+
+
+def _prefill_k3(cfg):
+    """K3 launches of one prefill: one per attention layer."""
+    if cfg.family == "ssm":
+        return 0
+    return _attn_layers(cfg) if cfg.family == "hybrid" else cfg.n_layers
+
+
+def _sd_k3_dims(cfg, T):
+    return (SD_BATCH, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.d_head, True,
+            cfg.window)
+
+
+def _sd_launch_check(label, got, cfg):
+    want = {"ligo_blend_expand_grouped": 0, "ligo_blend_expand_bwd_fused": 0,
+            "flash_attention": _prefill_k3(cfg)}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want} (K3 once "
+                             f"per attention layer of the prefill)")
+
+
+def _sd_smoke(torch, runs, k3, shapes):
+    """17 (a): the twin's __main__ on both routes."""
+    from repro_torch.examples import serve_decode
+    from repro_torch.kernels import ops
+    out = {}
+    for route, use_kernel in (("kernel", None), ("plain", False)):
+        ops.reset_launch_counts()
+        out[route] = serve_decode.main([], use_kernel=use_kernel)
+        got = ops.launch_counts()
+        want = sum(_prefill_k3(r["cfg"]) for r in out[route].values())
+        if got != {"ligo_blend_expand_grouped": 0,
+                   "ligo_blend_expand_bwd_fused": 0,
+                   "flash_attention": want if use_kernel is None else 0}:
+            raise AssertionError(f"(a) {route} route launches {got}, K3 "
+                                 f"{want} on the kernel route, none on the "
+                                 f"plain route")
+        if use_kernel is None:
+            runs["serve_decode a"] = got
+    for arch in serve_decode.ARCHS:
+        kr, pr = out["kernel"][arch], out["plain"][arch]
+        lk, lp = (torch.cat([r["prefill_logits"][None], r["decode_logits"]])
+                  for r in (kr, pr))
+        err = ((lk - lp).abs().max() / lp.abs().max()).item()
+        same = torch.equal(kr["tokens"], pr["tokens"])
+        cfg = kr["cfg"]
+        print(f"[sd] (a) {arch} smoke ({cfg.n_layers} layers, "
+              f"{cfg.dtype}): cache {kr['cache']}, K3 "
+              f"{_prefill_k3(cfg)} a prefill; tokens on the K3 route equal "
+              f"to the plain route's: {same}; logits normalised max error "
+              f"{err:.2e} (tol {SD_ROUTES_TOL:.0e})", flush=True)
+        if not (same and err <= SD_ROUTES_TOL
+                and bool(torch.isfinite(lk).all())):
+            raise AssertionError(f"(a) {arch}: tokens equal {same}, logits "
+                                 f"{err:.3e}")
+        if _prefill_k3(cfg):
+            name = f"serve_decode smoke {arch}"
+            k3[name] = _prefill_k3(cfg)
+            shapes.append((name, cfg.dtype, _sd_k3_dims(cfg, 48)))
+
+
+def _sd_cache_line(torch, state):
+    """The decode state's kind, its KV cache's rows, and one slot's bytes."""
+    from repro_torch.models.model import slot_bytes
+    caches = state["caches"]
+    kv = [b for b in (caches if isinstance(caches, tuple) else (caches,))
+          if isinstance(b, dict) and set(b) == {"k", "v"}]
+    rows = kv[0]["k"].shape[2] if kv else 0
+    per = slot_bytes(caches)
+    return (f"cache {type(caches).__name__} ({rows} KV rows a slot; "
+            f"recurrent {per['recurrent'] / 1e6:.3f} MB + attention "
+            f"{per['attention'] / 1e6:.3f} MB a slot)"), rows
+
+
+def _sd_full(torch, runs, k3, shapes):
+    """17 (b): serve() at full width, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_decode
+    from repro_torch.kernels import ops
+    for arch, T, cut in SD_FULL:
+        cfg = get_config(arch)
+        if cut:
+            cfg = cfg.scaled(name=f"{cfg.name}-{cut}l", n_layers=cut)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = serve_decode.serve(arch, batch=SD_BATCH, prompt_len=T,
+                                 gen=SD_GEN, cfg=cfg)
+        got = ops.launch_counts()
+        _sd_launch_check(f"(b) {arch}", got, cfg)
+        runs[f"serve_decode b {arch}"] = got
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        res["prompts"] = res["batch"]["tokens"]
+        _check_serve(torch, res, SD_BATCH, SD_GEN)
+        line, rows = _sd_cache_line(torch, res["state"])
+        if cfg.window and rows != cfg.window:
+            raise AssertionError(f"(b) {arch}: the ring holds {rows} rows, "
+                                 f"want the window {cfg.window}")
+        print(f"[sd] (b) {cfg.name} ({cfg.param_count() / 1e9:.2f} B, "
+              f"bf16), {SD_BATCH} x {T} tokens: launches {got}; prefill "
+              f"{res['prefill_ms']:.1f} ms (first call), decode "
+              f"{res['tok_s']:.1f} tok/s; {line}; peak device memory "
+              f"{peak:.1f} GB", flush=True)
+        if _prefill_k3(cfg):
+            name = f"serve_decode {arch}"
+            k3[name] = _prefill_k3(cfg)
+            shapes.append((name, "bfloat16", _sd_k3_dims(cfg, T)))
+        if cfg.family == "moe":
+            _, _, _, mline, ok = _moe_prefill_check(
+                torch, res["params"], cfg, res["prompts"], T + SD_GEN)
+            print(f"[sd] (b) {cfg.name} {mline}", flush=True)
+            if not ok:
+                raise AssertionError(f"(b) {arch}: the prefill through K3 "
+                                     f"disagrees with the plain route")
+        else:
+            _prefill_check(torch, res, None, 1e-4, 1e-2, turns=("plain",))
+        del res
+    torch.cuda.empty_cache()
+
+
+def _sd_ring(torch, runs, k3, shapes):
+    """17 (c): mixtral's ring at full width in float32 (the 4-layer cut,
+    capacity E / k, so no token drops): the 12 steps' logits against one
+    windowed forward of the prompt and the generated tokens, on the plain
+    attention route, each MoE layer of the forward taking the expert
+    choices the serve run made (``_moe_routes``: a near tie may route a
+    token otherwise on another path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_decode
+    from repro_torch.kernels import ops
+    from repro_torch.models import model, moe
+    mix = get_config("mixtral-8x7b")
+    cfg = mix.scaled(name=f"{mix.name}-{MIX_LAYERS}l-f32", n_layers=MIX_LAYERS,
+                     dtype="float32",
+                     capacity_factor=mix.n_experts / mix.experts_top_k)
+    T = SD_FULL[1][1]
+    rec = {"top_e": [], "i": 0, "flips": 0}
+    orig, record = _moe_routes("record", rec)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        moe.route = record
+        res = serve_decode.serve("mixtral-8x7b", batch=SD_BATCH, prompt_len=T,
+                                 gen=SD_GEN, cfg=cfg)
+    finally:
+        moe.route = orig
+    got = ops.launch_counts()
+    _sd_launch_check("(c)", got, cfg)
+    runs["serve_decode c"] = got
+    name = "serve_decode mixtral float32"
+    k3[name] = _prefill_k3(cfg)
+    shapes.append((name, "float32", _sd_k3_dims(cfg, T)))
+    # the expert choices of each layer, the prefill's rows then each decode
+    # step's, in the full forward's row order (b, t)
+    L, k = cfg.n_layers, cfg.experts_top_k
+    steps = SD_GEN - 1
+    if len(rec["top_e"]) != L * (1 + steps):
+        raise AssertionError(f"(c) {len(rec['top_e'])} routing calls, want "
+                             f"{L * (1 + steps)}")
+    rep = {"i": 0, "flips": 0, "top_e": [
+        torch.cat([rec["top_e"][l].view(SD_BATCH, T, k)]
+                  + [rec["top_e"][L * (1 + i) + l].view(SD_BATCH, 1, k)
+                     for i in range(steps)], dim=1).reshape(-1, k)
+        for l in range(L)]}
+    _, replay = _moe_routes("replay", rep)
+    toks = torch.cat([res["batch"]["tokens"], res["tokens"][:, :-1]], dim=1)
+    t0 = time.perf_counter()
+    try:
+        moe.route = replay
+        with torch.no_grad():
+            hidden, _ = model.forward(res["params"], cfg, {"tokens": toks},
+                                      use_kernel=False)
+            full = model.unembed(res["params"], cfg, hidden[:, T - 1:])
+        torch.cuda.synchronize()
+    finally:
+        moe.route = orig
+    ms = (time.perf_counter() - t0) * 1e3
+    served = torch.cat([res["prefill_logits"][None],
+                        res["decode_logits"]]).transpose(0, 1)
+    err = ((served - full).abs().max() / full.abs().max()).item()
+    line, rows = _sd_cache_line(torch, res["state"])
+    print(f"[sd] (c) {cfg.name} ({cfg.param_count() / 1e9:.2f} B, float32, "
+          f"capacity {cfg.capacity_factor:g}), {SD_BATCH} x {T} tokens, "
+          f"window {cfg.window}: {line}; prefill + {steps} decode steps "
+          f"against one forward of {toks.shape[1]} tokens on the plain "
+          f"route ({ms:.0f} ms): normalised max error {err:.2e} (tol "
+          f"{SD_RING_TOL:.0e}); expert choices replayed from the serve run, "
+          f"{rep['flips']} of {toks.numel() * L} token-layer choices the "
+          f"forward would have made otherwise; launches {got}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+          flush=True)
+    if not (err <= SD_RING_TOL and rows == cfg.window
+            and bool(torch.isfinite(served).all())):
+        raise AssertionError(f"(c) the ring's decode disagrees with the "
+                             f"windowed forward: {err:.3e} (ring {rows})")
+    del res, full, hidden
+    torch.cuda.empty_cache()
+
+
+def _sd_wrappers(torch):
+    """17 (d): the JAX package's public wrappers on CUDA tensors, each
+    against its plain version on the same inputs with phase 2's tolerances:
+    ``ligo_blend_expand`` and ``ligo_grow`` at one gpt2-base ->
+    gpt2-medium leaf (bf16 and float32), ``ligo_blend_expand_vjp``'s
+    gradients (one K1 and one K2 launch) and ``ligo_blend_expand_bwd_fused``
+    (bf16), ``flash_attention`` at llama3-8b's prefill shape; each call's
+    launches and ``LAUNCH_COUNTS`` counted. Check launches: none joins the
+    main path's count."""
+    import repro_torch.kernels as tk
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    c1, c2 = get_config("gpt2-base"), get_config("gpt2-medium")
+    L2, L1, I, A = c2.n_layers, c1.n_layers, c2.d_model, c1.d_model
+
+    def counted(fn):
+        n0, c0 = ops.launch_counts(), dict(tk.LAUNCH_COUNTS)
+        out = fn()
+        torch.cuda.synchronize()
+        n1, c1_ = ops.launch_counts(), dict(tk.LAUNCH_COUNTS)
+        return out, ({k: n1[k] - n0[k] for k in n1},
+                     {k: c1_.get(k, 0) - c0.get(k, 0) for k in ("fwd", "bwd")})
+
+    def held(label, got, want, tol, launches, want_launches):
+        _, err = _norm_err(got, want)
+        ok = (err <= tol and bool(torch.isfinite(got).all())
+              and launches == want_launches)
+        print(f"[sd] (d) {label}: normalised max error {err:.2e} (tol "
+              f"{tol:.0e}); launches {launches[0]}, LAUNCH_COUNTS "
+              f"{launches[1]} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"(d) {label}: {err:.3e}, launches "
+                                 f"{launches}, want {want_launches}")
+
+    def k(n1=0, n2=0, n3=0):
+        return ({"ligo_blend_expand_grouped": n1,
+                 "ligo_blend_expand_bwd_fused": n2, "flash_attention": n3},
+                {"fwd": n1, "bwd": n2})
+
+    for i, dt in enumerate((torch.bfloat16, torch.float32)):
+        name = str(dt).replace("torch.", "")
+        tol = TOL[name]
+        gen = torch.Generator(device="cuda").manual_seed(700 + i)
+        w = torch.randn((L2, L1), generator=gen, device="cuda") / L1
+        B, W, R = (torch.randn(shape, generator=gen, device="cuda").mul(
+            0.05).to(dt) for shape in ((I, A), (L1, A, A), (I, A)))
+        P, n = counted(lambda: tk.ligo_blend_expand(w, B, W))
+        held(f"ligo_blend_expand {name} (L2 {L2}, L1 {L1}, I {I}, A {A}, Bd "
+             f"{A})", P, ref.ligo_blend_expand_ref(w, B, W), tol, n, k(1))
+        G_, n = counted(lambda: tk.ligo_grow(w, B, R, W))
+        held(f"ligo_grow {name} (right expansion to {I})", G_,
+             ref.ligo_grow_ref(w, B, R, W), tol, n, k(1))
+    # the vjp's gradients and the fused backward, bf16
+    dt, tol = torch.bfloat16, TOL["bfloat16"]
+    gen = torch.Generator(device="cuda").manual_seed(710)
+    w = torch.randn((L2, L1), generator=gen, device="cuda") / L1
+    B, W, C = (torch.randn(shape, generator=gen, device="cuda").mul(
+        0.05).to(dt) for shape in ((I, A), (L1, A, A), (L2, I, A)))
+
+    def grads(use_kernel):
+        xs = [x.clone().requires_grad_() for x in (w, B, W)]
+        P = tk.ligo_blend_expand_vjp(*xs, use_kernel=use_kernel)
+        P.backward(C)
+        return [P.detach()] + [x.grad for x in xs]
+    got, n = counted(lambda: grads(None))
+    want, n_plain = counted(lambda: grads(False))
+    terms = _dw_terms(torch, C[None, :, None],
+                      ref.ligo_expand_ref(B, W[None, :, None]))[0]
+    dw_err = ((got[1] - want[1]).abs() / (terms + 1e-30)).max().item()
+    held("ligo_blend_expand_vjp forward", got[0], want[0], tol, n, k(1, 1))
+    for label, g, p in (("dB", got[2], want[2]), ("dW", got[3], want[3])):
+        held(f"ligo_blend_expand_vjp {label}", g, p, tol, n, k(1, 1))
+    print(f"[sd] (d) ligo_blend_expand_vjp dw: max error over the size of "
+          f"its terms {dw_err:.2e} (tol {tol:.0e}); the plain route "
+          f"launched {n_plain[0]}", flush=True)
+    if dw_err > tol or n_plain != k():
+        raise AssertionError(f"(d) vjp dw {dw_err:.3e}, plain route "
+                             f"launches {n_plain}")
+    (dw, dB, dW), n = counted(lambda: tk.ligo_blend_expand_bwd_fused(
+        w[None], B, W[None, :, None], C[None, :, None]))
+    rw, rB, rW = ref.ligo_blend_expand_bwd_ref(w[None], B, W[None, :, None],
+                                               C[None, :, None])
+    dw_err = ((dw - rw).abs() / (terms[None] + 1e-30)).max().item()
+    held("ligo_blend_expand_bwd_fused dB", dB, rB, tol, n, k(0, 1))
+    held("ligo_blend_expand_bwd_fused dW", dW, rW, tol, n, k(0, 1))
+    if dw_err > tol:
+        raise AssertionError(f"(d) bwd_fused dw {dw_err:.3e}")
+    # K3's public function at llama3-8b's prefill shape
+    gen = torch.Generator(device="cuda").manual_seed(720)
+    q, kk, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                for shape in ((4, 32, 2048, 128), (4, 8, 2048, 128),
+                              (4, 8, 2048, 128)))
+    o, n = counted(lambda: tk.flash_attention(q, kk, v))
+    want = tk.flash_attention_ref(q, kk, v)
+    diff = (o.float() - want.float()).abs()
+    tol3 = K3_TOL["bfloat16"]
+    ok = bool((diff <= tol3 + tol3 * want.float().abs()).all())
+    print(f"[sd] (d) flash_attention bfloat16 (4, 32/8 heads, 2048, 128): "
+          f"max abs error {diff.max().item():.2e} (tol {tol3:.0e} + "
+          f"{tol3:.0e}|plain|); launches {n[0]} "
+          f"{'OK' if ok and n[0] == k(n3=1)[0] else 'FAIL'}", flush=True)
+    if not (ok and n[0] == k(n3=1)[0]):
+        raise AssertionError(f"(d) flash_attention: {diff.max().item():.3e}, "
+                             f"launches {n[0]}")
+
+
+def _serve_decode_phase(torch):
+    """Phase 17 (a)-(d). Returns the launches of its runs by run, K3's
+    launches by shape, and K3's rows at those shapes (held against its
+    plain version)."""
+    import gc
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[sd] phase 17 starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated by "
+          f"earlier phases", flush=True)
+    runs, k3, shapes = {}, {}, []
+    for label, fn in (("a", _sd_smoke), ("b", _sd_full), ("c", _sd_ring)):
+        t = time.perf_counter()
+        fn(torch, runs, k3, shapes)
+        print(f"[sd] ({label}) {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    _sd_wrappers(torch)
+    print(f"[sd] (d) {time.perf_counter() - t:.1f} s", flush=True)
+    rows = [_check_k3(torch, name, dtype, *dims, seed=800 + i)
+            for i, (name, dtype, dims) in enumerate(shapes)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[sd] phase 17 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, k3, rows
 
 
 def main() -> int:
@@ -4965,6 +5375,12 @@ def main() -> int:
     traj["launches"].update(av_runs)
     k3_engine.update(k3_av)
 
+    # -- phase 17: the serving example's twin --------------------------------
+    sd_runs, k3_sd, sd_rows = _serve_decode_phase(torch)
+    traj["launches"].update(sd_runs)
+    k3_engine.update(k3_sd)
+    k3_rows += sd_rows
+
     # -- phase 11: the observability layer at full width ---------------------
     obs_runs, k3_obs = _obs_phase(torch, shapes)
     traj["launches"].update(obs_runs)
@@ -5002,9 +5418,10 @@ def main() -> int:
         # K3's times: its work in one gpt2-medium prefill (24 launches at
         # shape (a)) plus one llama3-8b prefill (32 launches at shape (b)),
         # plus the engine's prefills and re-prefills of phase 9 (a) and (f)
-        # and phase 10 (a) (its drafter prefills too), and phases 13-16's
+        # and phase 10 (a) (its drafter prefills too), and phases 13-17's
         # prefills (phase 15's at each exact length it sent; phase 16's
-        # hubert encode and qwen2-vl prefills)
+        # hubert encode and qwen2-vl prefills; phase 17's serving-example
+        # twin)
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:72",
               total("flash_attention"), k3_rows,

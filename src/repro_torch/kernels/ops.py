@@ -17,9 +17,17 @@ K1's two steps, and K2's two halves run around its backward.
 of every forward that records no autograd graph, see
 :func:`repro_torch.models.layers.full_attention`).
 
-:func:`launch_counts` reads the kernels' plain-integer launch counters (the
-port's stand-in for the JAX package's ``LAUNCH_COUNTS``) and
-:func:`reset_launch_counts` sets them to 0.
+:func:`launch_counts` reads the kernels' plain-integer launch counters and
+:func:`reset_launch_counts` sets them to 0. :data:`LAUNCH_COUNTS` is the
+JAX package's registry twin ("kernels.launches", keys ``fwd`` and ``bwd``,
+see its comment).
+
+The JAX package's public wrappers sit on the same ops:
+:func:`ligo_blend_expand` and :func:`ligo_blend_expand_vjp` (one leaf, K1
+with G = E = 1, the second differentiable through K2), :func:`ligo_grow`
+(K1, then the right expansion as a plain product),
+:func:`ligo_blend_expand_bwd_fused` (K2 alone, (dw, dB, dW) in the JAX
+order), and the plain versions under the JAX names (``*_ref``).
 
 K1 and K2 are registered as the custom operators
 ``torch.ops.repro_torch.ligo_blend_expand_grouped`` and
@@ -33,14 +41,29 @@ K1 and K2 are registered as the custom operators
 """
 from __future__ import annotations
 
+import importlib
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import (flash_attention as _flash,
-                                 ligo_expand, ligo_expand_bwd, ref)
+from repro_torch.kernels import ligo_expand, ligo_expand_bwd, ref
+from repro_torch.obs import CounterGroup, counter_group
+
+# K3's wrapper module; the package exports the function ``flash_attention``
+# under the module's own name, as the JAX package does
+_flash = importlib.import_module("repro_torch.kernels.flash_attention")
+
+# The JAX package counts the fused ops at trace time, once per traced call;
+# the port's ops run eagerly, so it counts every call that takes a kernel:
+# on CUDA tensors each is one launch of K1 (``fwd``: a group whose right
+# expansion runs between K1's two steps counts once) or of K2 (``bwd``), and
+# on fake tensors (the measured-cost pass, ``obs/costs.py``), where nothing
+# launches, the call counts as a JAX trace does. A locked counter group, so
+# the hop's grow thread and the engine thread count together; the registry
+# exports it to ``/metrics`` as ``kernels_launches_total``.
+LAUNCH_COUNTS: CounterGroup = counter_group("kernels.launches")
 
 
 def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
@@ -50,6 +73,7 @@ def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
     w: (G, L2, L1); B: (I, A); W: (G, L1, E, A, Bd) → (G, L2, E, I, Bd).
     """
     if W.is_cuda:
+        LAUNCH_COUNTS.inc("fwd")
         return ligo_expand.ligo_blend_expand_grouped(w, B, W)
     return ref.ligo_blend_expand_grouped_ref(w, B, W)
 
@@ -230,6 +254,7 @@ class _BlendExpandGrouped(torch.autograd.Function):
         if plain:
             out = ref.ligo_blend_expand_grouped_ref(w, B, W, keep_u=keep_u)
         else:
+            LAUNCH_COUNTS.inc("fwd")
             out = _k1(w, B, W, keep_u)
         P, U = out if keep_u or not plain else (out, None)
         ctx.save_for_backward(w, B, W, U if keep_u else None)
@@ -246,6 +271,7 @@ class _BlendExpandGrouped(torch.autograd.Function):
             dw, dB, dW = ref.ligo_blend_expand_bwd_ref(w, B, W, dP, U=U,
                                                        need_dW=need[2])
         else:
+            LAUNCH_COUNTS.inc("bwd")
             dw, dB, dW = _k2(w, B, W, dP, U, need[2])
             dw = dw.to(w.dtype)
         return (dw if need[0] else None, dB if need[1] else None,
@@ -267,6 +293,8 @@ class _BlendExpandBetween(torch.autograd.Function):
         ctx.plain = plain
         w, B, W, R = (x.detach() for x in (w, B, W, R))
         dt = W.dtype
+        if not plain:
+            LAUNCH_COUNTS.inc("fwd")
         U = (ref.ligo_expand_ref(B, W) if plain
              else _k1_expand(B, W)).to(dt)
         UR = (U.reshape(-1, U.shape[-1]) @ R.to(dt).T).reshape(
@@ -286,6 +314,7 @@ class _BlendExpandBetween(torch.autograd.Function):
         if ctx.plain:
             dw, Q = ref.ligo_blend_bwd_ref(w, dP, UR)
         else:
+            LAUNCH_COUNTS.inc("bwd")
             dw, Q = _k2_blend(w, dP, UR)
         Rd = R.to(Q.dtype)
         dR = (Q.reshape(-1, Q.shape[-1]).T @ U.reshape(-1, U.shape[-1])
@@ -325,6 +354,53 @@ def ligo_blend_expand_grouped_vjp(w: torch.Tensor, B: torch.Tensor,
                                      _keeps_u(w, B, W))
 
 
+def ligo_blend_expand(w: torch.Tensor, B: torch.Tensor,
+                      W: torch.Tensor) -> torch.Tensor:
+    """``P[l2] = B @ (Σ_l w[l2, l] W[l])``, one leaf: K1 with G = E = 1.
+
+    w: (L2, L1); B: (I, A); W: (L1, A, Bd) → (L2, I, Bd). Kernel K1 on CUDA
+    tensors, its plain version on CPU tensors.
+    """
+    return ligo_blend_expand_grouped(w[None], B, W[None, :, None])[0, :, 0]
+
+
+def ligo_grow(w: torch.Tensor, B: torch.Tensor, A: torch.Tensor,
+              W: torch.Tensor) -> torch.Tensor:
+    """The full growth ``Ω[l2] = B (Σ_l w[l2, l] W_l) Aᵀ`` of one leaf:
+    the depth blend and left expansion in K1, the right expansion by A
+    (j, Bd) a plain product on K1's output, as the JAX package leaves it to
+    XLA. → (L2, I, j)."""
+    P = ligo_blend_expand(w, B, W)
+    dt = torch.promote_types(P.dtype, A.dtype)
+    return P.to(dt) @ A.to(dt).T
+
+
+def ligo_blend_expand_vjp(w: torch.Tensor, B: torch.Tensor, W: torch.Tensor,
+                          *, use_kernel: Optional[bool] = None
+                          ) -> torch.Tensor:
+    """Differentiable :func:`ligo_blend_expand`: the single-leaf form of
+    :func:`ligo_blend_expand_grouped_vjp` (G = E = 1), so its forward is
+    K1 and its backward K2 on the kernel route. ``use_kernel`` as there."""
+    return ligo_blend_expand_grouped_vjp(w[None], B, W[None, :, None],
+                                         use_kernel=use_kernel)[0, :, 0]
+
+
+def ligo_blend_expand_bwd_fused(w: torch.Tensor, B: torch.Tensor,
+                                W: torch.Tensor, dP: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """All three cotangents of :func:`ligo_blend_expand_grouped` in one
+    call: w (G, L2, L1), B (I, A), W (G, L1, E, A, Bd), dP (G, L2, E, I, Bd)
+    → (dw, dB, dW) in the dtypes of (w, B, W), the JAX package's order.
+    Kernel K2 on CUDA tensors (it computes U = B W itself), its plain
+    version on CPU tensors."""
+    if not W.is_cuda:
+        return ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+    LAUNCH_COUNTS.inc("bwd")
+    dw, dB, dW = _k2(w, B, W, dP.contiguous(), None, True)
+    return dw.to(w.dtype), dB, dW
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     use_kernel: Optional[bool] = None) -> torch.Tensor:
@@ -350,3 +426,11 @@ def reset_launch_counts() -> None:
     ligo_expand.LAUNCHES = 0
     ligo_expand_bwd.LAUNCHES = 0
     _flash.LAUNCHES = 0
+
+
+# the plain versions under the JAX package's names
+ligo_blend_expand_ref = ref.ligo_blend_expand_ref
+ligo_blend_expand_grouped_ref = ref.ligo_blend_expand_grouped_ref
+ligo_blend_expand_bwd_ref = ref.ligo_blend_expand_bwd_ref
+ligo_grow_ref = ref.ligo_grow_ref
+flash_attention_ref = ref.flash_attention_ref

@@ -47,11 +47,42 @@ def ligo_blend_expand_grouped_ref(w: torch.Tensor, B: torch.Tensor,
     return (P, ligo_expand_ref(B, W)) if keep_u else P
 
 
+def ligo_blend_expand_ref(w: torch.Tensor, B: torch.Tensor,
+                          W: torch.Tensor) -> torch.Tensor:
+    """One leaf: P[l2] = B @ (Σ_l w[l2, l] W[l]). w: (L2, L1); B: (I, A);
+    W: (L1, A, Bd) → (L2, I, Bd) — the grouped oracle at G = E = 1."""
+    return ligo_blend_expand_grouped_ref(w[None], B, W[None, :, None])[0, :, 0]
+
+
+def ligo_grow_ref(w: torch.Tensor, B: torch.Tensor, A: torch.Tensor,
+                  W: torch.Tensor) -> torch.Tensor:
+    """The full growth of one leaf, Ω[l2] = B (Σ_l w[l2, l] W_l) Aᵀ: the
+    oracle of ``ops.ligo_grow``. A: (j, Bd) → (L2, I, j)."""
+    P = ligo_blend_expand_ref(w, B, W)
+    dt = torch.promote_types(P.dtype, A.dtype)
+    return P.to(dt) @ A.to(dt).T
+
+
+def _dw(dP: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """dw[g, k, l] = Σ_{e,i,b} dP[g,k,e,i,b] U[g,l,e,i,b]: for each group,
+    one batched product over its E·I rows ((L2, Bd) @ (Bd, L1) a row, on
+    strided views of dP and U), summed over the rows. Folding e·i·b into
+    one contraction instead hands cuBLAS a product of only L2·L1 outputs
+    with a K of E·I·Bd, up to ~5e8 at the widest expert groups, which it
+    runs on a handful of blocks."""
+    G, L2, E, I, Bd = dP.shape
+    L1 = U.shape[1]
+    return torch.stack([
+        torch.bmm(dP[g].reshape(L2, E * I, Bd).transpose(0, 1),
+                  U[g].reshape(L1, E * I, Bd).permute(1, 2, 0)).sum(0)
+        for g in range(G)])
+
+
 def _blend_bwd(w, dP, U):
     """(dw in w's dtype, Q = wᵀ·dP in the accumulation dtype)."""
     acc = _acc(dP.dtype)
     dP_ = dP.to(acc)
-    dw = torch.einsum("gkeib,gleib->gkl", dP_, U.to(acc)).to(w.dtype)
+    dw = _dw(dP_, U.to(acc)).to(w.dtype)
     return dw, torch.einsum("gkl,gkeib->gleib", w.to(acc), dP_)
 
 

@@ -19,6 +19,7 @@
 Tolerance: the JAX kernel test's, elementwise ``rtol = atol`` = 2e-5 in
 float32 and 2e-2 in bfloat16 (the output is rounded to bf16 on both sides).
 """
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -29,11 +30,13 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops                        # noqa: E402
 from repro.kernels import ref as jref                        # noqa: E402
-from repro_torch.kernels import flash_attention as tflash    # noqa: E402
 from repro_torch.kernels import ops, ref                     # noqa: E402
 from repro_torch.models import layers as tl                  # noqa: E402
 from repro_torch.models import model as tm                   # noqa: E402
 from torch_parity import TINY2                               # noqa: E402
+
+# K3's wrapper module (the package's ``flash_attention`` is the function)
+tflash = importlib.import_module("repro_torch.kernels.flash_attention")
 
 # (B, H, KV, T, S, dh, causal, window) — the JAX test's FLASH_CASES
 FLASH_CASES = [

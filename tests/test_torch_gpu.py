@@ -43,17 +43,27 @@ VLM families: K3 at hubert-xlarge's encode shapes (bidirectional, d_head
 64); ``apply_mrope`` on the card against the CPU at qwen2-vl's head
 shape, three distinct position streams (float32 <= 1e-6, bf16 within one
 bf16 ulp); and hubert's encode at full width on the K3 route against the
-plain attention route.
+plain attention route. The JAX package's public kernel wrappers
+(``repro_torch.kernels``): ``ligo_blend_expand`` and ``ligo_grow`` launch
+K1 once each, ``ligo_blend_expand_vjp`` K1 forward and K2 backward (its
+gradients against the plain route's), ``ligo_blend_expand_bwd_fused`` K2
+and ``flash_attention`` K3, each against its plain version, counted in
+``launch_counts()`` and in the ``LAUNCH_COUNTS`` registry group.
 """
+import importlib
 import time
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (flash_attention,  # noqa: E402
-                                 ligo_expand, ligo_expand_bwd, ops, ref)
+from repro_torch.kernels import (ligo_expand, ligo_expand_bwd,  # noqa: E402
+                                 ops, ref)
 from repro_torch.models import layers  # noqa: E402
+
+# K3's wrapper module (the package's ``flash_attention`` is the function)
+flash_attention = importlib.import_module(
+    "repro_torch.kernels.flash_attention")
 
 # name, dtype, (G, L2, L1, E, I, A, Bd)
 LIGO_SHAPES = [
@@ -1165,3 +1175,96 @@ def test_hubert_encode_k3_route_matches_plain_route(cuda, dtype, tol):
     assert bool(torch.isfinite(hk).all())
     assert float((hk - hp).abs().max() / hp.abs().max()) <= tol
     assert abs(lk - lp) <= tol * abs(lp)
+
+
+# The JAX package's public kernel wrappers on CUDA tensors, at one gpt2
+# leaf cut in width (L2 8, L1 4, I 256, A 192): kernel against plain
+# version with the K1/K2 tolerances above, and each call's launches, in
+# ``launch_counts()`` and in the ``LAUNCH_COUNTS`` registry group.
+WRAPPER_DIMS = (8, 4, 256, 192)
+
+
+def _wrapper_inputs(cuda, dtype, seed):
+    L2, L1, I, A = WRAPPER_DIMS
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((L2, L1), generator=gen, device=cuda) / L1
+    B, W, R, C = (torch.randn(s, generator=gen, device=cuda).mul(0.05)
+                  .to(getattr(torch, dtype))
+                  for s in ((I, A), (L1, A, A), (I, A), (L2, I, A)))
+    return w, B, W, R, C
+
+
+def _counted(fn):
+    n0, c0 = ops.launch_counts(), dict(ops.LAUNCH_COUNTS)
+    out = fn()
+    torch.cuda.synchronize()
+    n1, c1 = ops.launch_counts(), dict(ops.LAUNCH_COUNTS)
+    return out, ([n1[k] - n0[k] for k in ("ligo_blend_expand_grouped",
+                                           "ligo_blend_expand_bwd_fused",
+                                           "flash_attention")],
+                 [c1.get(k, 0) - c0.get(k, 0) for k in ("fwd", "bwd")])
+
+
+def _norm(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_public_ligo_blend_expand_and_grow_launch_k1(cuda, dtype):
+    import repro_torch.kernels as tk
+    w, B, W, R, _ = _wrapper_inputs(cuda, dtype, 40)
+    P, n = _counted(lambda: tk.ligo_blend_expand(w, B, W))
+    assert n == ([1, 0, 0], [1, 0])
+    assert _norm(P, tk.ligo_blend_expand_ref(w, B, W)) <= TOL[dtype]
+    G, n = _counted(lambda: tk.ligo_grow(w, B, R, W))
+    assert n == ([1, 0, 0], [1, 0])
+    assert G.shape == (WRAPPER_DIMS[0], WRAPPER_DIMS[2], WRAPPER_DIMS[2])
+    assert _norm(G, tk.ligo_grow_ref(w, B, R, W)) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_public_vjp_gradients_launch_k1_and_k2(cuda):
+    """``ligo_blend_expand_vjp``: one K1 launch forward, one K2 launch
+    backward, its (P, dw, dB, dW) against the plain route's; dw's error
+    bounded by the size of its terms, as K2's checks above bound it."""
+    import repro_torch.kernels as tk
+    w, B, W, _, C = _wrapper_inputs(cuda, "bfloat16", 41)
+
+    def run(use_kernel):
+        xs = [x.clone().requires_grad_() for x in (w, B, W)]
+        P = tk.ligo_blend_expand_vjp(*xs, use_kernel=use_kernel)
+        P.backward(C)
+        return [P.detach()] + [x.grad for x in xs]
+    got, n = _counted(lambda: run(None))
+    want, n_plain = _counted(lambda: run(False))
+    assert n == ([1, 1, 0], [1, 1]) and n_plain == ([0, 0, 0], [0, 0])
+    for g, p in ((got[0], want[0]), (got[2], want[2]), (got[3], want[3])):
+        assert _norm(g, p) <= TOL["bfloat16"]
+    U = ref.ligo_expand_ref(B, W[None, :, None])
+    terms = torch.einsum("gkeib,gleib->gkl", C[None, :, None].float().abs(),
+                         U.abs())[0]
+    assert float(((got[1] - want[1]).abs() / terms).max()) <= TOL["bfloat16"]
+
+
+@pytest.mark.gpu
+def test_public_bwd_fused_and_flash_attention_launch_k2_and_k3(cuda):
+    import repro_torch.kernels as tk
+    w, B, W, _, C = _wrapper_inputs(cuda, "bfloat16", 42)
+    args = (w[None], B, W[None, :, None], C[None, :, None])
+    got, n = _counted(lambda: tk.ligo_blend_expand_bwd_fused(*args))
+    assert n == ([0, 1, 0], [0, 1])
+    want = tk.ligo_blend_expand_bwd_ref(*args)
+    assert [g.dtype for g in got] == [x.dtype for x in args[:3]]
+    for g, p in zip(got[1:], want[1:]):
+        assert _norm(g, p) <= TOL["bfloat16"]
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+               for s in ((2, 8, 256, 128), (2, 2, 256, 128),
+                         (2, 2, 256, 128)))
+    o, n = _counted(lambda: tk.flash_attention(q, k, v))
+    assert n == ([0, 0, 1], [0, 0])
+    p = tk.flash_attention_ref(q, k, v)
+    assert bool(((o.float() - p.float()).abs()
+                 <= 2e-2 + 2e-2 * p.float().abs()).all())

@@ -45,7 +45,8 @@ def test_scan_covers_the_port():
                 ("obs", "export.py"), ("obs", "prom.py"),
                 ("obs", "timeline.py"), ("launch", "_obs.py"),
                 ("trajectory", "runner.py"), ("distributed", "supervisor.py"),
-                ("examples", "quickstart.py"), ("core", "grow_cache.py"),
+                ("examples", "quickstart.py"), ("examples", "serve_decode.py"),
+                ("core", "grow_cache.py"),
                 ("serving", "admission.py"), ("serving", "kv_pages.py"),
                 ("serving", "speculative.py"), ("serving", "engine.py"),
                 ("serving", "hotswap.py"), ("serving", "__init__.py"),
@@ -70,6 +71,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.optim, repro_torch.bridge, repro_torch.checkpoint, "
             "repro_torch.obs.costs, repro_torch.trajectory, "
             "repro_torch.distributed, repro_torch.examples.quickstart, "
+            "repro_torch.examples.serve_decode, repro_torch.kernels, "
             "repro_torch.serving, repro_torch.core.grow_cache, "
             "repro_torch.autogrow, repro_torch.data, repro_torch.configs, "
             "repro_torch.kernels._build as b; "
@@ -86,16 +88,14 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
 # Names of a JAX package's ``__all__`` that its port leaves out, each with
 # the ROADMAP item that rules it out of this port or schedules it.
 MESH = "ROADMAP 1.3, the mesh machinery (TPU-pod / multi-chip, out of scope)"
-LAUNCHERS = "ROADMAP 1.3, 'Launchers and benches, last'"
+DRYRUN = ("ROADMAP 1.3, the XLA dry run (launch/dryrun.py is their only "
+          "user; out of scope)")
 S1 = "ROADMAP 2, speed item S1 (the compiled LiGO step)"
-KERNEL_API = ("ROADMAP 2: the port's kernel surface is K1/K2/K3 as custom "
-              "ops with launch_counts(); the JAX single-leaf wrappers, the "
-              "TPU VMEM helpers and the interpret-mode references are not "
-              "on any path")
+TPU_VMEM = "ROADMAP 1.3, TPU VMEM sizing of the Pallas kernels (no Hopper use)"
 OUT_OF_SCOPE = {
     "autogrow": {},
     "checkpoint": {},
-    "configs": {n: LAUNCHERS for n in (
+    "configs": {n: DRYRUN for n in (
         "ALL_SHAPES", "Cell", "DECODE_32K", "LONG_500K", "PREFILL_32K",
         "SHAPES", "ShapeConfig", "TRAIN_4K", "cell_status",
         "enumerate_cells")},
@@ -104,13 +104,8 @@ OUT_OF_SCOPE = {
     "distributed": {n: MESH for n in (
         "P", "batch_specs", "divisible_axes", "maybe_shard",
         "named_shardings", "params_pspecs", "physical_spec")},
-    "kernels": {n: KERNEL_API for n in (
-        "LAUNCH_COUNTS", "flash_attention", "flash_attention_ref",
-        "fused_eligible", "fused_vmem_bytes", "ligo_blend_expand",
-        "ligo_blend_expand_bwd_fused", "ligo_blend_expand_bwd_ref",
-        "ligo_blend_expand_grouped_ref", "ligo_blend_expand_ref",
-        "ligo_blend_expand_vjp", "ligo_grow", "ligo_grow_ref")}
-    | {"ligo_blend_expand_grouped_sharded": MESH},
+    "kernels": {"fused_eligible": TPU_VMEM, "fused_vmem_bytes": TPU_VMEM,
+                "ligo_blend_expand_grouped_sharded": MESH},
     "models": {},
     "obs": {},
     "optim": {"compression": MESH},
