@@ -36,11 +36,9 @@ stream. It first waits for the engine stream's queued work, then waits
 for its own work to finish before it publishes the grown tree, and marks
 every grown tensor as used on the engine's stream (``record_stream``), so
 that the caching allocator cannot hand the memory back to the side stream
-while decode still reads it. :meth:`HopController.warm` builds and loads
-the kernels in the engine thread, then runs one grow on the same side
-stream where the live grow runs, in a thread of its own for a background
-hop, and seeds the watchdog with its wall. The real hop reuses the side
-stream's cached blocks.
+while decode still reads it. :meth:`HopController.warm` runs one grow on
+the same side stream in the engine thread: the kernels build and load
+there, and the real hop reuses the side stream's cached blocks.
 """
 from __future__ import annotations
 
@@ -271,38 +269,18 @@ class HopController:
         return self._grow_once()
 
     def warm(self) -> float:
-        """Run one grow at engine start (off the hop path, chaos-free,
-        result discarded) and seed the watchdog with its wall time, so the
-        first *live* hop is judged against a measured budget. The grow runs
-        where the live one will: for a background hop in a thread of its
-        own, on the side stream (the engine thread waits for it), for a
-        synchronous hop in the engine thread. A background warm timed in
-        the engine thread measured the cheapest grow there is: it left the
-        budget at its 0.05 s floor while a live grow beside decode ran
-        several times as long. On the card the kernels are built and loaded
-        first, in the engine thread, and the grow's blocks stay cached on
-        the side stream."""
+        """Run one synchronous grow at engine start (off the hop path,
+        chaos-free, result discarded) and seed the watchdog with its wall
+        time, so the first *live* hop is judged against a measured budget.
+        On the card it builds and loads the kernels here, in the engine
+        thread, and leaves the grow's blocks cached on the side stream."""
         self._build_kernels()
-        errs: List[BaseException] = []
-
-        def grow():                    # the grown tree is discarded
-            try:
-                self._grow_once()
-            except Exception as e:                     # noqa: BLE001
-                errs.append(e)         # raised again in the engine thread
         t0 = time.perf_counter()
         with obs.span("hop.warm", src=self.engine.cfg.name,
                       dst=self.cfg2.name) as sp:
-            if self.background:
-                th = threading.Thread(target=grow, daemon=True,
-                                      name="hop-warm")
-                th.start()
-                th.join()
-                if errs:
-                    raise errs[0]
-            else:
-                self._grow_once()
+            buf = self._grow_once()
         dt = time.perf_counter() - t0
+        del buf
         self.timings["warm"] = sp.dur_ms
         self.watchdog.seed(dt)
         print(f"[hop] warmed grow path in {dt * 1e3:.1f} ms "

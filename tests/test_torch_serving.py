@@ -329,36 +329,6 @@ def test_background_grow_completes_between_decode_steps(tparams):
     assert hop.swap_at_step >= hop.begin_at_step
 
 
-@pytest.mark.parametrize("background", [True, False])
-def test_warm_grows_where_the_live_hop_grows(tparams, monkeypatch,
-                                             background):
-    """``warm()`` times its grow in the thread the live grow will run in:
-    a thread of its own for a background hop (where the interpreter lock
-    and the thread's own start are part of a live grow's wall), the engine
-    thread for a synchronous one; the watchdog is seeded with that wall,
-    and an error in the warm grow reaches the caller."""
-    import threading
-    eng, _ = _port_engine(tparams, TINY)
-    hop = HopController(eng, WIDE, lemon_operator(TINY, WIDE, device="cpu"),
-                        background=background)
-    grow_once, threads = hop._grow_once, []
-
-    def recording():
-        threads.append(threading.current_thread().name)
-        return grow_once()
-    monkeypatch.setattr(hop, "_grow_once", recording)
-    dt = hop.warm()
-    assert threads == (["hop-warm"] if background
-                       else [threading.current_thread().name])
-    assert hop.watchdog.floor == hop.watchdog.ewma == dt > 0
-
-    def failing():
-        raise RuntimeError("warm grow failed")
-    monkeypatch.setattr(hop, "_grow_once", failing)
-    with pytest.raises(RuntimeError, match="warm grow failed"):
-        hop.warm()
-
-
 def test_watchdog_budget_matches_reference():
     ours, theirs = (HopWatchdog(timeout=100.0, mult=5.0),
                     JaxWatchdog(timeout=100.0, mult=5.0))

@@ -8,9 +8,10 @@ test_kernel_route_hop_spans_and_profile_name_k1_and_k3`` ``--reps`` times
 under the profiler (``obs.profile``) and as many times without it: a
 2-layer gpt2 engine (3 slots, 9 requests, paged) hops to a 4-layer,
 384-wide model with a background grow begun at decode step 3, after
-``HopController.warm`` (its grow in a thread of its own) and, for a
-comparison, after a warm grow in the engine thread, as ``warm`` ran it
-before. Each run prints warm's wall, the budget it seeded,
+``HopController.warm`` (its grow in the engine thread) and, for a
+comparison, after a warm grow in a thread of its own that the engine
+thread waits for, as the live grow runs in a thread of its own. Each run
+prints warm's wall, the budget it seeded,
 the grow span's wall in the grow thread (``hop.grow``), the wall from the
 launch to the poll that found the grow done (what the watchdog judges),
 the attempts, any ``hop.watchdog_fire`` event, and the engine's step walls
@@ -66,17 +67,19 @@ def main() -> int:
                           device=dev)
     print(f"[probe] sys.getswitchinterval() {sys.getswitchinterval()} s")
 
-    def warm_in_engine_thread(hop):
-        """``HopController.warm`` as it ran before its grow moved into a
-        thread of its own: the grow in the engine thread."""
+    def warm_in_own_thread(hop):
+        """``HopController.warm`` with its grow in a fresh thread that the
+        engine thread joins, where a background hop's live grow runs."""
         hop._build_kernels()
         t0 = time.perf_counter()
-        hop._grow_once()
+        th = threading.Thread(target=hop._grow_once, name="hop-warm")
+        th.start()
+        th.join()
         dt = time.perf_counter() - t0
         hop.watchdog.seed(dt)
         return dt
 
-    def scenario(profiled: bool, old_warm: bool, *, tmp: str):
+    def scenario(profiled: bool, in_engine: bool, *, tmp: str):
         obs.set_enabled(True)
         obs.FLIGHT.clear()
         eng = ServingEngine(params, cfg, slots=3, prompt_budget=32,
@@ -86,7 +89,7 @@ def main() -> int:
         walls, found = [], {}
         with obs.profile(tmp if profiled else None, device=dev):
             hop = HopController(eng, cfg2, op, background=True)
-            warm_s = warm_in_engine_thread(hop) if old_warm else hop.warm()
+            warm_s = hop.warm() if in_engine else warm_in_own_thread(hop)
             budget = hop.watchdog.budget()
             last = [time.perf_counter()]
             observe = hop.watchdog.observe
@@ -114,7 +117,7 @@ def main() -> int:
         fires = [e["attrs"] for e in obs.FLIGHT.events(type="event")
                  if e["name"] == "hop.watchdog_fire"]
         print(f"[probe] {'profiled' if profiled else 'plain   '}, warm in "
-              f"{'the engine thread' if old_warm else 'its own thread'}: warm "
+              f"{'the engine thread' if in_engine else 'its own thread'}: warm "
               f"{warm_s * 1e3:.2f} ms, budget {budget:.3f} s | attempts "
               f"{hop.attempts}, completed {hop.completed} | hop.grow spans "
               f"(attempt, thread, ms) {grows} | launch-to-found "
@@ -130,10 +133,10 @@ def main() -> int:
         for i in range(args.reps):
             for m in modes:
                 results[m].append(scenario(*m, tmp=tmp))
-        for (profiled, old_warm), rs in results.items():
+        for (profiled, in_engine), rs in results.items():
             first = [g[0][2] for _, g, _ in rs if g]
             print(f"[probe] {'profiled' if profiled else 'plain'}, warm in "
-                  f"{'the engine thread' if old_warm else 'its own thread'}"
+                  f"{'the engine thread' if in_engine else 'its own thread'}"
                   f": warm ms "
                   f"median {statistics.median(r[0] for r in rs) * 1e3:.2f}; "
                   f"first grow span ms {[round(x, 2) for x in first]}; runs "
