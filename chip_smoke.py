@@ -26,11 +26,13 @@ sources are not beside it. Phases, each fatal on failure:
    the float32 ones the FMA GEMM; and
    K3 (flash attention: the gpt2-medium and llama3-8b prefills, a sliding
    window, bert-large's bidirectional shape, ragged bf16 and float32 shapes,
-   unaligned bf16 rows, the vision evals at T = 197 (deit at dh 64,
-   cait at dh 48), and zamba2's exact-length engine prefills at B = 1, T
-   = 1, 37 and 509, d_head 80 and 120, with SDPA's time; routes checked: bf16 at dh 64 and 128 with
-   aligned rows on the TMA + wgmma kernel, whose V^T pass and kernel are
-   also timed apart under the profiler, the rest on the FMA kernel);
+   unaligned bf16 rows (at dh 64, 48 and 80), the vision evals at T = 197
+   (deit at dh 64, cait at dh 48), and zamba2's exact-length engine
+   prefills at B = 1, T = 1, 37 and 509, d_head 80 and 120, with SDPA's
+   time; routes checked: bf16 with aligned rows at every dh up to 128 on
+   the TMA + wgmma kernel (dh padded to its 64- or 128-wide tile), whose
+   V^T pass and kernel are also timed apart under the profiler, float32
+   and unaligned rows on the FMA kernel);
 3. drive the serving path at full width through its entry point —
    gpt2-base initialised on the card, hot-grown to gpt2-medium, 8 prompts of
    128 tokens prefilled and 31 tokens decoded greedily — with the launch
@@ -202,7 +204,9 @@ sources are not beside it. Phases, each fatal on failure:
    printed; K1 and K2 against their plain versions at every group shape of
    that step (the seg groups, the gates' Bd 8); (c) ``serve --arch
    zamba2-2.7b`` at all 54 layers (4 x 2048): 9 K3 launches at d_head 80,
-   the prefill against the plain attention route; ``--grow-to 2x`` to 108
+   the prefill against the plain attention route, one warm prefill
+   profiled (all 9 launches routed to the tensor-core kernel; the trace
+   names it and its V^T pass, never the FMA kernel); ``--grow-to 2x`` to 108
    layers x 3840 (K1 once per plan group, the tree against the plain
    route, 2 x 1024 prompts through K3 at d_head 120); one LiGO step from a
    6-layer cut (one shared-attention group) to 12 layers x 3840 through K1
@@ -234,7 +238,8 @@ sources are not beside it. Phases, each fatal on failure:
    hubert-xlarge (48 x 1280, 16 heads of 80, bidirectional) grown from its
    half model (24 x 640) by 2 LiGO steps on target-width batches of 8 x
    512 frames, 15 % masked, then ``grow()`` with the AdamW moments and an
-   autograd-free encode (K3 once a layer, the FMA kernel at d_head 80) and
+   autograd-free encode (K3 once a layer, the tensor cores at d_head 80;
+   one warm encode profiled as 14 (c)'s prefill, 48 launches) and
    its MLM loss at the masked frames; the same on the bf16 and float32
    plain routes, the kernel route held against them as phase 8 holds the
    vision pairs; K1, K2 and K3 launches as the plan and the layers
@@ -318,12 +323,15 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 K3_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # name, dtype, (B, H, KV, T, S, dh, causal, window[, pad]): q, k and v are
 # made in the model's (B, T, heads, dh) layout, with `pad` more elements in
-# each row of the storage (default 0). bf16 at dh 64 and 128 with 16-byte
-# aligned rows takes the tensor cores (flash_fwd_wgmma), the rest the FMA
-# kernel. "bf16 ragged" puts T off the 128-row tile and T != S; "bf16 ragged
-# window" puts S off a multiple of 8 (the V^T pad and TMA's zero fill past
-# S); "bf16 unaligned rows" has 136-byte rows, so the FMA kernel;
-# "quickstart eval" is the quickstart's evaluation of its grown model.
+# each row of the storage (default 0). bf16 with 16-byte aligned rows takes
+# the tensor cores (flash_fwd_wgmma) at every dh up to 128, padded to the
+# kernel's 64- or 128-wide tile; float32 and unaligned rows take the FMA
+# kernel. "bf16 ragged" puts T off the 128-row tile and T != S; "bf16
+# ragged window" puts S off a multiple of 8 (the V^T pad and TMA's zero
+# fill past S); "bf16 unaligned rows" has 136-byte rows, so the FMA kernel,
+# as have the two unaligned rows at dh 48 and 80 (the FMA kernel's bf16
+# bodies at 16 and 32 columns a thread); "quickstart eval" is the
+# quickstart's evaluation of its grown model.
 K3_SHAPES = [
     ("gpt2-medium prefill", "bfloat16", (8, 16, 16, 128, 128, 64, True, 0)),
     ("llama3-8b prefill", "bfloat16", (4, 32, 8, 2048, 2048, 128, True, 0)),
@@ -335,10 +343,12 @@ K3_SHAPES = [
     ("bf16 ragged", "bfloat16", (2, 6, 2, 200, 328, 128, True, 0)),
     ("bf16 ragged window", "bfloat16", (2, 6, 2, 77, 333, 64, True, 100)),
     ("bf16 unaligned rows", "bfloat16", (2, 6, 2, 200, 328, 64, True, 0, 4)),
+    ("bf16 unaligned dh48", "bfloat16", (2, 6, 2, 200, 328, 48, True, 0, 4)),
+    ("bf16 unaligned dh80", "bfloat16", (2, 6, 2, 200, 328, 80, False, 0, 4)),
     ("quickstart eval", "float32", (32, 8, 8, 64, 64, 16, True, 0)),
     # phase 8's eval forwards, bidirectional over the cls token and 196
     # patches (T = 197, off the 128-row tile): deit-b (its main path) and
-    # deit-s at dh 64 on the tensor cores, cait-s at dh 48 on the FMA kernel
+    # deit-s at dh 64 and cait-s at dh 48 (padded to 64), on the tensor cores
     ("deit-b eval", "bfloat16", (32, 12, 12, 197, 197, 64, False, 0)),
     ("deit-s", "bfloat16", (32, 6, 6, 197, 197, 64, False, 0)),
     ("cait-s eval", "bfloat16", (32, 8, 8, 197, 197, 48, False, 0)),
@@ -365,14 +375,14 @@ K3_SHAPES = [
      (1, 32, 8, 4608, 4608, 128, True, 4096)),
     ("qwen3-moe prefill", "bfloat16", (4, 32, 4, 2048, 2048, 128, True, 0)),
     # phase 14: zamba2-2.7b's shared attention block at d_head 80 (4 x 2048,
-    # all 54 layers) and, grown 2x, at d_head 120 (2 x 1024): bf16 off the
-    # tensor-core kernel's dh 64 and 128, so the FMA kernel
+    # all 54 layers) and, grown 2x, at d_head 120 (2 x 1024): the tensor
+    # cores, dh padded to the 128-wide tile
     ("zamba2 prefill", "bfloat16", (4, 32, 32, 2048, 2048, 80, True, 0)),
     ("zamba2-grown prefill", "bfloat16",
      (2, 32, 32, 1024, 1024, 120, True, 0)),
     # phase 15: the engine prefills a recurrent family's prompt (and
     # re-prefills its history) at its exact length, B = 1: T off the
-    # kernel's tiles, at zamba2's d_head 80 and, grown, 120
+    # kernel's tiles, at zamba2's d_head 80 and, grown, 120 (tensor cores)
     ("zamba2 engine T=1", "bfloat16", (1, 32, 32, 1, 1, 80, True, 0)),
     ("zamba2 engine T=37", "bfloat16", (1, 32, 32, 37, 37, 80, True, 0)),
     ("zamba2 engine T=509", "bfloat16", (1, 32, 32, 509, 509, 80, True, 0)),
@@ -383,9 +393,9 @@ K3_SHAPES = [
     ("zamba2-grown engine T=509", "bfloat16",
      (1, 32, 32, 509, 509, 120, True, 0)),
     # phase 16: hubert-xlarge's autograd-free encode of 8 x 512 frames
-    # (bidirectional, d_head 80) and its half model's (d_head 40), both on
-    # the FMA kernel; qwen2-vl-72b's 4 x 2048 prefills (64 query heads over
-    # 8, d_head 128) and its half model's (d_head 64), on the tensor cores
+    # (bidirectional, d_head 80) and its half model's (d_head 40, padded to
+    # 64); qwen2-vl-72b's 4 x 2048 prefills (64 query heads over 8, d_head
+    # 128) and its half model's (d_head 64); all on the tensor cores
     ("hubert encode", "bfloat16", (8, 16, 16, 512, 512, 80, False, 0)),
     ("hubert-half encode", "bfloat16", (8, 16, 16, 512, 512, 40, False, 0)),
     ("qwen2-vl prefill", "bfloat16", (4, 64, 8, 2048, 2048, 128, True, 0)),
@@ -916,7 +926,8 @@ def _k3_device_ms(torch, fn, reps=3):
             ms["transpose"] += e.self_device_time_total / 1e3 / reps
         elif "flash_fwd_wgmma" in e.key:
             ms["kernel"] += e.self_device_time_total / 1e3 / reps
-    return ms
+    # late in this script the profiler may hold no record of a short window
+    return ms if ms["kernel"] > 0 else {}
 
 
 def _check_k3(torch, name, dtype, B, H, KV, T, S, dh, causal, window, pad=0,
@@ -988,7 +999,8 @@ def _check_k3(torch, name, dtype, B, H, KV, T, S, dh, causal, window, pad=0,
     split = _k3_device_ms(torch, kernel) if tc else {}
     row.update({f"{key}_ms": val for key, val in split.items()})
     parts = (f" (V^T pass {split['transpose']:.4f}, kernel "
-             f"{split['kernel']:.4f} ms on the device)" if tc else "")
+             f"{split['kernel']:.4f} ms on the device)" if split
+             else " (device split: no record in the trace)" if tc else "")
     print(f"[k3] {name:>20} {dtype:>8} B={B} H={H} KV={KV} T={T} S={S} "
           f"dh={dh} causal={causal} window={window} pad={pad} "
           f"({'wgmma' if tc else 'fma'}): max abs err "
@@ -1348,6 +1360,58 @@ def _check_k3_launches(label, ev, n):
     if got != want:
         raise AssertionError(f"{label}: K3 launches {got}, want {want} "
                              f"(every layer on the tensor-core kernel)")
+
+
+def _k3_profile(torch, label, fn, n):
+    """``fn`` once warm, then once more with every K3 route decision
+    recorded (the wrapper's ``uses_tensor_cores``, which picks the kernel
+    each launch runs) under the profiler, recording the device's kernels
+    only (a deep model's host ops make a full trace take tens of seconds to
+    read). All ``n`` launches must be routed to the tensor cores, and the
+    trace must name the tensor-core kernel and its V^T pass as often as
+    each other and the FMA kernel never. The trace's count is printed
+    beside ``n``, not held to it: late in this script the profiler lost
+    one of hubert-xlarge's 48 tensor-core launches and its V^T pass in
+    three runs, while the counters saw 48 and the same code traced 48 of 48
+    in a fresh process (this script and a one-off run on an NVIDIA H100
+    80GB HBM3, 700 W)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flash_attention = importlib.import_module(
+        "repro_torch.kernels.flash_attention")
+    route = flash_attention.uses_tensor_cores
+    fn()
+    torch.cuda.synchronize()
+    decided = []
+
+    def recorded(q, k, v):
+        decided.append(route(q, k, v))
+        return decided[-1]
+    flash_attention.uses_tensor_cores = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        flash_attention.uses_tensor_cores = route
+    got = {"flash_fwd_wgmma": 0, "k3_vt_transpose_kernel": 0,
+           "flash_fwd_simt": 0}
+    for e in prof.key_averages():
+        for name in got:
+            if e.device_type == DeviceType.CUDA and name in e.key:
+                got[name] += e.count
+    print(f"[profile] {label}: wall {wall:.1f} ms, kernels only; K3 "
+          f"launches routed to the tensor cores {sum(decided)} of "
+          f"{len(decided)}, want {n} of {n}; traced by kernel {got}",
+          flush=True)
+    if (decided != [True] * n or got["flash_fwd_simt"]
+            or not got["flash_fwd_wgmma"]
+            or got["flash_fwd_wgmma"] != got["k3_vt_transpose_kernel"]):
+        raise AssertionError(f"{label}: K3 routes {decided}, traced {got}, "
+                             f"want {n} launches on the tensor-core kernel "
+                             f"and its V^T pass, none on the FMA kernel")
 
 
 def _profile_steps(torch, tres):
@@ -1727,8 +1791,8 @@ def _trajectory_phase(torch, tmp, shapes):
 
 # Phase 8: the paper's vision pairs through the train path's pieces at
 # full width: (source, target, batch, source AdamW steps, LiGO steps,
-# target AdamW steps). CaiT takes K3's FMA route (dh 48) at a reduced step
-# count.
+# target AdamW steps). CaiT (K3 at dh 48, padded to the tensor-core
+# kernel's 64-wide tile) runs at a reduced step count.
 VISION = [("deit-s", "deit-b", 32, 3, 4, 3), ("cait-xs", "cait-s", 32, 2, 2, 2)]
 # kernel route against the plain route: a value of the bf16 kernel route
 # may lie no farther from the float32 plain route than twice the bf16 plain
@@ -1849,12 +1913,14 @@ def _vision_flops(torch, c1, c2, batch, operator, small, seq=0):
 
 
 def _pair_routes(torch, c1, c2, batch, steps, lsteps, tsteps, seq=0,
-                 tag="vision"):
+                 tag="vision", profile_eval=False):
     """One pair through the train path's pieces on the kernel route
     (launches counted from 0 just before and read just after), the bf16
     plain route and the float32 plain route: the kernel route held against
-    the plain routes, the LiGO step's FLOPs on both routes. Returns the
-    kernel route's launches and the report's numbers."""
+    the plain routes, the LiGO step's FLOPs on both routes. With
+    ``profile_eval``, one warm eval forward of the grown model on the
+    kernel route is profiled: every layer's K3 on the tensor-core kernel.
+    Returns the kernel route's launches and the report's numbers."""
     from repro_torch.kernels import ops
     a, b = c1.name, c2.name
     t0 = time.perf_counter()
@@ -1877,6 +1943,14 @@ def _pair_routes(torch, c1, c2, batch, steps, lsteps, tsteps, seq=0,
                              f"(K1 and K2 on every LiGO step's groups and "
                              f"K1 on the grow of the params and both "
                              f"moments; K3 once a layer of the eval)")
+    if profile_eval:
+        from repro_torch.models.losses import loss_fn
+        eval_b = next(_vision_batches(torch, c2, batch, 300, 1, False, seq))
+        with torch.no_grad():
+            _k3_profile(torch, f"{b} eval forward",
+                        lambda: loss_fn(res["grown"], c2, eval_b),
+                        c2.n_layers)
+        del eval_b
     plain, ref32 = (_vision_run(torch, c1, c2, small, opt, batch, lsteps,
                                 tsteps, route, seq)
                     for route in ("plain", "plain32"))
@@ -3919,6 +3993,7 @@ def _zamba(torch, runs, k3):
     from repro_torch.configs import get_config, grow_target
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models.model import prefill
     z = get_config("zamba2-2.7b")
     G = z.n_layers // z.shared_attn_every
     torch.cuda.empty_cache()
@@ -3939,6 +4014,10 @@ def _zamba(torch, runs, k3):
         raise AssertionError(f"(c) launches {res['launches']}, want {want}")
     _check_serve(torch, res, *res["tokens"].shape)
     _prefill_check(torch, res, None, 1e-4, 1e-2)
+    # the main path's K3 at d_head 80: every insertion on the tensor cores
+    with torch.no_grad():
+        _k3_profile(torch, f"{z.name} prefill", lambda: prefill(
+            res["params"], res["cfg"], {"tokens": res["prompts"]}), G)
     del res
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4489,7 +4568,8 @@ def _hubert(torch, runs):
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     runs["audio a"], rep = _pair_routes(torch, c1, c2, batch, steps, lsteps,
-                                        0, seq, tag="audio")
+                                        0, seq, tag="audio",
+                                        profile_eval=True)
     print(f"[audio] (a) encode MLM loss at the masked frames (kernel route) "
           f"{rep['eval']:.4f}; LiGO step FLOPs / 6ND {rep['ratio']:.3f} "
           f"(plain route {rep['plain_ratio']:.3f}); {rep['seconds']:.1f} s; "
@@ -5145,12 +5225,13 @@ def main() -> int:
     k3_rows = [_check_k3(torch, name, dtype, *dims, seed=300 + i)
                for i, (name, dtype, dims) in enumerate(K3_SHAPES)]
     routes = [r["tensor_cores"] for r in k3_rows]
-    want_routes = [r["dtype"] == "bfloat16" and r["dh"] in (64, 128)
-                   and r["pad"] == 0 for r in k3_rows]
+    want_routes = [r["dtype"] == "bfloat16" and r["pad"] == 0
+                   and r["dh"] <= 128 and r["dh"] % 8 == 0 for r in k3_rows]
     if routes != want_routes:
         raise AssertionError(f"K3 routes {routes}, want {want_routes}: bf16 "
-                             f"at dh 64 and 128 with aligned rows takes the "
-                             f"tensor cores, the rest the FMA kernel")
+                             f"with aligned rows takes the tensor cores at "
+                             f"every dh up to 128, float32 and unaligned "
+                             f"rows the FMA kernel")
 
     # -- phase 3: the serving main path at full width ------------------------
     ops.reset_launch_counts()

@@ -24,17 +24,19 @@
 // and S to divide its tiles).
 //
 // Two kernels, chosen by the wrapper (kernels/flash_attention.py):
-//   flash_fwd_wgmma  bf16, dh 64 or 128, 16-byte aligned rows: the tensor
-//                    cores through TMA and wgmma (below);
-//   flash_fwd_simt   any other case (f32, or another dh <= 128): 4 threads per
-//                    query row, f32 FMA, f32 K/V tiles in shared memory.
+//   flash_fwd_wgmma  bf16, dh <= 128 with 16-byte aligned rows (so dh a
+//                    multiple of 8): the tensor cores through TMA and wgmma
+//                    (below), dh padded to the tile width DH, 64 or 128;
+//   flash_fwd_simt   any other case (f32, unaligned or broadcast rows):
+//                    4 threads per query row, f32 FMA, f32 K/V tiles in
+//                    shared memory.
 //
 // flash_fwd_wgmma. One block owns 128 query rows of one (b, h) and has the
 // shape of the GEMM core in ligo_gemm.cuh (kTcThreads): a producer warp and
 // two consumer warpgroups of 64 rows each. The producer loads the Q tile once
 // and keeps a ring of K and V^T tiles filled by TMA, each completed on an
 // mbarrier. Every operand in shared memory is a K-major tile with 128-byte
-// swizzle (64-element boxes: dh 128 takes two), the one layout the GEMM core
+// swizzle (64-element boxes: DH 128 takes two), the one layout the GEMM core
 // has run. Q and K are read through 4-D tensor maps over the model's own
 // strided storage. V is K-major only once transposed: the launcher first
 // writes V^T (B, KV, dh, S_pad) in one pass (k3_vt_transpose_kernel, S_pad
@@ -48,12 +50,23 @@
 //                 for its 16 rows, so a row's max and sum take two shuffles;
 //                 only tiles that straddle the causal diagonal, the window
 //                 edge or S are masked;
-//   O += P V      wgmma.m64n{dh}k16 with P rounded to bf16 in registers as
+//   O += P V      wgmma.m64n{DH}k16 with P rounded to bf16 in registers as
 //                 the A operand (the accumulator layout is the A fragment
 //                 layout) and the V^T tile as B;
 // and the epilogue divides by l and stores through o's strides. The grid
 // runs the heads that share a kv head side by side (L2 reuse of K and V^T)
 // and the longest causal query tiles first.
+//
+// Head widths below the tile. The kernel is built for DH = 64 (dh <= 64)
+// and DH = 128 (64 < dh <= 128); the tensor maps declare the true dh, so
+// TMA fills columns dh..DH-1 of every Q and K box, and rows dh..DH-1 of
+// every V^T box, with zeros. The extra k16 steps of Q K^T then add exact
+// zeros, P V's extra accumulator columns stay 0, the epilogue stores only
+// d < dh and the scale is that of the true dh. Each box still moves its
+// whole byte count, so the transaction counts do not change. The padding
+// costs MMA work in the ratio DH / dh: 1.6x at dh 80 (zamba2-2.7b,
+// hubert-xlarge) and 40 (hubert's half model), 1.33x at 48 (cait), 1.07x
+// at 120 (zamba2 grown 2x).
 //
 // What bounds it. At llama3-8b prefill (B 4, H 32, KV 8, T = S = 2048,
 // dh 128, causal) one call needs 4 B H dh T(T+1)/2 ~ 137 GFLOP against
@@ -62,8 +75,8 @@
 // Each warpgroup runs its two GEMMs and its softmax one after another; only
 // the two warpgroups (and the TMA ring) overlap. Reading V through an
 // MN-major descriptor (no transpose), ping-pong scheduling of the two
-// warpgroups and a softmax overlapped with the next tile's GEMM are the
-// levers left.
+// warpgroups, a softmax overlapped with the next tile's GEMM and, for dh 80,
+// a native 80-wide tile (no padded columns) are the levers left.
 //
 // Plain C interface (built with nvcc into a shared library, loaded by ctypes):
 // the launcher returns cudaGetLastError() (or a tensor-map encode failure,
@@ -103,7 +116,7 @@ __device__ __forceinline__ bool tile_edge(const Params& p, int r0, int r1,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16, dh 64 or 128)
+// Tensor-core kernel (bf16, dh <= 128 padded to DH = 64 or 128)
 // ---------------------------------------------------------------------------
 constexpr int kRows = 128;  // query rows per block: 64 per consumer warpgroup
 constexpr int kBox = 64;    // elements of one 128-byte swizzled box row
@@ -218,7 +231,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // grid = (H, ceil(T / kRows), B); block = kTcThreads; dynamic shared memory
 // Tile<DH>::kSmem. Maps: Q (dh, T, H, B) and K (dh, S, KV, B) with boxes of
-// 64 x {kRows, BK} rows; V^T (S, dh, KV, B) with boxes of 64 keys x dh.
+// 64 x {kRows, BK} rows; V^T (S, dh, KV, B) with boxes of 64 keys x DH, dh
+// the true head width (<= DH): TMA zero-fills what lies past it.
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmQ,
@@ -418,7 +432,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmQ,
   __nv_bfloat16* og = o + b * p.o_b + h * p.o_h;
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
-    const int d = 8 * n + col;
+    const int d = 8 * n + col;  // dh is a multiple of 8: d and d + 1 < dh
+    if (d >= p.dh) continue;    // a padded column
     if (row_a < p.T) {
       *reinterpret_cast<uint32_t*>(og + row_a * p.o_t + d) =
           pack_bf16(acc[4 * n] * inv_a, acc[4 * n + 1] * inv_a);
@@ -430,12 +445,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmQ,
   }
 }
 
-// vt[b][kv][d][s] = v[b][kv][s][d] for s < S, bf16, v read through its
-// strides, vt with row pitch S_pad (>= S + 1 where S is odd: the pair
-// stores reach key S, which gets 0). 64 keys x 64 dims a block through
+// vt[b][kv][d][s] = v[b][kv][s][d] for s < S and d < dh, bf16, v read
+// through its strides, vt with row pitch S_pad (>= S + 1 where S is odd: the
+// pair stores reach key S, which gets 0). 64 keys x 64 dims a block through
 // shared memory, 32 x 8 threads moving pairs of elements: the K-major V^T
 // that the P V product reads (ligo_transpose_kernel with input strides and
-// an output pitch). grid = (ceil(S / 64), dh / 64, B * KV).
+// an output pitch). grid = (ceil(S / 64), ceil(dh / 64), B * KV); a block
+// past dh on the last 64 dims reads and writes only d < dh (dh a multiple
+// of 8, so a pair never straddles it).
 __global__ void __launch_bounds__(256)
 k3_vt_transpose_kernel(const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ vt, int KV, int S, int dh,
@@ -449,13 +466,13 @@ k3_vt_transpose_kernel(const __nv_bfloat16* __restrict__ v,
   for (int i = threadIdx.y; i < 64; i += 8) {
     const int s = s0 + i;
     __nv_bfloat162 x = __floats2bfloat162_rn(0.f, 0.f);
-    if (s < S) {
+    if (s < S && d0 + 2 * tx < dh) {
       x = *reinterpret_cast<const __nv_bfloat162*>(in + s * v_s + d0 + 2 * tx);
     }
     *reinterpret_cast<__nv_bfloat162*>(&tile[i][2 * tx]) = x;
   }
   __syncthreads();
-  for (int i = threadIdx.y; i < 64; i += 8) {
+  for (int i = threadIdx.y; i < 64 && d0 + i < dh; i += 8) {
     const int s = s0 + 2 * tx;
     if (s < S) {
       __nv_bfloat162 x;
@@ -492,26 +509,28 @@ int make_map_4d(CUtensorMap* map, const void* base, const int64_t (&dims)[4],
 }
 
 // Encodes the three tensor maps, then launches the V^T pass and the kernel.
+// The maps declare the true dh (<= DH); their boxes are DH wide, and TMA
+// fills the rest with zeros.
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* vt,
                  void* o, const Params& p, int B, cudaStream_t stream) {
   const int S_pad = (p.S + 7) / 8 * 8;
+  const int64_t dh = p.dh;
   CUtensorMap mq, mk, mv;
-  int e = make_map_4d(&mq, q, {DH, p.T, p.H, B}, {p.q_t, p.q_h, p.q_b}, kRows);
+  int e = make_map_4d(&mq, q, {dh, p.T, p.H, B}, {p.q_t, p.q_h, p.q_b}, kRows);
   if (e == 0) {
-    e = make_map_4d(&mk, k, {DH, p.S, p.KV, B}, {p.k_s, p.k_h, p.k_b},
+    e = make_map_4d(&mk, k, {dh, p.S, p.KV, B}, {p.k_s, p.k_h, p.k_b},
                     Tile<DH>::BK);
   }
   if (e == 0) {
-    e = make_map_4d(&mv, vt, {p.S, DH, p.KV, B},
-                    {S_pad, (int64_t)DH * S_pad, (int64_t)p.KV * DH * S_pad},
-                    DH);
+    e = make_map_4d(&mv, vt, {p.S, dh, p.KV, B},
+                    {S_pad, dh * S_pad, p.KV * dh * S_pad}, DH);
   }
   if (e != 0) return e;
-  k3_vt_transpose_kernel<<<dim3((p.S + 63) / 64, DH / 64, B * p.KV),
+  k3_vt_transpose_kernel<<<dim3((p.S + 63) / 64, (p.dh + 63) / 64, B * p.KV),
                            dim3(32, 8), 0, stream>>>(
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(vt),
-      p.KV, p.S, DH, S_pad, p.v_b, p.v_h, p.v_s);
+      p.KV, p.S, p.dh, S_pad, p.v_b, p.v_h, p.v_s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
@@ -525,7 +544,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* vt,
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernel (f32, or bf16 at another dh)
+// FMA kernel (f32, or bf16 with unaligned or broadcast rows)
 // ---------------------------------------------------------------------------
 constexpr int kSimtThreads = 128;
 constexpr int kSub = 4;                 // threads per query row
@@ -644,12 +663,13 @@ void dispatch_simt(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). use_mma: 1 runs the
-// tensor-core kernel (the caller has checked bf16, dh 64 or 128, and 16-byte
-// aligned rows and bases, and passes vt, a (B, KV, dh, S_pad) bf16 scratch
-// for V^T with S_pad = S rounded up to a multiple of 8), 0 the FMA kernel
-// (dh <= 128; vt unused). Strides are in elements; the last dim of every
-// tensor is contiguous. Returns a cudaError_t, or kErrTensorMap + the
-// CUresult of a failed tensor-map encode (nothing launched then).
+// tensor-core kernel (the caller has checked bf16, dh <= 128 and a multiple
+// of 8, and 16-byte aligned rows and bases, and passes vt, a (B, KV, dh,
+// S_pad) bf16 scratch for V^T with S_pad = S rounded up to a multiple of 8),
+// 0 the FMA kernel (dh <= 128; vt unused). Strides are in elements; the
+// last dim of every tensor is contiguous. Returns a cudaError_t, or
+// kErrTensorMap + the CUresult of a failed tensor-map encode (nothing
+// launched then).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* vt,
                         void* o, int B, int H, int KV, int T, int S, int dh,
                         int causal, int window, long long q_b, long long q_h,
@@ -680,7 +700,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* vt,
   p.o_h = o_h;
   p.o_t = o_t;
   if (use_mma) {
-    return dh == 64 ? launch_wgmma<64>(q, k, v, vt, o, p, B, st)
+    return dh <= 64 ? launch_wgmma<64>(q, k, v, vt, o, p, B, st)
                     : launch_wgmma<128>(q, k, v, vt, o, p, B, st);
   }
   if (dtype == 1) {

@@ -4,9 +4,10 @@ bidirectional; GQA without a KV repeat).
 q (B, H, T, dh); k, v (B, KV, S, dh) → o (B, H, T, dh) — the hand-written
 CUDA kernel in ``csrc/flash_attention.cu`` (one block per 128 query rows of
 one (b, h), m, l and the accumulator in registers, kv tiles outside the
-causal range or the window never visited; for bf16 at dh 64 and 128 the
-tensor cores through a TMA ring and ``wgmma``, after a pass that writes
-Vᵀ; f32 FMA otherwise; the source says why and what bounds it). It
+causal range or the window never visited; for bf16 with aligned rows at
+any dh ≤ 128 the tensor cores through a TMA ring and ``wgmma``, after a
+pass that writes Vᵀ, dh padded with zeros to the 64- or 128-wide tile;
+f32 FMA otherwise; the source says why and what bounds it). It
 replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention``. The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -50,16 +51,20 @@ def _lib() -> ctypes.CDLL:
 
 def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                       ) -> bool:
-    """Whether the call runs the tensor-core kernel: bf16, dh 64 or 128, and
-    bases and row strides on 16-byte boundaries (TMA's rule for the tensor
-    maps over q and k, and the Vᵀ pass's for v; the output buffer is the
-    wrapper's own and always qualifies). A broadcast (stride 0) dim is no
+    """Whether the call runs the tensor-core kernel: bf16, dh ≤ ``MAX_DH``
+    and a multiple of 8, and bases and row strides on 16-byte boundaries
+    (TMA's rule for the tensor maps over q and k, and the Vᵀ pass's for v;
+    the output buffer is the wrapper's own and always qualifies). In the
+    model's (B, T, H, dh) layout a head's stride is dh, so aligned rows
+    already make dh a multiple of 8. The kernel pads dh to its 64- or
+    128-wide tile with TMA's zero fill. A broadcast (stride 0) dim is no
     layout a tensor map describes: it takes the FMA kernel. S takes any
     value: the Vᵀ scratch is padded to a multiple of 8 keys."""
     def aligned(x):
         return (x.data_ptr() % 16 == 0
                 and all(s > 0 and s % 8 == 0 for s in x.stride()[:-1]))
-    return (q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
+    dh = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and 1 <= dh <= MAX_DH and dh % 8 == 0
             and all(aligned(x) for x in (q, k, v)))
 
 
@@ -68,15 +73,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, T, dh); k, v: (B, KV, S, dh) → (B, H, T, dh).
 
     CUDA tensors only, one dtype (float32 or bfloat16), H % KV == 0,
-    dh ≤ 128, the last dim contiguous, S ≥ T when causal. Scores, softmax
+    dh ≤ 128, the last dim contiguous, S ≥ T when causal. bf16 with
+    aligned rows takes the tensor-core kernel at every such dh
+    (:func:`uses_tensor_cores`), the rest the FMA kernel. Scores, softmax
     and accumulator are float32; the output is in q's dtype. There is no
     backward: inputs that require grad while grad is enabled are refused.
     Launches on the current stream and does not synchronise.
     """
     global LAUNCHES
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"K3 needs q, k, v on one CUDA device; got "
-                         f"{q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"K3 takes q, k, v in one of {list(_DTYPES)}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -92,14 +96,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if min(B, T, S) < 1 or not 1 <= dh <= MAX_DH:
         raise ValueError(f"K3 takes B, T, S >= 1 and 1 <= dh <= {MAX_DH}; "
                          f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"K3 needs q, k, v on one CUDA device; got "
+                         f"{q.device}, {k.device}, {v.device}")
     if causal and S < T:
         raise ValueError(f"causal K3 needs S >= T (the last q row sits on "
                          f"the last k row); got T={T}, S={S}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     tc = uses_tensor_cores(q, k, v)
-    # grids: FMA (T/32, H, B); tensor cores (H, T/128, B), Vᵀ (S/64, dh/64,
-    # B·KV)
+    # grids: FMA (T/32, H, B); tensor cores (H, T/128, B), Vᵀ (S/64,
+    # ceil(dh/64), B·KV)
     if max(H, B) > _MAX_GRID_YZ or (tc and max(-(-T // _TC_ROWS), B * KV)
                                     > _MAX_GRID_YZ):
         raise ValueError(f"K3 grid too large for H={H}, B={B}, KV={KV}, "

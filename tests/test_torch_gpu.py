@@ -14,8 +14,11 @@ FMA GEMM); K1 and K2 each run twice there, to agree bit for bit; for K3, the
 gpt2-medium and llama3-8b prefills, a sliding window, bert-large's
 bidirectional shape, ragged and f32 shapes, ragged bf16 shapes on the
 tensor-core kernel (T off its 128-row tile, S off a multiple of 8), bf16
-shapes it does not take (dh 48 and 32, rows of 136 and 264 bytes), and
-every body of the FMA kernel (8, 16 and 32 columns a thread, f32 and bf16).
+at head widths it pads to its 64- or 128-wide tile (32, 40, 48, 80, 120;
+at T = 1 with S odd too, the edges of TMA's zero fill and of the Vᵀ
+pass's dh mask), a profiled dh-80 call that must run on it, bf16 rows it
+does not take (unaligned rows at dh 32, 48, 64, 80 and 128), and every
+body of the FMA kernel (8, 16 and 32 columns a thread, f32 and bf16).
 Tolerance (scale-normalised): 1e-2 for bf16, whose output is rounded once
 from an f32 sum on both sides; 1e-5 for f32 with TF32 off, where only the
 summation order differs. K2's ``dw`` is a long sum that cancels: its error
@@ -34,7 +37,7 @@ on the float32 router's Bd = 8 group, and the stable top-k on a zero
 router, where every token ties, choosing the CPU's experts. The
 sequence-mixer families: K1 and K2 on a block-diagonal (``seg``) B with
 identity segments and on xLSTM's Bd 8 gates group, bf16; K3 at zamba2's
-d_head 80 and its grown d_head 120 (the FMA kernel), also at B = 1 and the
+d_head 80 and its grown d_head 120 (the tensor cores), also at B = 1 and the
 odd lengths of the engine's exact-length prefills; the xLSTM and zamba2
 smoke models' decode on the card against the CPU, and their live engine
 through a LiGO hop on the card, its tokens the CPU engine's. The audio and
@@ -51,6 +54,8 @@ and ``flash_attention`` K3, each against its plain version, counted in
 ``launch_counts()`` and in the ``LAUNCH_COUNTS`` registry group.
 """
 import importlib
+import os
+import sys
 import time
 
 import pytest
@@ -93,12 +98,12 @@ K3_SHAPES = [
     ("ragged", "float32", (2, 6, 2, 200, 328, 64, True, 0)),
     ("ragged-window", "float32", (2, 6, 2, 200, 328, 64, True, 100)),
     ("gpt2-medium", "float32", (8, 16, 16, 128, 128, 64, True, 0)),
-    ("dh48-fma", "bfloat16", (2, 4, 2, 77, 77, 48, True, 0)),
+    ("dh48", "bfloat16", (2, 4, 2, 77, 77, 48, True, 0)),
     ("bf16-ragged", "bfloat16", (2, 6, 2, 200, 328, 128, True, 0)),
     ("bf16-ragged-window", "bfloat16", (2, 6, 2, 77, 333, 64, True, 100)),
     ("bf16-unaligned-rows", "bfloat16", (2, 6, 2, 200, 328, 64, True, 0, 4)),
-    # zamba2's shared attention block at d_head 80 and, grown, 120: bf16
-    # off the tensor-core kernel's dh, so the FMA kernel
+    # zamba2's shared attention block at d_head 80 and, grown, 120: the
+    # tensor-core kernel, dh padded to its 128-wide tile
     ("zamba2-dh80", "bfloat16", (2, 32, 32, 256, 256, 80, True, 0)),
     ("zamba2-dh120", "bfloat16", (2, 32, 32, 200, 200, 120, True, 0)),
     # the engine's exact-length prefills of a recurrent family: B = 1, T
@@ -110,18 +115,26 @@ K3_SHAPES = [
     ("engine-T37-dh120", "bfloat16", (1, 32, 32, 37, 37, 120, True, 0)),
     ("engine-T509-dh120", "bfloat16", (1, 32, 32, 509, 509, 120, True, 0)),
     # hubert-xlarge's autograd-free encode (bidirectional, d_head 80, and 40
-    # at its half model: the FMA kernel) and qwen2-vl-72b's prefill (64
-    # query heads over 8, d_head 128, and 64 at its half model: the tensor
-    # cores)
+    # at its half model) and qwen2-vl-72b's prefill (64 query heads over 8,
+    # d_head 128, and 64 at its half model): all on the tensor cores
     ("hubert-encode", "bfloat16", (8, 16, 16, 512, 512, 80, False, 0)),
     ("hubert-half", "bfloat16", (8, 16, 16, 512, 512, 40, False, 0)),
     ("qwen2-vl-prefill", "bfloat16", (4, 64, 8, 2048, 2048, 128, True, 0)),
     ("qwen2-vl-half", "bfloat16", (4, 64, 8, 2048, 2048, 64, True, 0)),
     # the FMA kernel's bodies at 8 and 32 columns a thread (dh <= 32, > 64)
     ("dh32-fma", "float32", (2, 4, 2, 77, 77, 32, True, 0)),
-    ("dh32-fma", "bfloat16", (2, 4, 2, 77, 77, 32, True, 0)),
+    ("dh32", "bfloat16", (2, 4, 2, 77, 77, 32, True, 0)),
     ("dh128-fma", "float32", (2, 4, 2, 77, 140, 128, False, 0)),
     ("dh128-unaligned-rows", "bfloat16", (2, 4, 2, 77, 140, 128, True, 0, 4)),
+    # unaligned bf16 rows (pad 4) keep the FMA kernel's bf16 bodies at 8,
+    # 16 and 32 columns a thread on the card
+    ("dh32-unaligned-rows", "bfloat16", (2, 4, 2, 77, 140, 32, True, 0, 4)),
+    ("dh48-unaligned-rows", "bfloat16", (2, 4, 2, 77, 140, 48, True, 0, 4)),
+    ("dh80-unaligned-rows", "bfloat16", (2, 4, 2, 77, 140, 80, False, 0, 4)),
+    # one query row against an odd number of keys at padded widths: TMA's
+    # zero fill past T, S and dh, and the Vᵀ pass's dh mask, at both tiles
+    ("dh80-T1-S333", "bfloat16", (2, 32, 32, 1, 333, 80, True, 0)),
+    ("dh40-T1-S77", "bfloat16", (2, 16, 16, 1, 77, 40, False, 0)),
 ]
 K3_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
@@ -424,6 +437,21 @@ def _qkv(cuda, dtype, B, H, KV, T, S, dh, seed, pad=0):
         for n, heads in ((T, H), (S, KV), (S, KV)))
 
 
+def _finish_or_exit(seconds=60.0):
+    """Wait for the device's work so far, at most ``seconds``: a tensor-core
+    kernel whose mbarrier never completes spins for ever, and the process
+    then ends here, with the message, rather than hang the card."""
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        if time.perf_counter() - t0 > seconds:
+            print(f"K3 did not finish in {seconds} s: a barrier waits for "
+                  f"bytes that never come", file=sys.stderr, flush=True)
+            os._exit(3)
+        time.sleep(0.001)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,dtype,dims", K3_SHAPES,
                          ids=[f"{n}-{d}" for n, d, _ in K3_SHAPES])
@@ -431,11 +459,13 @@ def test_k3_kernel_matches_plain(cuda, name, dtype, dims):
     B, H, KV, T, S, dh, causal, window, *pad = dims
     dt = getattr(torch, dtype)
     q, k, v = _qkv(cuda, dt, B, H, KV, T, S, dh, seed=3, pad=sum(pad))
+    # bf16 with aligned rows at every dh here (all <= 128, multiples of 8)
     assert flash_attention.uses_tensor_cores(q, k, v) is (
-        dtype == "bfloat16" and dh in (64, 128) and not pad)
+        dtype == "bfloat16" and not pad)
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert ops.launch_counts()["flash_attention"] == 1
+    _finish_or_exit()
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == want.shape
@@ -458,6 +488,30 @@ def test_k3_tensor_map_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
         flash_attention.flash_attention(q, k, v)
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.gpu
+def test_k3_at_dh_80_runs_on_the_tensor_core_kernel(cuda):
+    """A profiled call at zamba2's and hubert's d_head 80 launches the
+    tensor-core kernel and its Vᵀ pass, and not the FMA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, 16, 16, 512, 512, 80, seed=12)
+    assert flash_attention.uses_tensor_cores(q, k, v)
+    flash_attention.flash_attention(q, k, v, causal=False)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = flash_attention.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("flash_fwd_wgmma" in k for k in kernels), kernels
+    assert any("k3_vt_transpose_kernel" in k for k in kernels), kernels
+    assert not any("flash_fwd_simt" in k for k in kernels), kernels
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = K3_TOL["bfloat16"]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol + tol * want.float().abs()).all())
 
 
 @pytest.mark.gpu
