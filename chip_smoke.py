@@ -48,9 +48,10 @@ sources are not beside it. Phases, each fatal on failure:
 3b. drive the serving path of llama3-8b at full width (32 layers, d 4096,
    GQA 32/8, random weights from the seed, no grow): 4 prompts of 2048
    tokens prefilled through K3 and 31 tokens decoded greedily, with the same
-   launch, logit and token checks; then profile one warm prefill (every
-   layer's attention must show as a launch of the tensor-core kernel and of
-   its V^T pass, none of the FMA kernel);
+   launch, logit and token checks; then profile one warm prefill, and
+   hold one more to the K3 check of 14 (c) and 16 (every layer's launch
+   routed to the tensor-core kernel; the trace names it and its V^T pass,
+   never the FMA kernel);
 4. drive the training path at full width through its entry point —
    gpt2-base pretrained 2 AdamW steps, grown to gpt2-medium by 4 LiGO steps
    (K1 forward and K2 backward on every eligible group of every step), then
@@ -1343,30 +1344,13 @@ def _check_gemm_launches(label, ev, want):
                              f"on the FMA pipes)")
 
 
-def _check_k3_launches(label, ev, n):
-    """The profile's K3 launches by kernel: ``n`` of the tensor-core kernel
-    and of its V^T pass, none of the FMA kernel."""
-    from torch.autograd import DeviceType
-    got = {"flash_fwd_wgmma": 0, "k3_vt_transpose_kernel": 0,
-           "flash_fwd_simt": 0}
-    for e in ev:
-        for name in got:
-            if e.device_type == DeviceType.CUDA and name in e.key:
-                got[name] += e.count
-    want = {"flash_fwd_wgmma": n, "k3_vt_transpose_kernel": n,
-            "flash_fwd_simt": 0}
-    print(f"[profile] {label}: K3 launches by kernel {got}, want {want}",
-          flush=True)
-    if got != want:
-        raise AssertionError(f"{label}: K3 launches {got}, want {want} "
-                             f"(every layer on the tensor-core kernel)")
-
-
-def _k3_profile(torch, label, fn, n):
-    """``fn`` once warm, then once more with every K3 route decision
-    recorded (the wrapper's ``uses_tensor_cores``, which picks the kernel
-    each launch runs) under the profiler, recording the device's kernels
-    only (a deep model's host ops make a full trace take tens of seconds to
+def _check_k3_launches(torch, label, fn, n):
+    """The one check that a main path's K3 launches ran on the tensor-core
+    kernel (llama3-8b's, zamba2-2.7b's prefill, hubert-xlarge's encode):
+    ``fn`` once warm, then once more with every K3 route decision recorded
+    (the wrapper's ``uses_tensor_cores``, which picks the kernel each
+    launch runs) under the profiler, recording the device's kernels only
+    (a deep model's host ops make a full trace take tens of seconds to
     read). All ``n`` launches must be routed to the tensor cores, and the
     trace must name the tensor-core kernel and its V^T pass as often as
     each other and the FMA kernel never. The trace's count is printed
@@ -1947,7 +1931,7 @@ def _pair_routes(torch, c1, c2, batch, steps, lsteps, tsteps, seq=0,
         from repro_torch.models.losses import loss_fn
         eval_b = next(_vision_batches(torch, c2, batch, 300, 1, False, seq))
         with torch.no_grad():
-            _k3_profile(torch, f"{b} eval forward",
+            _check_k3_launches(torch, f"{b} eval forward",
                         lambda: loss_fn(res["grown"], c2, eval_b),
                         c2.n_layers)
         del eval_b
@@ -4016,7 +4000,7 @@ def _zamba(torch, runs, k3):
     _prefill_check(torch, res, None, 1e-4, 1e-2)
     # the main path's K3 at d_head 80: every insertion on the tensor cores
     with torch.no_grad():
-        _k3_profile(torch, f"{z.name} prefill", lambda: prefill(
+        _check_k3_launches(torch, f"{z.name} prefill", lambda: prefill(
             res["params"], res["cfg"], {"tokens": res["prompts"]}), G)
     del res
     torch.cuda.empty_cache()
@@ -5322,7 +5306,10 @@ def main() -> int:
         ev = _profile(torch, "llama3-8b prefill, K3 route",
                       lambda: prefill(lres["params"], lres["cfg"],
                                       {"tokens": lres["prompts"]}))
-    _check_k3_launches("llama3-8b prefill", ev, lres["cfg"].n_layers)
+        _check_k3_launches(torch, "llama3-8b prefill",
+                           lambda: prefill(lres["params"], lres["cfg"],
+                                           {"tokens": lres["prompts"]}),
+                           lres["cfg"].n_layers)
     # phase 9 (f) serves these parameters again through the engine
     llama = (lres["cfg"], lres["params"])
     del lres, ev

@@ -84,6 +84,8 @@
 
 #include <math.h>
 
+#include <atomic>
+
 #include "ligo_gemm.cuh"
 
 namespace {
@@ -508,6 +510,24 @@ int make_map_4d(CUtensorMap* map, const void* base, const int64_t (&dims)[4],
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
 }
 
+// The kernel's opt-in to more than 48 KB of dynamic shared memory, set once
+// per device (the setting lasts for the process): setting it on every call
+// cost a host-bound call more than the kernel's own device time.
+template <int DH>
+cudaError_t opt_in_smem() {
+  static std::atomic<uint64_t> done{0};  // a bit per device set so far
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit & done.load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile<DH>::kSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
 // Encodes the three tensor maps, then launches the V^T pass and the kernel.
 // The maps declare the true dh (<= DH); their boxes are DH wide, and TMA
 // fills the rest with zeros.
@@ -533,9 +553,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* vt,
       p.KV, p.S, p.dh, S_pad, p.v_b, p.v_h, p.v_s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Tile<DH>::kSmem);
+  err = opt_in_smem<DH>();
   if (err != cudaSuccess) return (int)err;
   flash_fwd_wgmma<DH><<<dim3(p.H, (p.T + kRows - 1) / kRows, B), kTcThreads,
                         Tile<DH>::kSmem, stream>>>(

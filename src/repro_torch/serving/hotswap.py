@@ -36,13 +36,9 @@ stream. It first waits for the engine stream's queued work, then waits
 for its own work to finish before it publishes the grown tree, and marks
 every grown tensor as used on the engine's stream (``record_stream``), so
 that the caching allocator cannot hand the memory back to the side stream
-while decode still reads it. :meth:`HopController.warm` builds and loads
-the kernels in the engine thread and runs one grow on the same side
-stream, so the real hop reuses the side stream's cached blocks. On the
-card that grow runs where the live one does, in a thread of its own, and
-is timed while the engine thread holds the interpreter lock as the
-decode loop can: the watchdog's budget then follows the live grow's
-condition, not an uncontended grow's.
+while decode still reads it. :meth:`HopController.warm` runs one grow on
+the same side stream in the engine thread: the kernels build and load
+there, and the real hop reuses the side stream's cached blocks.
 """
 from __future__ import annotations
 
@@ -272,40 +268,17 @@ class HopController:
             raise HopError("grow thread aborted by watchdog")
         return self._grow_once()
 
-    def _grow_beside_busy_caller(self):
-        """One grow in a thread of its own while this thread runs Python
-        without pause until it ends: the busiest a decode loop can keep the
-        interpreter lock, which the live grow must take at each op."""
-        out = {}
-
-        def run():
-            try:
-                out["buf"] = self._grow_once()
-            except BaseException as e:     # re-raised in the caller
-                out["err"] = e
-        th = threading.Thread(target=run, name="hop-warm")
-        th.start()
-        while th.is_alive():
-            pass
-        th.join()
-        if "err" in out:
-            raise out["err"]
-        return out["buf"]
-
     def warm(self) -> float:
-        """Run one grow at engine start (off the hop path, chaos-free,
-        result discarded) and seed the watchdog with its wall time, so the
-        first *live* hop is judged against a measured budget. On the card
-        it builds and loads the kernels here, in the engine thread, times
-        the grow in a thread of its own beside a busy engine thread (the
-        live grow's condition) and leaves the grow's blocks cached on the
-        side stream."""
+        """Run one synchronous grow at engine start (off the hop path,
+        chaos-free, result discarded) and seed the watchdog with its wall
+        time, so the first *live* hop is judged against a measured budget.
+        On the card it builds and loads the kernels here, in the engine
+        thread, and leaves the grow's blocks cached on the side stream."""
         self._build_kernels()
         t0 = time.perf_counter()
         with obs.span("hop.warm", src=self.engine.cfg.name,
                       dst=self.cfg2.name) as sp:
-            buf = (self._grow_beside_busy_caller() if self._cuda
-                   else self._grow_once())
+            buf = self._grow_once()
         dt = time.perf_counter() - t0
         del buf
         self.timings["warm"] = sp.dur_ms

@@ -8,10 +8,10 @@ test_kernel_route_hop_spans_and_profile_name_k1_and_k3`` ``--reps`` times
 under the profiler (``obs.profile``) and as many times without it: a
 2-layer gpt2 engine (3 slots, 9 requests, paged) hops to a 4-layer,
 384-wide model with a background grow begun at decode step 3, after
-``HopController.warm`` (on the card its grow runs in a thread of its own
-beside a busy engine thread, the live grow's condition) and, for a
-comparison, after the JAX package's warm (one grow in the engine thread).
-Each run prints warm's wall, the budget it seeded,
+``HopController.warm`` (its grow in the engine thread) and, for a
+comparison, after a warm grow in a thread of its own that the engine
+thread waits for, as the live grow runs in a thread of its own. Each run
+prints warm's wall, the budget it seeded,
 the grow span's wall in the grow thread (``hop.grow``), the wall from the
 launch to the poll that found the grow done (what the watchdog judges),
 the attempts, any ``hop.watchdog_fire`` event, and the engine's step walls
@@ -35,8 +35,6 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
-WARMS = {True: "warm beside a busy engine thread",
-         False: "warm in the engine thread"}
 ENGINE_CFG = {"n_layers": 2, "d_model": 256, "n_heads": 4, "n_kv_heads": 4,
               "d_head": 64, "d_ff": 512, "vocab_size": 512, "max_seq": 256}
 
@@ -69,17 +67,19 @@ def main() -> int:
                           device=dev)
     print(f"[probe] sys.getswitchinterval() {sys.getswitchinterval()} s")
 
-    def warm_in_engine_thread(hop):
-        """The JAX package's warm: one grow in the engine thread, nothing
-        else running, its wall seeding the watchdog."""
+    def warm_in_own_thread(hop):
+        """``HopController.warm`` with its grow in a fresh thread that the
+        engine thread joins, where a background hop's live grow runs."""
         hop._build_kernels()
         t0 = time.perf_counter()
-        hop._grow_once()
+        th = threading.Thread(target=hop._grow_once, name="hop-warm")
+        th.start()
+        th.join()
         dt = time.perf_counter() - t0
         hop.watchdog.seed(dt)
         return dt
 
-    def scenario(profiled: bool, beside_busy: bool, *, tmp: str):
+    def scenario(profiled: bool, in_engine: bool, *, tmp: str):
         obs.set_enabled(True)
         obs.FLIGHT.clear()
         eng = ServingEngine(params, cfg, slots=3, prompt_budget=32,
@@ -89,7 +89,7 @@ def main() -> int:
         walls, found = [], {}
         with obs.profile(tmp if profiled else None, device=dev):
             hop = HopController(eng, cfg2, op, background=True)
-            warm_s = hop.warm() if beside_busy else warm_in_engine_thread(hop)
+            warm_s = hop.warm() if in_engine else warm_in_own_thread(hop)
             budget = hop.watchdog.budget()
             last = [time.perf_counter()]
             observe = hop.watchdog.observe
@@ -116,8 +116,8 @@ def main() -> int:
                  if s["name"] == "hop.grow"]
         fires = [e["attrs"] for e in obs.FLIGHT.events(type="event")
                  if e["name"] == "hop.watchdog_fire"]
-        print(f"[probe] {'profiled' if profiled else 'plain   '}, "
-              f"{WARMS[beside_busy]}: warm "
+        print(f"[probe] {'profiled' if profiled else 'plain   '}, warm in "
+              f"{'the engine thread' if in_engine else 'its own thread'}: warm "
               f"{warm_s * 1e3:.2f} ms, budget {budget:.3f} s | attempts "
               f"{hop.attempts}, completed {hop.completed} | hop.grow spans "
               f"(attempt, thread, ms) {grows} | launch-to-found "
@@ -125,8 +125,7 @@ def main() -> int:
               f"watchdog fires {fires} | "
               f"engine step walls while the grow ran, ms "
               f"{[round(w, 2) for w in walls]}", flush=True)
-        return warm_s, grows, fires, budget, found.get("elapsed",
-                                                       float("nan"))
+        return warm_s, grows, fires
 
     modes = [(p, o) for o in (True, False) for p in (True, False)]
     results = {m: [] for m in modes}
@@ -134,19 +133,15 @@ def main() -> int:
         for i in range(args.reps):
             for m in modes:
                 results[m].append(scenario(*m, tmp=tmp))
-        for (profiled, beside_busy), rs in results.items():
-            first = [g[0][2] for _, g, _, _, _ in rs if g]
-            budgets = [r[3] for r in rs]
-            found = [r[4] for r in rs]
-            print(f"[probe] {'profiled' if profiled else 'plain'}, "
-                  f"{WARMS[beside_busy]}: warm ms "
+        for (profiled, in_engine), rs in results.items():
+            first = [g[0][2] for _, g, _ in rs if g]
+            print(f"[probe] {'profiled' if profiled else 'plain'}, warm in "
+                  f"{'the engine thread' if in_engine else 'its own thread'}"
+                  f": warm ms "
                   f"median {statistics.median(r[0] for r in rs) * 1e3:.2f}; "
-                  f"budgets s {[round(b, 3) for b in budgets]} (least "
-                  f"{min(budgets):.3f}); first grow span ms "
-                  f"{[round(x, 2) for x in first]}; launch-to-found ms "
-                  f"{[round(x * 1e3, 2) for x in found]} (most "
-                  f"{max(found) * 1e3:.2f}); runs with a watchdog fire "
-                  f"{sum(1 for r in rs if r[2])} of {len(rs)}", flush=True)
+                  f"first grow span ms {[round(x, 2) for x in first]}; runs "
+                  f"with a watchdog fire {sum(1 for r in rs if r[2])} of "
+                  f"{len(rs)}", flush=True)
 
         # one grow at a time: in the calling thread; in a fresh thread the
         # calling thread waits for idle (join); in a fresh thread beside a
