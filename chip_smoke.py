@@ -23,7 +23,9 @@ sources are not beside it. Phases, each fatal on failure:
    K2 computes for itself; the same at both vision pairs' groups; on the
    GEMM core they share, the bf16 main-path shapes and an aligned ragged
    bf16 shape must take the tensor-core GEMM, an unaligned bf16 shape and
-   the float32 ones the FMA GEMM; and
+   the float32 ones the float32 GEMM in the tile and split its plan picks
+   (``kernels/_gemm.py::f32_gemm_plan``; one profile of every such call
+   must name that instance and no other GEMM); and
    K3 (flash attention: the gpt2-medium and llama3-8b prefills, a sliding
    window, bert-large's bidirectional shape, ragged bf16 and float32 shapes,
    unaligned bf16 rows (at dh 64, 48 and 80), the vision evals at T = 197
@@ -42,7 +44,7 @@ sources are not beside it. Phases, each fatal on failure:
    the prefill logits through K3 match a prefill through the plain
    attention, and that logits and tokens are sane; then profile one warm
    hot-grow on the kernel route (K1's six GEMMs must show as tensor-core
-   GEMM launches, none as FMA GEMM launches), and hold the float32 grow of
+   GEMM launches, none as float32 GEMM launches), and hold the float32 grow of
    both AdamW moments on the kernel route against the plain route, each
    route timed;
 3b. drive the serving path of llama3-8b at full width (32 layers, d 4096,
@@ -62,7 +64,7 @@ sources are not beside it. Phases, each fatal on failure:
    gradient at the starting operator is the same on the kernel route and
    the plain route; then profile one LiGO step (K1's product and K2's three
    products of every group must show as tensor-core GEMM launches, none as
-   FMA GEMM launches; the right expansions' share of it timed) and one
+   float32 GEMM launches; the right expansions' share of it timed) and one
    train step (``torch.profiler``);
 6. drive the trajectory path at full width through the train launcher
    (``--trajectory``, ``--ckpt-dir``, ``--ledger``), with deterministic
@@ -409,7 +411,7 @@ K3_SHAPES = [
 # for K2): name, dtype, (G, L2, L1, E, I, A, Bd), seed. "pinned" (I * Bd
 # odd) takes the scalar paths of both kernels' blends; "aligned ragged"
 # takes the tensor-core GEMM with TMA's zero fill at every edge; "unaligned"
-# is bf16 on the FMA GEMM.
+# is bf16 on the float32 GEMM.
 K1_EXTRA_SHAPES = [
     ("ragged", "float32", (3, 5, 3, 2, 200, 50, 130), 99),
     ("pinned", "float32", (1, 1, 1, 2, 1, 50, 45), 92),
@@ -610,6 +612,58 @@ def _expanded(torch, U, R, dtype):
         U.shape[:-1] + (R.shape[0],)).float()
 
 
+# (product tag, f32 tile) -> [launches wanted, traced]: every float32-GEMM
+# call of phase 2's K1 and K2 checks, profiled once (``_trace_f32``) while
+# TRACE_F32[0]
+F32_TRACE = {}
+TRACE_F32 = [True]
+
+
+def _f32_name(plan):
+    """The float32 GEMM instance of a plan, as the rows print it."""
+    from repro_torch.kernels._gemm import F32_TILES
+    bm, bn = F32_TILES[plan.tile]
+    return f"f32 {bm}x{bn}" + (f" split {plan.split}" if plan.split > 1
+                               else "")
+
+
+def _trace_f32(torch, fn, want):
+    """``fn()`` once more under the profiler (device kernels only): add its
+    GEMM launches by (core, product tag, f32 tile) to F32_TRACE beside
+    ``want`` {(tag, tile): n}, the instances the f32 plans predict. A GEMM
+    of another core, or the old FMA kernel's name, fails at once; the
+    counts are held at the end of phase 2 (:func:`_check_f32_trace`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    for key, n in want.items():
+        F32_TRACE.setdefault(key, [0, 0])[0] += n
+    for e in prof.key_averages():
+        m = re.search(r"ligo_(\w+)_gemm_kernel<(\d+), (\w+)", e.key)
+        if not m or e.device_type != DeviceType.CUDA:
+            continue
+        if m.group(1) != "f32":
+            raise AssertionError(f"a float32-route call launched "
+                                 f"{e.key[:80]}: want only the f32 GEMM")
+        key = (int(m.group(2)), int(m.group(3)))
+        F32_TRACE.setdefault(key, [0, 0])[1] += e.count
+
+
+def _check_f32_trace():
+    """Every (product, tile) instance the f32 plans predicted was traced,
+    none unplanned, none more often than planned (the profiler can lose a
+    record that was launched: :func:`_check_gemm_launches`)."""
+    print(f"[f32] float32 GEMM launches by (product tag, tile): traced / "
+          f"planned {dict((k, (v[1], v[0])) for k, v in F32_TRACE.items())}",
+          flush=True)
+    bad = {k: v for k, v in F32_TRACE.items()
+           if v[1] > v[0] or (v[0] and not v[1])}
+    if bad:
+        raise AssertionError(f"float32 GEMM trace against its plans: {bad}")
+
+
 def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
               square=False, j=None):
     """K1 against its plain version; ``square`` gives it the inputs of an
@@ -685,6 +739,10 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         k1_flops = ligo_expand.operation_count(G, L2, L1, E, I, A, Bd)
         flops = ligo_expand.least_operations(G, L2, L1, E, I, A, Bd)
     tc = ligo_expand.tensor_core_route(dtype, I, A, Bd)
+    plan = ligo_expand.f32_gemm_plan(I, Bd, A, 1, G * L1 * E)
+    gemm = "wgmma" if tc else _f32_name(plan)
+    if not tc and TRACE_F32[0]:
+        _trace_f32(torch, kernel, {(3, plan.tile): 1})
     elt = got[-1].element_size()
     nbytes = (4 * G * L2 * L1 + elt * (I * A + G * L1 * E * A * Bd
                                        + G * L2 * E * I * Bj))
@@ -703,11 +761,11 @@ def _check_k1(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "gflop": flops / 1e9, "kernel_gflop": k1_flops / 1e9,
-        "mbytes": nbytes / 1e6, "tensor_cores": tc,
+        "mbytes": nbytes / 1e6, "tensor_cores": tc, "gemm": gemm,
     }
     split = f" (U at {Bd}, blend at {j})" if j else ""
     print(f"[k1] {name:>14} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
-          f"A={A} Bd={Bd}{split} ({'wgmma' if tc else 'fma'}): norm err "
+          f"A={A} Bd={Bd}{split} ({gemm}): norm err "
           f"{norm:.2e} (tol {TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, "
           f"plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
           f"ms, library in K1's order {row['library_minflop_ms']:.3f} ms, "
@@ -849,6 +907,14 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         flops = ligo_expand_bwd.least_operations(
             G, L2, L1, E, I, A, Bd, u_given=True, need_dW=need_dW)
     tc = ligo_expand_bwd.tensor_core_route(dtype, I, A, Bd)
+    plans = ligo_expand_bwd.f32_plans(G, L1, E, I, A, Bd)
+    gemm = ("wgmma" if tc else f"dB {_f32_name(plans['dB'])}" + (
+        f", dW {_f32_name(plans['dW'])}" if need_dW else ""))
+    if not tc and TRACE_F32[0]:
+        want = {(1, plans["dB"].tile): 1}
+        if need_dW:
+            want[(0, plans["dW"].tile)] = 1
+        _trace_f32(torch, kernel, want)
     elt = B.element_size()
     Bj = j or Bd
     nbytes = (2 * 4 * G * L2 * L1 + elt * (2 * I * A + G * L1 * E * A * Bd
@@ -878,6 +944,7 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "tensor_cores": tc,
+        "gemm": gemm,
     }
     minflop = row["library_minflop_ms"]
     split = f" (halves: blend at {j}, dB at {Bd})" if j else ""
@@ -885,7 +952,7 @@ def _check_k2(torch, name, dtype, G, L2, L1, E, I, A, Bd, seed,
     shown = " ".join(f"{k} {v:.2e}" for k, v in errs.items())
     print(f"[k2] {name:>14} {tname:>8} G={G} L2={L2} L1={L1} E={E} I={I} "
           f"A={A} Bd={Bd}{split} dW {'yes' if need_dW else 'no'} "
-          f"({'wgmma' if tc else 'fma'}){ubits}: norm err {shown} (tol "
+          f"({gemm}){ubits}: norm err {shown} (tol "
           f"{TOL[tname]:.0e}) | kernel {row['ms']:.3f} ms, plain "
           f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, "
           f"library min-FLOP order "
@@ -1353,18 +1420,18 @@ def _profile(torch, label, fn):
 
 def _check_gemm_launches(torch, label, ev, fn, want):
     """Every bf16 product of ``fn`` on the tensor-core GEMM: ``want`` is
-    {(core, tag): n} (core "wgmma" or "fma"; tag the product,
+    {(core, tag): n} (core "wgmma" or "f32"; tag the product,
     ``csrc/ligo_gemm.cuh``: 0-2 K2's dW, dB and U, 3 K1's U). The counts are
     held exactly on the route decisions of one more call of ``fn`` (all on
     the tensor cores, K1's as many as its tag-3 products); the profile ``ev``
     of ``fn`` must name K1's tensor-core GEMM and no (core, tag) outside
-    ``want``, none on the FMA GEMM, none more often than ``want``, its
+    ``want``, none on the float32 GEMM, none more often than ``want``, its
     counts printed beside them: the profiler can lose a record that was
     launched (:func:`_check_k3_launches`; once one of hot-grow's six)."""
     from torch.autograd import DeviceType
     got = {}
     for e in ev:
-        m = re.search(r"ligo_(wgmma|fma)_gemm_kernel<(\d+),", e.key)
+        m = re.search(r"ligo_(wgmma|f32)_gemm_kernel<(\d+),", e.key)
         if m and e.device_type == DeviceType.CUDA:
             key = (m.group(1), int(m.group(2)))
             got[key] = got.get(key, 0) + e.count
@@ -1381,7 +1448,7 @@ def _check_gemm_launches(torch, label, ev, fn, want):
             or any(got[key] > want.get(key, 0) for key in got)):
         raise AssertionError(f"{label}: GEMM routes {decided}, traced {got}, "
                              f"want {want} (every bf16 product on the tensor "
-                             f"cores, none on the FMA pipes)")
+                             f"cores, none on the float32 GEMM)")
 
 
 def _check_k3_launches(torch, label, fn, n):
@@ -1466,7 +1533,7 @@ def _profile_steps(torch, tres):
     # the bf16 LiGO step runs K1's product (tag 3) and K2's dB (tag 1) of
     # every group, and K2's dW (tag 0) where W takes a gradient, on the
     # tensor-core GEMM; K2's own U (tag 2) never (it takes K1's), and
-    # nothing on the FMA GEMM
+    # nothing on the float32 GEMM
     shapes = tres["shapes"]
     n_dW = sum(1 for sh in shapes for _, _, need in _k2_calls(sh) if need)
     want = {("wgmma", 3): len(shapes), ("wgmma", 1): len(shapes)}
@@ -5180,7 +5247,7 @@ def main() -> int:
                   + [False, False, True, False]):
         raise AssertionError(f"K1 routes {routes}: the bf16 main-path and "
                              f"aligned shapes must take the tensor cores, the "
-                             f"float32 and unaligned ones the FMA GEMM")
+                             f"float32 and unaligned ones the float32 GEMM")
     k2_main = _k2_checks(shapes)
     rows2 = [_check_k2(torch, name, torch.bfloat16, *d, seed=200 + i,
                        need_dW=need, j=j)
@@ -5197,7 +5264,9 @@ def main() -> int:
                   + [False, False, True, False]):
         raise AssertionError(f"K2 routes {routes}: the bf16 main-path and "
                              f"aligned shapes must take the tensor cores, the "
-                             f"float32 and unaligned ones the FMA GEMM")
+                             f"float32 and unaligned ones the float32 GEMM")
+    _check_f32_trace()
+    TRACE_F32[0] = False
     n_bits = sum(1 for r in rows2 if r["u_bitwise"])
     print(f"[k2] K1's U equal bit for bit to the U K2 computes for itself, "
           f"and K2 fed K1's U equal bit for bit to K2 on its own, at "

@@ -293,7 +293,7 @@ class GrowthPlan:
         return P
 
     def apply(self, ligo, small, *, use_kernel: Optional[bool] = None,
-              square: bool = False):
+              square: bool = False, cache: Optional[Dict] = None):
         """Θ_large = M(Θ_small).
 
         ``use_kernel`` routes kernel-eligible groups through K1, and their
@@ -301,7 +301,12 @@ class GrowthPlan:
         CUDA device). On CPU tensors the same route runs the kernels' plain
         versions. ``square=True`` squares every
         resolved expander and depth blend elementwise after resolution — the
-        AdamW second-moment map.
+        AdamW second-moment map. ``cache``: a dict the caller keeps for this
+        plan and this one operator ``ligo`` (a live hop's controller does);
+        a grow without gradients keeps there what it derives from the
+        operator alone (the resolved expanders, cast to each leaf dtype, and
+        the stacked depth blends), so that the next grow makes none of
+        those ops again: the same values, fewer launches on the host.
         """
         flat_stacks = {kind: _flatten(stack)
                        for kind, stack in small["layers"].items()}
@@ -311,9 +316,19 @@ class GrowthPlan:
             use_kernel = some.is_cuda
         width = ligo["width"]
         depth = ligo.get("depth", {})
-        table = self._expander_table(width)
-        if square:
-            table = {ref_: E * E for ref_, E in table.items()}
+        memo = cache if cache is not None and not torch.is_grad_enabled() \
+            else {}
+
+        def kept(key, make):
+            if key not in memo:
+                memo[key] = make()
+            return memo[key]
+
+        def resolved():
+            table = self._expander_table(width)
+            return ({ref_: E * E for ref_, E in table.items()} if square
+                    else table)
+        table = kept(("table", square), resolved)
 
         grown_stacks: Dict[str, Dict[str, torch.Tensor]] = {
             g.dst_kind: {} for g in self.groups if g.kind}
@@ -321,20 +336,29 @@ class GrowthPlan:
             grown_stacks.setdefault(kind, {})
         grown_top: Dict[str, torch.Tensor] = {}
 
-        for g in self.groups:
+        for gi_, g in enumerate(self.groups):
             src = flat_stacks[g.kind] if g.kind else flat_top
             leaves = [src[p] for p in g.paths]
             blend_tree = depth.get(g.kind) if (g.stacked and g.kind) else None
-            w_g = (torch.stack([blend_tree[p] for p in g.paths])
+
+            def blends():
+                w = torch.stack([blend_tree[p] for p in g.paths])
+                return w * w if square else w
+            w_g = (kept(("w", gi_, square), blends)
                    if blend_tree is not None else None)
-            if square and w_g is not None:
-                w_g = w_g * w_g
-            E_in = table[g.in_ref] if g.in_ref is not None else None
-            E_out = table[g.out_ref] if g.out_ref is not None else None
             X = leaves[0][None] if len(leaves) == 1 else torch.stack(leaves)
+            E_in, E_out = (
+                None if ref_ is None else
+                kept(("E", ref_, square, X.dtype), lambda r=ref_: (
+                    table[r].to(X.dtype).contiguous() if memo is cache
+                    else table[r]))
+                for ref_ in (g.in_ref, g.out_ref))
             if use_kernel and g.kernel_ok and w_g is not None:
                 out = self._run_group_fused(g, X, E_in, E_out, w_g)
             else:
+                if w_g is not None and memo is cache:   # its blend's cast
+                    w_g = kept(("wd", gi_, square, X.dtype),
+                               lambda w=w_g: w.to(X.dtype))
                 out = self._run_group(g, X, E_in, E_out, w_g)
             dst = grown_stacks[g.dst_kind] if g.kind else grown_top
             for gi, p in enumerate(g.dst_paths):

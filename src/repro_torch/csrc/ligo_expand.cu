@@ -18,8 +18,9 @@
 //      the Z = G*L1*E source slabs, on the GEMM cores of ligo_gemm.cuh (the
 //      ones K2 uses): bf16 at widths that are multiples of 8 on the TMA +
 //      wgmma GEMM, from X = B (K-major as it is) and Y = W^T (from
-//      ligo_transpose_kernel); f32, or an unaligned width, on the FMA GEMM
-//      on W's own strides. It is the launch K2 makes for its product U, with
+//      ligo_transpose_kernel); f32, or an unaligned width, on the f32 GEMM
+//      on W's own strides, in the tile and split the caller picked
+//      (kernels/_gemm.py::f32_gemm_plan). It is the launch K2 makes for its product U, with
 //      the same arguments, so the two agree bit for bit (chip_smoke.py and
 //      tests/test_torch_gpu.py check it): K2 takes this U from K1 instead of
 //      computing it again.
@@ -128,8 +129,9 @@ k1_blend_kernel(const float* __restrict__ w, const float* __restrict__ U,
 
 template <typename T>
 int launch(const float* w, const T* B, const T* W, __nv_bfloat16* Wt,
-           float* U, T* P, int G, int L2, int L1, int E, int I, int A,
-           int Bd, int route, int stage, cudaStream_t stream) {
+           float* U, T* P, float* part, int G, int L2, int L1, int E, int I,
+           int A, int Bd, int route, int stage, int tile, int split,
+           cudaStream_t stream) {
   const int Z = G * L1 * E;                  // (g, l, e) batch
   const int64_t slab = (int64_t)I * Bd;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -166,11 +168,12 @@ int launch(const float* w, const T* B, const T* W, __nv_bfloat16* Wt,
   }
   if (expand && route == 0) {
     GemmArgs gu;
-    gu.M = I; gu.N = Bd; gu.K = A; gu.R = 1; gu.S = 1;
+    gu.M = I; gu.N = Bd; gu.K = A; gu.R = 1; gu.S = split;
     gu.sAm = A; gu.sAk = 1; gu.sAz = 0; gu.sAr = 0;
     gu.sBk = Bd; gu.sBn = 1; gu.sBz = (int64_t)A * Bd; gu.sBr = 0;
     gu.ldc = Bd; gu.sCz = slab;
-    const cudaError_t err = fma_gemm<kProdK1U>(B, W, U, gu, Z, stream);
+    const cudaError_t err = f32_gemm<kProdK1U, true, false>(
+        B, W, U, part, gu, Z, tile, stream);
     if (err != cudaSuccess) return (int)err;
   }
 
@@ -193,34 +196,38 @@ int launch(const float* w, const T* B, const T* W, __nv_bfloat16* Wt,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (for B, W and P). w is (G, L2, L1) f32.
-// route: 0 runs U = B W on the FMA GEMM, 1 on the tensor-core GEMM (bf16
+// route: 0 runs U = B W on the f32 GEMM in tile `tile` and `split` parts
+// (kernels/_gemm.py::f32_gemm_plan), 1 on the tensor-core GEMM (bf16
 // only; the caller has checked that I, A and Bd are multiples of 8 and put B
 // and W on 16-byte boundaries). stage: 0 both steps, 1 U only (w and P
 // unused), 2 the blend only, from the caller's U (B, W and Wt unused).
 // Allocated by the caller: on route 1 Wt (G, L1, E, Bd, A) bf16 scratch;
+// on route 0 with split > 1 part (split, G, L1, E, I, Bd) f32 scratch;
 // U (G, L1, E, I, Bd) f32, which holds B W when the call returns. Returns 0, a
 // cudaError_t (cudaErrorInvalidValue, with nothing launched, where the
 // blend's staged w, L1 * ceil(L2 / 24) * 24 * 4 bytes, exceeds 48 KB), or a
 // value >= kErrTensorMap - 1 for a failed tensor-map encode.
 int ligo_blend_expand_grouped(const void* w, const void* B, const void* W,
-                              void* Wt, void* U, void* P, int G, int L2,
-                              int L1, int E, int I, int A, int Bd, int route,
-                              int stage, int dtype, void* stream) {
+                              void* Wt, void* U, void* P, void* part, int G,
+                              int L2, int L1, int E, int I, int A, int Bd,
+                              int route, int stage, int tile, int split,
+                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
   if (dtype == 1) {
     return launch<__nv_bfloat16>(
         static_cast<const float*>(w), static_cast<const __nv_bfloat16*>(B),
         static_cast<const __nv_bfloat16*>(W),
         static_cast<__nv_bfloat16*>(Wt), static_cast<float*>(U),
-        static_cast<__nv_bfloat16*>(P), G, L2, L1, E, I, A, Bd, route, stage,
-        s);
+        static_cast<__nv_bfloat16*>(P), pt, G, L2, L1, E, I, A, Bd, route,
+        stage, tile, split, s);
   }
   return launch<float>(static_cast<const float*>(w),
                        static_cast<const float*>(B),
                        static_cast<const float*>(W),
                        static_cast<__nv_bfloat16*>(Wt),
-                       static_cast<float*>(U), static_cast<float*>(P), G, L2,
-                       L1, E, I, A, Bd, route, stage, s);
+                       static_cast<float*>(U), static_cast<float*>(P), pt, G,
+                       L2, L1, E, I, A, Bd, route, stage, tile, split, s);
 }
 
 const char* ligo_cuda_error_string(int err) { return error_text(err); }

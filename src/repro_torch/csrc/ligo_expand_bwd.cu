@@ -41,7 +41,8 @@
 //      contraction runs over (g, l, e, Bd), and where its (I, A) tile grid
 //      under-fills the 132 SMs (the attention and mlp/w1 groups give 8 x 6
 //      tiles) it is split into S contiguous parts, each writing an f32
-//      partial that k2_sum_parts_kernel reduces in order;
+//      partial that ligo_sum_parts_kernel reduces in order (the f32 GEMM
+//      splits any of the three products so, by its own plan);
 //   3. k2_dw_partial_kernel: a block per chunk of the E*I*Bd axis stages
 //      U[g, :, chunk] (all l) in shared memory and streams dP[g, k, chunk]
 //      for every k, three k at a time a warp, so dP and U are each read once;
@@ -52,7 +53,7 @@
 // each, written part-major by whole GEMM tiles, so a thread an output reads
 // coalesced; dw has G*L2*L1 outputs (288) of thousands of chunk partials
 // each, where a thread an output leaves the card nearly idle (0.40 ms for
-// the dw sum when it ran on k2_sum_parts_kernel) and a block an output
+// the dw sum when it ran on the dB sum's kernel) and a block an output
 // keeps it busy.
 //
 // The GEMM cores (ligo_gemm.cuh, shared with K1). bf16 calls whose I, A
@@ -65,9 +66,10 @@
 // from shared-memory descriptors, a masked epilogue. dB's operands Q and W
 // are K-major as they are; ligo_transpose_kernel supplies B^T, Q^T and W^T
 // for dW and U. Every other call (f32, whose tolerance tensor cores cannot
-// hold, or an unaligned width) runs ligo_fma_gemm_kernel: an f32 FMA GEMM on
-// any strides, 128 x 128 tiles per 256-thread block, 16-deep slices through
-// shared memory, an 8 x 8 register tile a thread.
+// hold, or an unaligned width) runs ligo_f32_gemm_kernel: an f32 FMA GEMM on
+// any strides through a cp.async ring, in the tile and split that
+// kernels/_gemm.py::f32_gemm_plan picks for each product's shape
+// (ligo_gemm.cuh says why).
 //
 // What bounds it. On the LiGO training path (gpt2-base -> gpt2-medium) the
 // kernel runs once per eligible group per SGD step: wq, wk, wv, wo (I 1024,
@@ -151,19 +153,6 @@ k2_blend_dp_kernel(const float* __restrict__ w, const T* __restrict__ dP,
         }
       }
     }
-  }
-}
-
-// out[i] = sum_{s < S} part[s * n + i] in order, cast to TO.
-template <typename TO>
-__global__ void k2_sum_parts_kernel(const float* __restrict__ part,
-                                    TO* __restrict__ out, int S, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += part[s * n + i];
-    out[i] = from_f32<TO>(acc);
   }
 }
 
@@ -288,17 +277,25 @@ struct Bufs {
   __nv_bfloat16* Bt;  // (A, I), tensor-core route only
   __nv_bfloat16* Qt;  // (G, L1, E, Bd, I), tensor-core route only
   __nv_bfloat16* Wt;  // (G, L1, E, Bd, A), tensor-core route only
-  float* dBpart;    // (splits, I, A) f32, unused when splits == 1
+  float* part;      // split partials: dB's (splits, I, A) on route 1, the
+                    // f32 GEMM's (S, Z, M, N) of a split product on route 0
   float* dwpart;    // (G, L2, L1, n_chunks) f32
   float* dw;        // (G, L2, L1) f32
   T* dB;            // (I, A)
   T* dW;            // (G, L1, E, A, Bd)
 };
 
-// Products 2-4 on the FMA core; Z = G*L1*E.
+// The f32 GEMM's tile and split of each product (kernels/_gemm.py::
+// f32_gemm_plan); dB's split is the launcher's `splits`.
+struct F32Plans {
+  int tile_dw, split_dw, tile_db, tile_u, split_u;
+};
+
+// Products 2-4 on the f32 GEMM; Z = G*L1*E.
 template <typename T>
-cudaError_t products_fma(const Bufs<T>& b, int Z, int I, int A, int Bd,
-                         int splits, int flags, bool u, cudaStream_t stream) {
+cudaError_t products_f32(const Bufs<T>& b, int Z, int I, int A, int Bd,
+                         int splits, const F32Plans& p, int flags, bool u,
+                         cudaStream_t stream) {
   const int64_t sQ = (int64_t)I * Bd;
   const int64_t sW = (int64_t)A * Bd;
   cudaError_t err;
@@ -306,11 +303,12 @@ cudaError_t products_fma(const Bufs<T>& b, int Z, int I, int A, int Bd,
   // dW[z] (A x Bd) = B^T (A x I) @ Q[z] (I x Bd)
   if (flags & kNeedDWt) {
     GemmArgs gw;
-    gw.M = A; gw.N = Bd; gw.K = I; gw.R = 1; gw.S = 1;
+    gw.M = A; gw.N = Bd; gw.K = I; gw.R = 1; gw.S = p.split_dw;
     gw.sAm = 1; gw.sAk = A; gw.sAz = 0; gw.sAr = 0;
     gw.sBk = Bd; gw.sBn = 1; gw.sBz = sQ; gw.sBr = 0;
     gw.ldc = Bd; gw.sCz = sW;
-    err = fma_gemm<kProdDW>(b.B, b.Q, b.dW, gw, Z, stream);
+    err = f32_gemm<kProdDW, false, false>(b.B, b.Q, b.dW, b.part, gw, Z,
+                                          p.tile_dw, stream);
     if (err != cudaSuccess) return err;
   }
 
@@ -321,19 +319,20 @@ cudaError_t products_fma(const Bufs<T>& b, int Z, int I, int A, int Bd,
     gb.sAm = Bd; gb.sAk = 1; gb.sAz = 0; gb.sAr = sQ;
     gb.sBk = 1; gb.sBn = Bd; gb.sBz = 0; gb.sBr = sW;
     gb.ldc = A; gb.sCz = (int64_t)I * A;
-    err = splits == 1 ? fma_gemm<kProdDB>(b.Q, b.W, b.dB, gb, 1, stream)
-                      : fma_gemm<kProdDB>(b.Q, b.W, b.dBpart, gb, 1, stream);
+    err = f32_gemm<kProdDB, true, true>(b.Q, b.W, b.dB, b.part, gb, 1,
+                                        p.tile_db, stream);
     if (err != cudaSuccess) return err;
   }
   if (!u) return cudaSuccess;
 
   // U[z] (I x Bd) = B (I x A) @ W[z] (A x Bd), f32
   GemmArgs gu;
-  gu.M = I; gu.N = Bd; gu.K = A; gu.R = 1; gu.S = 1;
+  gu.M = I; gu.N = Bd; gu.K = A; gu.R = 1; gu.S = p.split_u;
   gu.sAm = A; gu.sAk = 1; gu.sAz = 0; gu.sAr = 0;
   gu.sBk = Bd; gu.sBn = 1; gu.sBz = sW; gu.sBr = 0;
   gu.ldc = Bd; gu.sCz = sQ;
-  return fma_gemm<kProdU>(b.B, b.W, b.U, gu, Z, stream);
+  return f32_gemm<kProdU, true, false>(b.B, b.W, b.U, b.part, gu, Z,
+                                       p.tile_u, stream);
 }
 
 // The tensor maps of products 2-4 on the tensor cores that a call runs, X
@@ -392,7 +391,7 @@ int products_tc(const Bufs<__nv_bfloat16>& b, const CUtensorMap* m, int Z,
     gb.xz = 0; gb.xr = 1; gb.yz = 0; gb.yr = 1;
     gb.ldc = A; gb.sCz = (int64_t)I * A;
     e = splits == 1 ? tc_gemm<kProdDB>(m[2], m[3], b.dB, gb, 1, stream)
-                    : tc_gemm<kProdDB>(m[2], m[3], b.dBpart, gb, 1, stream);
+                    : tc_gemm<kProdDB>(m[2], m[3], b.part, gb, 1, stream);
     if (e != 0) return e;
   }
   if (!u) return 0;
@@ -407,8 +406,8 @@ int products_tc(const Bufs<__nv_bfloat16>& b, const CUtensorMap* m, int Z,
 
 template <typename T>
 int launch(const Bufs<T>& b, int G, int L2, int L1, int E, int I, int A,
-           int Bd, int splits, int dw_chunk, int route, int flags,
-           cudaStream_t stream) {
+           int Bd, int splits, const F32Plans& plans, int dw_chunk,
+           int route, int flags, cudaStream_t stream) {
   const int64_t sQ = (int64_t)I * Bd;
   const int Z = G * L1 * E;                  // (g, l, e) batch
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -449,15 +448,16 @@ int launch(const Bufs<T>& b, int G, int L2, int L1, int E, int I, int A,
     }
   }
   if (route == 0 && products) {
-    ep = (int)products_fma<T>(b, Z, I, A, Bd, splits, flags, u, stream);
+    ep = (int)products_f32<T>(b, Z, I, A, Bd, splits, plans, flags, u,
+                              stream);
   }
   if (ep != 0) return ep;
 
-  // dB = sum of the partials
-  if ((flags & kNeedDB) && splits > 1) {
+  // dB = sum of the tensor-core GEMM's partials (the f32 GEMM sums its own)
+  if (route == 1 && (flags & kNeedDB) && splits > 1) {
     const int64_t nB = (int64_t)I * A;
-    k2_sum_parts_kernel<T><<<grid_stride_blocks(nB), kThreads, 0, stream>>>(
-        b.dBpart, b.dB, splits, nB);
+    ligo_sum_parts_kernel<T><<<grid_stride_blocks(nB), kThreads, 0,
+                               stream>>>(b.part, b.dB, splits, nB);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -484,10 +484,10 @@ int launch(const Bufs<T>& b, int G, int L2, int L1, int E, int I, int A,
 
 template <typename T>
 int launch_typed(const void* w, const void* B, const void* W, const void* dP,
-                 void* Q, void* U, void* Bt, void* Qt, void* Wt,
-                 void* dBpart, void* dwpart, void* dw, void* dB, void* dW,
-                 int G, int L2, int L1, int E, int I, int A, int Bd,
-                 int splits, int dw_chunk, int route, int flags,
+                 void* Q, void* U, void* Bt, void* Qt, void* Wt, void* part,
+                 void* dwpart, void* dw, void* dB, void* dW, int G, int L2,
+                 int L1, int E, int I, int A, int Bd, int splits,
+                 const F32Plans& plans, int dw_chunk, int route, int flags,
                  cudaStream_t stream) {
   Bufs<T> b;
   b.w = static_cast<const float*>(w);
@@ -499,13 +499,13 @@ int launch_typed(const void* w, const void* B, const void* W, const void* dP,
   b.Bt = static_cast<__nv_bfloat16*>(Bt);
   b.Qt = static_cast<__nv_bfloat16*>(Qt);
   b.Wt = static_cast<__nv_bfloat16*>(Wt);
-  b.dBpart = static_cast<float*>(dBpart);
+  b.part = static_cast<float*>(part);
   b.dwpart = static_cast<float*>(dwpart);
   b.dw = static_cast<float*>(dw);
   b.dB = static_cast<T*>(dB);
   b.dW = static_cast<T*>(dW);
-  return launch<T>(b, G, L2, L1, E, I, A, Bd, splits, dw_chunk, route, flags,
-                   stream);
+  return launch<T>(b, G, L2, L1, E, I, A, Bd, splits, plans, dw_chunk, route,
+                   flags, stream);
 }
 
 }  // namespace
@@ -513,35 +513,41 @@ int launch_typed(const void* w, const void* B, const void* W, const void* dP,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (for B, W, dP, Q, dB and dW). w is
-// (G, L2, L1) f32; dw is f32. route: 0 runs products 2-4 on the FMA GEMM,
-// 1 on the tensor-core GEMM (bf16 only; the caller has checked that I, A
-// and Bd are multiples of 8 and put B, W and a given Q on 16-byte
-// boundaries). flags: kUGiven, kQGiven, kNeedDw, kNeedDB, kNeedDWt above;
-// an operand or result that the flags leave unused may be null. Allocated
-// by the caller: Q (G, L1, E, I, Bd) in the dtype (written, or read with
-// kQGiven), U (G, L1, E, I, Bd) f32 (written, or read with kUGiven), on
-// route 1 Bt (A, I), Qt (G, L1, E, Bd, I) and Wt (G, L1, E, Bd, A) bf16,
-// dBpart (splits, I, A) f32 (unused when splits == 1), dwpart
+// (G, L2, L1) f32; dw is f32. route: 0 runs products 2-4 on the f32 GEMM,
+// each in the tile and split of its plan (tile_dw, split_dw; tile_db with
+// `splits`; tile_u, split_u: kernels/_gemm.py::f32_gemm_plan), 1 on the
+// tensor-core GEMM (bf16 only; the caller has checked that I, A and Bd are
+// multiples of 8 and put B, W and a given Q on 16-byte boundaries), dB in
+// `splits` parts. flags: kUGiven, kQGiven, kNeedDw, kNeedDB, kNeedDWt
+// above; an operand or result that the flags leave unused may be null.
+// Allocated by the caller: Q (G, L1, E, I, Bd) in the dtype (written, or
+// read with kQGiven), U (G, L1, E, I, Bd) f32 (written, or read with
+// kUGiven), on route 1 Bt (A, I), Qt (G, L1, E, Bd, I) and Wt
+// (G, L1, E, Bd, A) bf16, part f32 scratch for the split partials (route
+// 1: (splits, I, A); route 0: the largest (S, output) of a product it
+// runs split; unused where nothing splits), dwpart
 // (G, L2, L1, ceil(E*I*Bd / dw_chunk)) f32; dw_chunk a multiple of 32.
 // Returns 0, a cudaError_t, or a value >= kErrTensorMap - 1 for a failed
 // tensor-map encode.
 int ligo_blend_expand_bwd(const void* w, const void* B, const void* W,
                           const void* dP, void* Q, void* U, void* Bt,
-                          void* Qt, void* Wt, void* dBpart, void* dwpart,
+                          void* Qt, void* Wt, void* part, void* dwpart,
                           void* dw, void* dB, void* dW, int G, int L2,
                           int L1, int E, int I, int A, int Bd, int splits,
-                          int dw_chunk, int route, int flags, int dtype,
-                          void* stream) {
+                          int tile_dw, int split_dw, int tile_db, int tile_u,
+                          int split_u, int dw_chunk, int route, int flags,
+                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const F32Plans plans = {tile_dw, split_dw, tile_db, tile_u, split_u};
   if (dtype == 1) {
-    return launch_typed<__nv_bfloat16>(w, B, W, dP, Q, U, Bt, Qt, Wt, dBpart,
+    return launch_typed<__nv_bfloat16>(w, B, W, dP, Q, U, Bt, Qt, Wt, part,
                                        dwpart, dw, dB, dW, G, L2, L1, E, I,
-                                       A, Bd, splits, dw_chunk, route, flags,
-                                       s);
+                                       A, Bd, splits, plans, dw_chunk, route,
+                                       flags, s);
   }
-  return launch_typed<float>(w, B, W, dP, Q, U, Bt, Qt, Wt, dBpart, dwpart,
+  return launch_typed<float>(w, B, W, dP, Q, U, Bt, Qt, Wt, part, dwpart,
                              dw, dB, dW, G, L2, L1, E, I, A, Bd, splits,
-                             dw_chunk, route, flags, s);
+                             plans, dw_chunk, route, flags, s);
 }
 
 const char* ligo_bwd_error_string(int err) { return error_text(err); }

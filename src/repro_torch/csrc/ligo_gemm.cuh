@@ -2,8 +2,12 @@
 // (ligo_expand_bwd.cu) share: f32 <-> storage-type conversion, V-wide loads
 // and stores, and two batched GEMMs with their launchers.
 //
-//   ligo_fma_gemm_kernel    C[z] = sum_r A_r B_r on any strides, f32 FMA pipes
-//                           (f32 operands, and bf16 at unaligned widths);
+//   ligo_f32_gemm_kernel    C[z] = sum_r A_r B_r on any strides, f32 FMA pipes
+//                           (f32 operands, and bf16 at unaligned widths),
+//                           through a cp.async ring, in one of four tiles
+//                           the host picks by shape, its sum split where
+//                           the output's blocks leave SMs idle;
+//   ligo_sum_parts_kernel   the in-order sum of a split GEMM's partials;
 //   ligo_wgmma_gemm_kernel  C[z] = sum_r X_r Y_r^T from K-major bf16 operands
 //                           through a TMA ring onto wgmma (bf16 at widths that
 //                           are multiples of 8);
@@ -22,6 +26,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -38,14 +45,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-constexpr int kBM = 128;       // output rows per block
-constexpr int kBN = 128;       // output cols per block
-constexpr int kBK = 16;        // contraction slice per shared-memory round
-constexpr int kThreads = 256;  // 16 x 16 threads, each an 8 x 8 output tile
+constexpr int kThreads = 256;  // threads of the elementwise kernels
 constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 8;         // rows per thread: ty + 16 * m
-constexpr int kTN = 8;         // cols per thread: tx + 16 * c
-constexpr int kPad = 4;        // spreads the k-major tile stores over banks
 
 // Product tags of the GEMM instances.
 constexpr int kProdDW = 0;     // K2: dW[z] = B^T Q[z]
@@ -63,93 +64,6 @@ struct GemmArgs {
   int64_t sBk, sBn, sBz, sBr;
   int64_t ldc, sCz;
 };
-
-// The f32 FMA GEMM (the route for f32 operands and unaligned bf16 widths).
-template <int kProd, typename TA, typename TB, typename TC>
-__global__ void __launch_bounds__(kThreads)
-ligo_fma_gemm_kernel(const TA* __restrict__ Ap, const TB* __restrict__ Bp,
-                     TC* __restrict__ C, const GemmArgs g) {
-  __shared__ float As[kBK][kBM + kPad];   // As[k][m]
-  __shared__ float Bs[kBK][kBN + kPad];   // Bs[k][n]
-
-  const int z = blockIdx.z;
-  const int64_t zb = z / g.S;
-  const int zs = z % g.S;
-  const int r0 = (int)((int64_t)zs * g.R / g.S);
-  const int r1 = (int)((int64_t)(zs + 1) * g.R / g.S);
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  // Stage each tile along the operand's contiguous axis, so that
-  // neighbouring threads read neighbouring addresses.
-  const bool a_kmajor = g.sAk == 1;
-  const bool b_kmajor = g.sBk == 1;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) acc[m][c] = 0.f;
-  }
-
-  for (int r = r0; r < r1; ++r) {
-    const TA* A = Ap + zb * g.sAz + (int64_t)r * g.sAr;
-    const TB* B = Bp + zb * g.sBz + (int64_t)r * g.sBr;
-    for (int k0 = 0; k0 < g.K; k0 += kBK) {
-#pragma unroll
-      for (int j = 0; j < kBM * kBK / kThreads; ++j) {
-        const int t = tid + j * kThreads;
-        const int m = a_kmajor ? t / kBK : t % kBM;
-        const int k = a_kmajor ? t % kBK : t / kBM;
-        const int gm = row0 + m;
-        const int gk = k0 + k;
-        As[k][m] = (gm < g.M && gk < g.K)
-                       ? to_f32(A[gm * g.sAm + gk * g.sAk]) : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kBK * kBN / kThreads; ++j) {
-        const int t = tid + j * kThreads;
-        const int n = b_kmajor ? t / kBK : t % kBN;
-        const int k = b_kmajor ? t % kBK : t / kBN;
-        const int gn = col0 + n;
-        const int gk = k0 + k;
-        Bs[k][n] = (gk < g.K && gn < g.N)
-                       ? to_f32(B[gk * g.sBk + gn * g.sBn]) : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        float ra[kTM];
-        float rb[kTN];
-#pragma unroll
-        for (int m = 0; m < kTM; ++m) ra[m] = As[k][ty + 16 * m];
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) rb[c] = Bs[k][tx + 16 * c];
-#pragma unroll
-        for (int m = 0; m < kTM; ++m) {
-#pragma unroll
-          for (int c = 0; c < kTN; ++c) acc[m][c] = fmaf(ra[m], rb[c], acc[m][c]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  TC* Cz = C + (int64_t)z * g.sCz;
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int gm = row0 + ty + 16 * m;
-    if (gm >= g.M) continue;
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) {
-      const int gn = col0 + tx + 16 * c;
-      if (gn < g.N) Cz[gm * g.ldc + gn] = from_f32<TC>(acc[m][c]);
-    }
-  }
-}
 
 // V consecutive values at p, as f32 (V = 1, or 4 from an aligned address).
 template <int V>
@@ -460,6 +374,337 @@ ligo_transpose_kernel(const __nv_bfloat16* __restrict__ in,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 GEMM:  C[z] = sum_{r in split} sum_k Aop_r(m, k) Bop_r(k, n)
+// (GemmArgs above) on the FMA pipes in exact f32: the route of every f32
+// product of K1 and K2, and of bf16 ones at widths TMA cannot take
+// (converted to f32 as they are staged). TF32 would change the arithmetic
+// that the f32 tolerance (1e-5, normalised) is reasoned from.
+//
+// What bounds it. The AdamW-moment grow (gpt2-base -> gpt2-medium: 7 K1
+// products a moment, 394 GFLOP) is bound by operations: 5.9 ms a moment at
+// the H100 SXM's 67 TFLOP/s f32. Its products are large (M 1024-4096, N
+// 768-4096, K 768-3072, 12 batches), so the 128 x 128 tile gives 768-3072
+// blocks. The MoE router's group (N = Bd = 8, K 2048) is bound by bytes:
+// B (M x K f32) is read once, 33.5 MB, ~10 us at 3.35 TB/s, against ~0.6
+// GFLOP.
+//
+// The design:
+// - A ring of kFStages k-slices (kFk deep) in shared memory, filled by
+//   cp.async: 16-byte cp.async.cg along an operand's contiguous axis where
+//   its strides, extent and base allow it, 4-byte cp.async.ca otherwise,
+//   zero fill past every edge (src-size 0). Loads of slice it + 2 fly while
+//   slice it is multiplied; one __syncthreads a slice. bf16 operands are
+//   loaded, converted and stored by the threads themselves.
+// - Each operand is staged along its own contiguous axis: an M- (N-)
+//   contiguous operand as [k][m] rows, a K-contiguous one as [m][k] rows of
+//   kFk floats whose 16-byte chunks are XOR-swizzled by (m / 4) % 4, so that
+//   the rows a warp reads together fall in distinct banks.
+// - A thread owns TM x TN outputs as (TM/4) x (TN/4) strips of 4 x 4, 64
+//   (or 16) rows or columns apart, and reads shared memory as float4s: 16
+//   LDS.128 for 256 FMAs (8 x 8) per four k. A warp's lanes are 4 x 8 (8 x
+//   4 on the 16-wide tile), so its float4 reads touch 4 or 8 distinct
+//   16-byte chunks, 128 bytes at most.
+// - The tile follows the shape (kernels/_gemm.py::f32_gemm_plan picks it and
+//   passes its code): 128 x 128 (8 x 8 a thread, 256 threads) for large
+//   products; 64 x 64 (4 x 4, 256) where 128 x 128 gives less than a wave;
+//   64 x 32 (4 x 4, 128) for N <= 32; 128 x 16 (8 x 4, 64) for N <= 16,
+//   the router's Bd = 8. Where the blocks still fall short of 132 SMs, the
+//   (r, k-slice) sequence is cut into S contiguous parts, each a block
+//   writing an f32 partial, and ligo_sum_parts_kernel adds the parts in
+//   order: no float atomics, so every call repeats bit for bit, and K1's
+//   and K2's U (the same arguments, the same plan) agree bit for bit.
+//
+// Where it stands (tools/f32_gemm_times.py, an H100 80GB HBM3 at 700 W):
+// the gpt2 moment grow's GEMMs run at about half the FMA peak, level with
+// the library's f32 GEMM. The 128 x 128 instance holds 215 registers a
+// thread, so one 8-warp block an SM; two blocks an SM (128 registers), a
+// 4-deep ring and 32-deep slices were each measured slower.
+
+constexpr int kFk = 16;        // contraction depth of one ring stage
+constexpr int kFStages = 3;    // slices in flight
+
+// Tile kTile: BM x BN outputs a block, TM x TN a thread.
+template <int kTile> struct F32Tile;
+template <> struct F32Tile<0> {
+  static constexpr int BM = 128, BN = 128, TM = 8, TN = 8;
+};
+template <> struct F32Tile<1> {
+  static constexpr int BM = 64, BN = 64, TM = 4, TN = 4;
+};
+template <> struct F32Tile<2> {
+  static constexpr int BM = 64, BN = 32, TM = 4, TN = 4;
+};
+template <> struct F32Tile<3> {
+  static constexpr int BM = 128, BN = 16, TM = 8, TN = 4;
+};
+
+template <int kTile>
+constexpr int f32_threads() {
+  return (F32Tile<kTile>::BM / F32Tile<kTile>::TM)
+         * (F32Tile<kTile>::BN / F32Tile<kTile>::TN);
+}
+
+// f32_gemm's flags: which operands take 16-byte copies, and whether C
+// takes 16-byte stores
+constexpr int kVecA = 1, kVecB = 2, kVecC = 4;
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Offset in a K-contiguous staged tile of element (row, k): rows of kFk
+// floats, 16-byte chunks swizzled by (row / 4) % 4.
+__device__ __forceinline__ int kc_off(int row, int k) {
+  return row * kFk + ((((k >> 2) ^ (row >> 2)) & 3) << 2) + (k & 3);
+}
+
+// One operand's share of a ring stage: X(row, k) = base[row*s_row + k*s_k]
+// for rows [row0, row0 + kR) and k [k0, k0 + kFk), into s (kR x kFk
+// floats), zero past `rows` and `K`. kKc: staged K-contiguous ([row][k]),
+// else row-contiguous ([k][row]). Each thread copies kR * kFk / 4 / kT
+// vectors of 4 elements along the staged contiguous axis: one 16-byte
+// cp.async where `vec`, else 4-byte ones (f32) or loads and stores (bf16).
+template <bool kKc, int kR, int kT, typename T>
+__device__ __forceinline__ void stage_operand(float* s, const T* base,
+                                              int64_t s_row, int64_t s_k,
+                                              int row0, int rows, int k0,
+                                              int K, bool vec) {
+  constexpr int kVecs = kR * kFk / 4;
+  static_assert(kVecs % kT == 0, "tile vectors must split over the threads");
+#pragma unroll
+  for (int j = 0; j < kVecs / kT; ++j) {
+    const int v = threadIdx.x + j * kT;
+    int row, k, dr, dk;            // first element, and the step between
+    float* dst;                    // the vector's four
+    if (kKc) {
+      row = v >> 2; k = (v & 3) * 4; dr = 0; dk = 1;
+      dst = s + kc_off(row, k);
+    } else {
+      k = v / (kR / 4); row = (v % (kR / 4)) * 4; dr = 1; dk = 0;
+      dst = s + k * kR + row;
+    }
+    const int gr = row0 + row;
+    const int gk = k0 + k;
+    if constexpr (std::is_same<T, float>::value) {
+      if (vec) {                   // all four in or out together
+        const bool in = gr < rows && gk < K;
+        cp_async16(dst, in ? base + gr * s_row + gk * s_k : base,
+                   in ? 16 : 0);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = gr + e * dr, kk = gk + e * dk;
+        const bool in = r < rows && kk < K;
+        cp_async4(dst + e, in ? base + r * s_row + kk * s_k : base,
+                  in ? 4 : 0);
+      }
+    } else {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = gr + e * dr, kk = gk + e * dk;
+        x[e] = (r < rows && kk < K) ? to_f32(base[r * s_row + kk * s_k])
+                                    : 0.f;
+      }
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
+}
+
+template <int kProd, int kTile, bool kAKc, bool kBKc, typename TA,
+          typename TB, typename TC>
+__global__ void __launch_bounds__(f32_threads<kTile>())
+ligo_f32_gemm_kernel(const TA* __restrict__ Ap, const TB* __restrict__ Bp,
+                     TC* __restrict__ C, float* __restrict__ part,
+                     const GemmArgs g, int flags) {
+  using Tl = F32Tile<kTile>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, TM = Tl::TM, TN = Tl::TN;
+  constexpr int kTX = BN / TN, kTY = BM / TM;      // threads along n, m
+  constexpr int kT = kTX * kTY;
+  constexpr int kLX = kTX < 8 ? kTX : 8;           // a warp's lanes along n
+  constexpr int kLY = 32 / kLX;
+  constexpr int kRS = kTY * 4, kCS = kTX * 4;      // strip strides
+  __shared__ __align__(16) float As[kFStages][BM * kFk];
+  __shared__ __align__(16) float Bs[kFStages][BN * kFk];
+
+  const int Zo = gridDim.z / g.S;                  // output batches
+  const int z = blockIdx.z;
+  const int zb = z / g.S;
+  const int zs = z % g.S;
+  const int nk = (g.K + kFk - 1) / kFk;
+  const int t0 = (int)((int64_t)zs * g.R * nk / g.S);
+  const int t1 = (int)((int64_t)(zs + 1) * g.R * nk / g.S);
+  const int n_it = t1 - t0;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = (warp / (kTX / kLX)) * kLY + lane / kLX;
+  const int tx = (warp % (kTX / kLX)) * kLX + lane % kLX;
+  const bool vec_a = flags & kVecA, vec_b = flags & kVecB;
+  const TA* A = Ap + (int64_t)zb * g.sAz;
+  const TB* B = Bp + (int64_t)zb * g.sBz;
+
+  // slice t of the (r, k-slice) sequence into ring stage st
+  auto load = [&](int st, int t) {
+    const int r = t / nk;
+    const int k0 = (t - r * nk) * kFk;
+    stage_operand<kAKc, BM, kT>(As[st], A + (int64_t)r * g.sAr, g.sAm,
+                                g.sAk, row0, g.M, k0, g.K, vec_a);
+    stage_operand<kBKc, BN, kT>(Bs[st], B + (int64_t)r * g.sBr, g.sBn,
+                                g.sBk, col0, g.N, k0, g.K, vec_b);
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+
+#pragma unroll
+  for (int st = 0; st < kFStages - 1; ++st) {
+    if (st < n_it) load(st, t0 + st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kFStages - 2>();   // this thread's copies of slice it
+    __syncthreads();                 // everyone's; slice it - 1 is done
+    if (it + kFStages - 1 < n_it) {
+      load((it + kFStages - 1) % kFStages, t0 + it + kFStages - 1);
+    }
+    cp_async_commit();
+    const float* sa = As[it % kFStages];
+    const float* sb = Bs[it % kFStages];
+#pragma unroll
+    for (int kq = 0; kq < kFk / 4; ++kq) {
+      float ra[TM][4];               // A(row i, 4 kq + kk)
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        if (kAKc) {
+          const int row = (i / 4) * kRS + ty * 4 + i % 4;
+          const float4 v = *reinterpret_cast<const float4*>(
+              sa + kc_off(row, 4 * kq));
+          ra[i][0] = v.x; ra[i][1] = v.y; ra[i][2] = v.z; ra[i][3] = v.w;
+        } else if (i % 4 == 0) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                sa + (4 * kq + kk) * BM + (i / 4) * kRS + ty * 4);
+            ra[i][kk] = v.x; ra[i + 1][kk] = v.y;
+            ra[i + 2][kk] = v.z; ra[i + 3][kk] = v.w;
+          }
+        }
+      }
+      if (kBKc) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int col = (j / 4) * kCS + tx * 4 + j % 4;
+          const float4 v = *reinterpret_cast<const float4*>(
+              sb + kc_off(col, 4 * kq));
+          const float rb[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              acc[i][j] = fmaf(ra[i][kk], rb[kk], acc[i][j]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float rb[TN];
+#pragma unroll
+          for (int j = 0; j < TN; j += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                sb + (4 * kq + kk) * BN + (j / 4) * kCS + tx * 4);
+            rb[j] = v.x; rb[j + 1] = v.y; rb[j + 2] = v.z; rb[j + 3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+              acc[i][j] = fmaf(ra[i][kk], rb[j], acc[i][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // C[z], or with a split the f32 partial (zs, zb) of a dense (Zo, M, N)
+  const bool split = g.S > 1;
+  const int64_t ld = split ? g.N : g.ldc;
+  TC* Cz = C + (int64_t)zb * g.sCz;
+  float* Pz = split ? part + ((int64_t)zs * Zo + zb) * g.M * g.N : nullptr;
+  const bool vec_c = split ? g.N % 4 == 0 : (flags & kVecC) != 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = row0 + (i / 4) * kRS + ty * 4 + i % 4;
+    if (gm >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const int gn = col0 + (j / 4) * kCS + tx * 4;
+      const int64_t o = (int64_t)gm * ld + gn;
+      if (split) {
+        if (vec_c && gn + 3 < g.N) {
+          *reinterpret_cast<float4*>(Pz + o) = make_float4(
+              acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (gn + e < g.N) Pz[o + e] = acc[i][j + e];
+        }
+        continue;
+      }
+      if constexpr (std::is_same<TC, float>::value) {
+        if (vec_c && gn + 3 < g.N) {
+          *reinterpret_cast<float4*>(Cz + o) = make_float4(
+              acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (gn + e < g.N) Cz[o + e] = from_f32<TC>(acc[i][j + e]);
+      }
+    }
+  }
+}
+
+// out[i] = sum_{s < S} part[s * n + i] in order, cast to TO: the second
+// pass of a split GEMM (the f32 one's, and K2's dB on the tensor cores).
+template <typename TO>
+__global__ void __launch_bounds__(kThreads)
+ligo_sum_parts_kernel(const float* __restrict__ part, TO* __restrict__ out,
+                      int S, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc += part[s * n + i];
+    out[i] = from_f32<TO>(acc);
+  }
+}
+
 template <typename T>
 bool aligned4(const T* p) {
   return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
@@ -471,13 +716,70 @@ unsigned grid_stride_blocks(int64_t n) {
   return (unsigned)blocks;
 }
 
-template <int kProd, typename TA, typename TB, typename TC>
-cudaError_t fma_gemm(const TA* A, const TB* B, TC* C, const GemmArgs& g,
-                     int Z, cudaStream_t stream) {
-  const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, Z * g.S);
-  ligo_fma_gemm_kernel<kProd, TA, TB, TC><<<grid, kThreads, 0, stream>>>(
-      A, B, C, g);
+template <typename T>
+bool aligned16(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Whether an operand's vectors of 4 along its staged contiguous axis may be
+// one 16-byte copy: f32, unit stride there, an extent and every other
+// stride that keep each vector on a 16-byte boundary.
+template <typename T>
+bool vec16(const T* base, int64_t s_unit, int64_t s_other, int64_t s_z,
+           int64_t s_r, int extent) {
+  return std::is_same<T, float>::value && s_unit == 1 && extent % 4 == 0
+         && s_other % 4 == 0 && s_z % 4 == 0 && s_r % 4 == 0
+         && aligned16(base);
+}
+
+template <int kProd, int kTile, bool kAKc, bool kBKc, typename TA,
+          typename TB, typename TC>
+cudaError_t f32_gemm_tile(const TA* A, const TB* B, TC* C, float* part,
+                          const GemmArgs& g, int Z, cudaStream_t stream) {
+  using Tl = F32Tile<kTile>;
+  const int flags =
+      (vec16(A, kAKc ? g.sAk : g.sAm, kAKc ? g.sAm : g.sAk, g.sAz, g.sAr,
+             kAKc ? g.K : g.M) ? kVecA : 0)
+      | (vec16(B, kBKc ? g.sBk : g.sBn, kBKc ? g.sBn : g.sBk, g.sBz, g.sBr,
+               kBKc ? g.K : g.N) ? kVecB : 0)
+      | (std::is_same<TC, float>::value && g.ldc % 4 == 0 && g.sCz % 4 == 0
+         && aligned16(C) ? kVecC : 0);
+  const dim3 grid((g.N + Tl::BN - 1) / Tl::BN, (g.M + Tl::BM - 1) / Tl::BM,
+                  Z * g.S);
+  ligo_f32_gemm_kernel<kProd, kTile, kAKc, kBKc, TA, TB, TC>
+      <<<grid, f32_threads<kTile>(), 0, stream>>>(A, B, C, part, g, flags);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || g.S == 1) return err;
+  const int64_t n = (int64_t)Z * g.M * g.N;
+  ligo_sum_parts_kernel<TC><<<grid_stride_blocks(n), kThreads, 0, stream>>>(
+      part, C, g.S, n);
   return cudaGetLastError();
+}
+
+// C[z] = sum_{r in split} Aop_r Bop_r on the f32 GEMM, in tile `tile`
+// (F32Tile) and g.S parts; kAKc / kBKc: A / B K-contiguous (sAk / sBk 1),
+// which picks their staged layout. With g.S > 1 the caller gives `part`,
+// (g.S, Z, M, N) f32 scratch, and C must be dense (ldc N, sCz M N).
+template <int kProd, bool kAKc, bool kBKc, typename TA, typename TB,
+          typename TC>
+cudaError_t f32_gemm(const TA* A, const TB* B, TC* C, float* part,
+                     const GemmArgs& g, int Z, int tile,
+                     cudaStream_t stream) {
+  if (g.S < 1 || (g.S > 1 && (part == nullptr || g.ldc != g.N
+                              || g.sCz != (int64_t)g.M * g.N))) {
+    return cudaErrorInvalidValue;
+  }
+  switch (tile) {
+    case 0: return f32_gemm_tile<kProd, 0, kAKc, kBKc>(A, B, C, part, g, Z,
+                                                        stream);
+    case 1: return f32_gemm_tile<kProd, 1, kAKc, kBKc>(A, B, C, part, g, Z,
+                                                        stream);
+    case 2: return f32_gemm_tile<kProd, 2, kAKc, kBKc>(A, B, C, part, g, Z,
+                                                        stream);
+    case 3: return f32_gemm_tile<kProd, 3, kAKc, kBKc>(A, B, C, part, g, Z,
+                                                        stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // A failed tensor-map encode returns kErrTensorMap + its CUresult; a failed
@@ -540,10 +842,20 @@ int make_map(CUtensorMap* map, const __nv_bfloat16* base, int K, int rows,
 template <int kProd, typename TC>
 int tc_gemm(const CUtensorMap& mx, const CUtensorMap& my, TC* C,
             const TcArgs& g, int Z, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      ligo_wgmma_gemm_kernel<kProd, TC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  // the shared-memory opt-in, once per device (as K3's): a CUDA API call
+  // that a grow beside a decode loop would otherwise make at every launch
+  static std::atomic<uint64_t> done{0};  // a bit per device set so far
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(bit & done.load(std::memory_order_acquire))) {
+    err = cudaFuncSetAttribute(ligo_wgmma_gemm_kernel<kProd, TC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kTcSmem);
+    if (err != cudaSuccess) return (int)err;
+    done.fetch_or(bit, std::memory_order_release);
+  }
   const dim3 grid((g.N + kTcBN - 1) / kTcBN, (g.M + kTcBM - 1) / kTcBM,
                   Z * g.S);
   ligo_wgmma_gemm_kernel<kProd, TC><<<grid, kTcThreads, kTcSmem, stream>>>(

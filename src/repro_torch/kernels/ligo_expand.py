@@ -7,7 +7,9 @@ an f32 scratch, then a blend ``P = w · U`` over the layer axis that reads U
 once and rounds P once; the source says why and what bounds it. The GEMM
 is the core K1 shares with K2 (``csrc/ligo_gemm.cuh``): a TMA + ``wgmma``
 tensor-core GEMM for bf16 at widths that are multiples of 8
-(:func:`tensor_core_route`), an f32 FMA GEMM otherwise. It replaces the
+(:func:`tensor_core_route`), otherwise an f32 FMA GEMM through a
+``cp.async`` ring in the tile and split :func:`f32_gemm_plan` picks for
+the shape. It replaces the
 Pallas kernel ``repro/kernels/ligo_expand.py::ligo_blend_expand_grouped``.
 The plain version is
 :func:`repro_torch.kernels.ref.ligo_blend_expand_grouped_ref`.
@@ -28,7 +30,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, _gemm
-from repro_torch.kernels._gemm import tensor_core_route, tma_aligned
+from repro_torch.kernels._gemm import (f32_gemm_plan, tensor_core_route,
+                                       tma_aligned)
 
 LAUNCHES = 0
 
@@ -37,7 +40,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ligo_expand")
     fn = lib.ligo_blend_expand_grouped
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ligo_cuda_error_string.argtypes = [ctypes.c_int]
@@ -135,9 +138,14 @@ def _launch(stage: str, w, B, W, U, dtype):
     route = B is not None and tensor_core_route(B.dtype, I, A, Bd)
     if route:  # TMA reads B, and the transpose W in pairs, as given
         B, W = tma_aligned(B), tma_aligned(W)
-    # Wᵀ, the K-major operand of the tensor-core GEMM; the f32 U stack
+    # Wᵀ, the K-major operand of the tensor-core GEMM; the f32 GEMM's plan
+    # and its split partials; the f32 U stack
     Wt = torch.empty((G, L1, E, Bd, A) if route else (0,), dtype=dtype,
                      device=dev)
+    plan = f32_gemm_plan(I, Bd, A, 1, G * L1 * E)
+    part = (torch.empty((plan.split, G * L1 * E * I * Bd),
+                        dtype=torch.float32, device=dev)
+            if stage != "blend" and not route and plan.split > 1 else null)
     if U is None:
         U = torch.empty((G, L1, E, I, Bd), dtype=torch.float32, device=dev)
     P = (torch.empty((G, L2, E, I, Bd), dtype=dtype, device=dev)
@@ -147,8 +155,9 @@ def _launch(stage: str, w, B, W, U, dtype):
         err = lib.ligo_blend_expand_grouped(
             w32.data_ptr(), (B if B is not None else null).data_ptr(),
             (W if W is not None else null).data_ptr(), Wt.data_ptr(),
-            U.data_ptr(), P.data_ptr(), G, L2, L1, E, I, A, Bd, int(route),
-            _STAGES[stage], _gemm.DTYPES[dtype], stream)
+            U.data_ptr(), P.data_ptr(), part.data_ptr(), G, L2, L1, E, I, A,
+            Bd, int(route), _STAGES[stage], plan.tile, plan.split,
+            _gemm.DTYPES[dtype], stream)
     if err != 0:
         msg = lib.ligo_cuda_error_string(err).decode()
         raise RuntimeError(f"K1 launch failed: CUDA error {err} ({msg})")

@@ -8,8 +8,9 @@ a blend ``Q = wᵀ·dP`` over the target layers, then ``dW = BᵀQ``,
 and ``U = B W``, and ``dw = Σ ⟨dP, U⟩`` by chunks; every sum in one fixed
 order, no float atomics; the source says why and what bounds it. The three
 products run on a TMA + ``wgmma`` tensor-core GEMM for bf16 at widths that
-are multiples of 8 (:func:`tensor_core_route`), on an f32 FMA GEMM
-otherwise: the GEMM core it shares with K1 (``csrc/ligo_gemm.cuh``). It
+are multiples of 8 (:func:`tensor_core_route`), otherwise on an f32 FMA
+GEMM, each in the tile and split :func:`f32_gemm_plan` picks for its
+shape: the GEMM core it shares with K1 (``csrc/ligo_gemm.cuh``). It
 replaces the Pallas kernel ``repro/kernels/ligo_expand_bwd.py::
 ligo_blend_expand_bwd_fused``. The plain version is
 :func:`repro_torch.kernels.ref.ligo_blend_expand_bwd_ref`.
@@ -28,15 +29,16 @@ that the LiGO phase went through the kernel).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, _gemm
-from repro_torch.kernels._gemm import tensor_core_route, tma_aligned
+from repro_torch.kernels._gemm import (SMS, f32_gemm_plan,
+                                       tensor_core_route, tma_aligned)
 
 LAUNCHES = 0
-_SMS = 132                 # H100 SXM; the dB split aims at two blocks per SM
 _DW_SMEM = 48 * 1024       # bytes of U a dw-partial block stages
 
 
@@ -44,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ligo_expand_bwd")
     fn = lib.ligo_blend_expand_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 17
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ligo_bwd_error_string.argtypes = [ctypes.c_int]
@@ -87,11 +89,23 @@ def least_operations(G: int, L2: int, L1: int, E: int, I: int, A: int,
 
 
 def db_splits(I: int, A: int, n: int) -> int:
-    """Contiguous parts of the ``n = G·L1·E`` contraction that the dB GEMM
-    runs as separate blocks: enough for ~2 blocks per SM when the (I, A)
-    tile grid alone is smaller, never more than ``n``."""
+    """Contiguous parts of the ``n = G·L1·E`` contraction that the
+    tensor-core dB GEMM runs as separate blocks: enough for ~2 blocks per SM
+    when the (I, A) tile grid alone is smaller, never more than ``n``. (The
+    float32 GEMM splits by :func:`f32_gemm_plan`.)"""
     tiles = -(-I // _gemm.TILE) * -(-A // _gemm.TILE)
-    return max(1, min(n, -(-2 * _SMS // tiles)))
+    return max(1, min(n, -(-2 * SMS // tiles)))
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plans(G: int, L1: int, E: int, I: int, A: int, Bd: int):
+    """The float32 GEMM's plan of each of K2's products: {"dW": (M A, N Bd,
+    K I, Z), "dB": (M I, N A, K Bd, R Z), "U": (M I, N Bd, K A, Z)} — U's the
+    plan of K1's U, so K2 computes the same bits."""
+    Z = G * L1 * E
+    return {"dW": f32_gemm_plan(A, Bd, I, 1, Z),
+            "dB": f32_gemm_plan(I, A, Bd, Z, 1),
+            "U": f32_gemm_plan(I, Bd, A, 1, Z)}
 
 
 def dw_chunk(L1: int) -> int:
@@ -129,7 +143,7 @@ def _launch(flags: int, w, B, W, dP, U, Q, dims, dtype):
         raise ValueError(f"K2 takes no empty dim: {dims}")
     if (G * L1 * E > _gemm.MAX_GRID_YZ or G > _gemm.MAX_GRID_YZ
             or 4 * L1 * dw_chunk(L1) > _DW_SMEM
-            or -(-max(I, A) // _gemm.TILE) > _gemm.MAX_GRID_YZ):
+            or -(-max(I, A) // 64) > _gemm.MAX_GRID_YZ):
         raise ValueError(f"K2 grid too large for G·L1·E={G * L1 * E}, "
                          f"L1={L1}, I={I}, A={A}")
     if not all(x.is_contiguous() for x in (B, W, dP, U, Q) if x is not None):
@@ -145,10 +159,20 @@ def _launch(flags: int, w, B, W, dP, U, Q, dims, dtype):
     u = need_dw and U is None
     products = u or need_dB or need_dW
     w32 = w.to(f32).contiguous() if w is not None else new((0,), f32)
-    splits = db_splits(I, A, G * L1 * E)
+    Z = G * L1 * E
     chunk = dw_chunk(L1)
     n_chunks = -(-(E * I * Bd) // chunk)
     route = products and tensor_core_route(dtype, I, A, Bd)
+    plans = f32_plans(G, L1, E, I, A, Bd)
+    # dB's parts; the split partials' scratch: the tensor-core dB's, or the
+    # largest of the split products the f32 GEMM runs
+    splits = db_splits(I, A, Z) if route else plans["dB"].split
+    outs = {"dW": Z * A * Bd, "dB": I * A, "U": Z * I * Bd}
+    runs = {"dW": need_dW, "dB": need_dB, "U": u}
+    n_part = (splits * I * A if route and need_dB and splits > 1 else
+              max([plans[k].split * outs[k] for k in outs
+                   if runs[k] and plans[k].split > 1 and not route],
+                  default=0))
     if route:  # TMA reads B, W and a given Q straight from the caller
         B, W = (tma_aligned(x) if x is not None else None for x in (B, W))
         if Q is not None:
@@ -162,7 +186,7 @@ def _launch(flags: int, w, B, W, dP, U, Q, dims, dtype):
     Bt = new((A, I), on=route and need_dW)
     Qt = new((G, L1, E, Bd, I), on=route and need_dW)
     Wt = new((G, L1, E, Bd, A), on=route and u)
-    dBpart = new((splits, I, A), f32, need_dB and splits > 1)
+    part = new((n_part,), f32)
     dwpart = new((G, L2, L1, n_chunks), f32, need_dw)
     dw = new((G, L2, L1), f32, need_dw)
     dB = new((I, A), on=need_dB)
@@ -174,10 +198,11 @@ def _launch(flags: int, w, B, W, dP, U, Q, dims, dtype):
             w32.data_ptr(), *((x if x is not None else null).data_ptr()
                               for x in (B, W, dP)),
             Q.data_ptr(), U.data_ptr(), Bt.data_ptr(), Qt.data_ptr(),
-            Wt.data_ptr(), dBpart.data_ptr(), dwpart.data_ptr(),
+            Wt.data_ptr(), part.data_ptr(), dwpart.data_ptr(),
             dw.data_ptr(), dB.data_ptr(), dW.data_ptr(), G, L2, L1, E, I, A,
-            Bd, splits, chunk, int(route), flags, _gemm.DTYPES[dtype],
-            stream)
+            Bd, splits, plans["dW"].tile, plans["dW"].split,
+            plans["dB"].tile, plans["U"].tile, plans["U"].split, chunk,
+            int(route), flags, _gemm.DTYPES[dtype], stream)
     if err != 0:
         msg = lib.ligo_bwd_error_string(err).decode()
         raise RuntimeError(f"K2 launch failed: CUDA error {err} ({msg})")

@@ -46,6 +46,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ligo_expand, ligo_expand_bwd, ref
@@ -350,6 +351,15 @@ def ligo_blend_expand_grouped_vjp(w: torch.Tensor, B: torch.Tensor,
         use_kernel = W.is_cuda
     if R is not None:
         return _BlendExpandBetween.apply(w, B, W, R, not use_kernel)
+    if (use_kernel and not torch.is_grad_enabled()
+            and _get_current_dispatch_mode() is None):
+        # a grow without gradients and without a mode that counts or fakes
+        # the call (a live hop's grow): K1 from its wrapper, the launch
+        # counted as the custom op counts it, without the op's Python
+        # dispatch (the most of a grow's host time on the card)
+        LAUNCH_COUNTS.inc("fwd")
+        return ligo_expand.ligo_blend_expand_grouped(w.detach(), B.detach(),
+                                                     W.detach())
     return _BlendExpandGrouped.apply(w, B, W, not use_kernel,
                                      _keeps_u(w, B, W))
 

@@ -220,6 +220,9 @@ class HopController:
         self._main_stream = (torch.cuda.current_stream(dev) if self._cuda
                              else None)
         self._side_stream = torch.cuda.Stream(dev) if self._cuda else None
+        # what a grow derives from the operator alone, kept by warm() for
+        # the live grows (GrowthPlan.apply's ``cache``)
+        self._grow_cache = {}
 
     # -- chaos ---------------------------------------------------------------
     def _chaos(self, stage: str) -> None:
@@ -250,7 +253,8 @@ class HopController:
                 self._side_stream.wait_stream(self._main_stream)
             plan = plan_for(eng.cfg, self.cfg2, eng.params)
             grown = plan.apply(self.ligo, eng.params,
-                               use_kernel=eng.use_kernel)
+                               use_kernel=eng.use_kernel,
+                               cache=self._grow_cache)
             if self._cuda:
                 done = torch.cuda.Event()
                 done.record(self._side_stream)

@@ -10,7 +10,11 @@ the gpt2-base -> gpt2-medium hot-grow in bf16 (K2, the backward, runs on the
 same groups in the LiGO phase), a ragged f32 shape, a pinned f32 shape
 (I * Bd odd: the blends' scalar paths), an aligned ragged bf16
 shape (the tensor-core GEMM K1 and K2 share) and an unaligned one (their
-FMA GEMM); K1 and K2 each run twice there, to agree bit for bit; for K3, the
+float32 GEMM); K1 and K2 each run twice there, to agree bit for bit; the
+float32 GEMM at the shapes its plan treats apart (narrow N = 8, 12, 16 and
+32, a split sum, odd widths, operands that are not K-major, bf16 at
+unaligned widths), K2 fed K1's U bit for bit K2's own, and a trace naming
+the planned tile; for K3, the
 gpt2-medium and llama3-8b prefills, a sliding window, bert-large's
 bidirectional shape, ragged and f32 shapes, ragged bf16 shapes on the
 tensor-core kernel (T off its 128-row tile, S off a multiple of 8), bf16
@@ -82,7 +86,7 @@ LIGO_SHAPES = [
     # I * Bd odd: the scalar paths of K1's and K2's blends
     ("pinned", "float32", (1, 1, 1, 2, 1, 50, 45)),
     # the tensor-core GEMM with TMA's zero fill at every edge, and an
-    # unaligned bf16 shape on the FMA GEMM
+    # unaligned bf16 shape on the float32 GEMM
     ("aligned-ragged", "bfloat16", (2, 5, 3, 2, 200, 136, 72)),
     ("unaligned", "bfloat16", (2, 5, 3, 2, 200, 50, 130)),
 ]
@@ -178,8 +182,8 @@ def test_k1_kernel_matches_plain(cuda, name, dtype, dims):
 @pytest.mark.gpu
 def test_k1_tensor_map_failure_raises(cuda, monkeypatch):
     """A tensor map TMA cannot take (B's 100-byte rows, A = 50 forced onto
-    the tensor-core route) makes K1's wrapper raise: no fallback to the FMA
-    GEMM or to the plain version, and no launch counted."""
+    the tensor-core route) makes K1's wrapper raise: no fallback to the
+    float32 GEMM or to the plain version, and no launch counted."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     bf = torch.bfloat16
     B = torch.randn((64, 50), generator=gen, device=cuda).to(bf)
@@ -269,7 +273,7 @@ def test_k2_kernel_matches_plain(cuda, name, dtype, dims):
 def test_k2_tensor_map_failure_raises(cuda, monkeypatch):
     """A tensor map TMA cannot take (here B's 100-byte rows, A = 50 forced
     onto the tensor-core route) makes the wrapper raise: no fallback to the
-    FMA GEMM or to the plain version, and no launch counted."""
+    float32 GEMM or to the plain version, and no launch counted."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     bf = torch.bfloat16
     B = torch.randn((64, 50), generator=gen, device=cuda).to(bf)
@@ -303,6 +307,109 @@ def test_k2_misaligned_operands_match_aligned(cuda):
     want = ligo_expand_bwd.ligo_blend_expand_bwd(w, B.clone(), W.clone(), dP)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# The float32 GEMM K1 and K2 share (``ligo_f32_gemm_kernel``) at the shapes
+# its plan treats apart: name, dtype, (G, L2, L1, E, I, A, Bd), the tile
+# (rows, cols) its plan gives K1's U, and whether that U's sum is split.
+# K2's dW reads Bᵀ (M-contiguous) and Q, its dB Q and Wᵀ (both
+# K-contiguous): the operands that are not K-major. Odd widths take the
+# 4-byte copies, bf16 at widths off a multiple of 8 the converting loads.
+F32_GEMM_SHAPES = [
+    ("router-bd8", "float32", (1, 4, 2, 1, 4096, 2048, 8), (128, 16), True),
+    ("bd16", "float32", (1, 3, 2, 1, 1024, 1024, 16), (128, 16), True),
+    ("bd32", "float32", (1, 3, 2, 1, 512, 768, 32), (64, 32), True),
+    ("mid-64", "float32", (1, 3, 2, 1, 256, 200, 96), (64, 64), False),
+    ("moment-wq", "float32", (1, 24, 12, 1, 1024, 768, 768), (128, 128),
+     False),
+    ("odd-strides", "float32", (2, 3, 3, 2, 130, 77, 45), (64, 64), False),
+    ("bf16-bd12", "bfloat16", (1, 3, 2, 1, 1000, 1000, 12), (128, 16), True),
+]
+
+
+def _f32_gemm_inputs(cuda, dtype, dims, seed):
+    G, L2, L1, E, I, A, Bd = dims
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((G, L2, L1), generator=gen, device=cuda) / L1 ** 0.5
+    B = (torch.randn((I, A), generator=gen, device=cuda) / A ** 0.5).to(dt)
+    W = torch.randn((G, L1, E, A, Bd), generator=gen, device=cuda).to(dt)
+    dP = torch.randn((G, L2, E, I, Bd), generator=gen, device=cuda).to(dt)
+    return w, B, W, dP
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,dims,tile,split", F32_GEMM_SHAPES,
+                         ids=[s[0] for s in F32_GEMM_SHAPES])
+def test_f32_gemm_k1_matches_plain(cuda, name, dtype, dims, tile, split):
+    """K1 on the float32 GEMM, in the tile and split its plan gives:
+    against the plain version, and bit for bit on a second run."""
+    from repro_torch.kernels import _gemm
+    G, L2, L1, E, I, A, Bd = dims
+    w, B, W, _ = _f32_gemm_inputs(cuda, dtype, dims, 11)
+    dt = B.dtype
+    plan = _gemm.f32_gemm_plan(I, Bd, A, 1, G * L1 * E)
+    assert not ligo_expand.tensor_core_route(dt, I, A, Bd)
+    assert _gemm.F32_TILES[plan.tile] == tile and (plan.split > 1) is split
+    got, U = ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    again, U2 = ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    want, Uw = ref.ligo_blend_expand_grouped_ref(w, B, W, keep_u=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(U, U2)
+    for g, r in ((got, want), (U, Uw)):
+        err = (g.float() - r.float()).abs().max() / r.float().abs().max()
+        assert float(err) <= TOL[dtype], (name, float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,dims,tile,split", F32_GEMM_SHAPES,
+                         ids=[s[0] for s in F32_GEMM_SHAPES])
+def test_f32_gemm_k2_matches_plain_and_takes_k1s_u(cuda, name, dtype, dims,
+                                                   tile, split):
+    """K2's three products on the float32 GEMM against the plain version;
+    K2's own U equal bit for bit to K1's, and K2 fed K1's U equal bit for
+    bit to K2 on its own."""
+    w, B, W, dP = _f32_gemm_inputs(cuda, dtype, dims, 12)
+    dt = B.dtype
+    _, U = ligo_expand.ligo_blend_expand_grouped(w, B, W, keep_u=True)
+    own = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, keep_u=True)
+    fed = ligo_expand_bwd.ligo_blend_expand_bwd(w, B, W, dP, U=U)
+    want = ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
+    torch.cuda.synchronize()
+    assert torch.equal(U, own[3])
+    assert all(torch.equal(a, b) for a, b in zip(own[:3], fed))
+    assert [g.dtype for g in fed] == [torch.float32, dt, dt]
+    for g, r in zip(fed[1:], want[1:]):
+        err = (g.float() - r.float()).abs().max() / r.float().abs().max()
+        assert float(err) <= TOL[dtype], (name, float(err))
+    T = torch.einsum("ia,gkeib->gkeab", B.float(), dP.float()).abs()
+    terms = torch.einsum("gkeab,gleab->gkl", T, W.float().abs())
+    err = ((fed[0] - want[0].float()).abs() / terms).max()
+    assert float(err) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_f32_gemm_trace_names_the_planned_instance(cuda):
+    """A float32 K1 call at the router's Bd = 8 launches the f32 GEMM in
+    the plan's tile (its template names product tag 3 and the tile's
+    code) and the in-order sum of its split, and no other GEMM."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _gemm
+    w, B, W, _ = _f32_gemm_inputs(cuda, "float32",
+                                  (1, 4, 2, 1, 4096, 2048, 8), 13)
+    plan = _gemm.f32_gemm_plan(4096, 8, 2048, 1, 2)
+    ligo_expand.ligo_blend_expand_grouped(w, B, W)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ligo_expand.ligo_blend_expand_grouped(w, B, W)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    gemms = [n for n in names if "_gemm_kernel<" in n]
+    assert gemms and all(f"ligo_f32_gemm_kernel<3, {plan.tile}," in n
+                         for n in gemms), gemms
+    assert any("ligo_sum_parts_kernel" in n for n in names), names
 
 
 @pytest.mark.gpu

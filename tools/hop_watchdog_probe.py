@@ -15,7 +15,12 @@ prints warm's wall, the budget it seeded,
 the grow span's wall in the grow thread (``hop.grow``), the wall from the
 launch to the poll that found the grow done (what the watchdog judges),
 the attempts, any ``hop.watchdog_fire`` event, and the engine's step walls
-while the grow ran.
+while the grow ran, and the first live grow's wall in parts: the grow
+thread's start after the launch, its Python (this thread's CPU time, and
+the rest of that wall, which it spent waiting, on the interpreter lock
+above all), its wait for the device, the device's span of the grow's work
+(CUDA events), and the wait from the thread's end to the poll that found
+the grow done; medians and maxima of each part over the runs follow.
 
 Then ``--reps`` grows each way, with the profiler on and off: in the
 calling thread; in a fresh thread while the calling thread waits in
@@ -56,7 +61,9 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import live_prompts
     from repro_torch.models.model import init_params
+    from repro_torch.core.plan import plan_for
     from repro_torch.serving import HopController, ServingEngine
+    from repro_torch.tree import tree_leaves
     if dev.type == "cuda":
         _build.build()
     cfg = get_config("gpt2-base").scaled(name="gpt2-engine", **ENGINE_CFG)
@@ -79,6 +86,41 @@ def main() -> int:
         hop.watchdog.seed(dt)
         return dt
 
+    def timed_grow(hop, parts):
+        """``HopController._grow_once`` with its wall cut into parts, in
+        the thread that runs it: the Python that plans and launches the
+        grow (wall and this thread's CPU time: the rest of that wall is
+        time the thread waited, on the interpreter lock above all), the
+        wait for the device, and the device's span of the grow's work
+        (CUDA events on the side stream, from its first launch to its
+        last)."""
+        eng = hop.engine
+        t0, c0 = time.perf_counter(), time.thread_time()
+        with torch.no_grad(), hop._side():
+            if hop._cuda:
+                hop._side_stream.wait_stream(hop._main_stream)
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(hop._side_stream)
+            plan = plan_for(eng.cfg, hop.cfg2, eng.params)
+            grown = plan.apply(hop.ligo, eng.params,
+                               use_kernel=eng.use_kernel,
+                               cache=hop._grow_cache)
+            t1, c1 = time.perf_counter(), time.thread_time()
+            if hop._cuda:
+                done = torch.cuda.Event(enable_timing=True)
+                done.record(hop._side_stream)
+                done.synchronize()
+        t2 = time.perf_counter()
+        if hop._cuda:
+            for leaf in tree_leaves(grown):
+                leaf.record_stream(hop._main_stream)
+        parts.append({"start": t0, "end": time.perf_counter(),
+                      "py_ms": (t1 - t0) * 1e3, "py_cpu_ms": (c1 - c0) * 1e3,
+                      "sync_ms": (t2 - t1) * 1e3,
+                      "device_ms": (start.elapsed_time(done)
+                                    if hop._cuda else float("nan"))})
+        return grown
+
     def scenario(profiled: bool, in_engine: bool, *, tmp: str):
         obs.set_enabled(True)
         obs.FLIGHT.clear()
@@ -90,12 +132,15 @@ def main() -> int:
         with obs.profile(tmp if profiled else None, device=dev):
             hop = HopController(eng, cfg2, op, background=True)
             warm_s = hop.warm() if in_engine else warm_in_own_thread(hop)
+            parts = []
+            hop._grow_once = lambda: timed_grow(hop, parts)
             budget = hop.watchdog.budget()
             last = [time.perf_counter()]
             observe = hop.watchdog.observe
 
             def observed(dt):            # the elapsed the watchdog judged
                 found.setdefault("elapsed", dt)
+                found.setdefault("at", time.perf_counter())
                 observe(dt)
             hop.watchdog.observe = observed
 
@@ -116,19 +161,34 @@ def main() -> int:
                  if s["name"] == "hop.grow"]
         fires = [e["attrs"] for e in obs.FLIGHT.events(type="event")
                  if e["name"] == "hop.watchdog_fire"]
+        # the first live grow's wall, launch to found, in parts: the
+        # thread's start, its Python (CPU / waiting), the device wait, and
+        # the poll that found it after the thread ended
+        br = {}
+        if parts and "at" in found:
+            g = parts[0]
+            launch = found["at"] - found["elapsed"]
+            br = {"start_ms": (g["start"] - launch) * 1e3,
+                  "py_cpu_ms": g["py_cpu_ms"],
+                  "py_wait_ms": g["py_ms"] - g["py_cpu_ms"],
+                  "sync_ms": g["sync_ms"], "device_ms": g["device_ms"],
+                  "found_ms": (found["at"] - g["end"]) * 1e3}
+            breakdowns.append(br)
         print(f"[probe] {'profiled' if profiled else 'plain   '}, warm in "
               f"{'the engine thread' if in_engine else 'its own thread'}: warm "
               f"{warm_s * 1e3:.2f} ms, budget {budget:.3f} s | attempts "
               f"{hop.attempts}, completed {hop.completed} | hop.grow spans "
               f"(attempt, thread, ms) {grows} | launch-to-found "
               f"{found.get('elapsed', float('nan')) * 1e3:.2f} ms | "
-              f"watchdog fires {fires} | "
+              f"watchdog fires {fires} | first live grow's parts, ms "
+              f"{ {k: round(v, 2) for k, v in br.items()} } | "
               f"engine step walls while the grow ran, ms "
               f"{[round(w, 2) for w in walls]}", flush=True)
         return warm_s, grows, fires
 
     modes = [(p, o) for o in (True, False) for p in (True, False)]
     results = {m: [] for m in modes}
+    breakdowns = []
     with tempfile.TemporaryDirectory() as tmp:
         for i in range(args.reps):
             for m in modes:
@@ -142,6 +202,14 @@ def main() -> int:
                   f"first grow span ms {[round(x, 2) for x in first]}; runs "
                   f"with a watchdog fire {sum(1 for r in rs if r[2])} of "
                   f"{len(rs)}", flush=True)
+
+        for key in ("start_ms", "py_cpu_ms", "py_wait_ms", "sync_ms",
+                    "device_ms", "found_ms"):
+            vals = sorted(b[key] for b in breakdowns)
+            if vals:
+                print(f"[probe] first live grows' {key}: median "
+                      f"{statistics.median(vals):.2f}, max {vals[-1]:.2f} "
+                      f"(of {len(vals)})", flush=True)
 
         # one grow at a time: in the calling thread; in a fresh thread the
         # calling thread waits for idle (join); in a fresh thread beside a
