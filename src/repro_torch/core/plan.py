@@ -284,7 +284,7 @@ class GrowthPlan:
         moe = X.dim() == 5                     # (G, L1, E, a, b) expert stack
         Xg = X if moe else X[:, :, None]       # insert E=1 for plain leaves
         P = ops.ligo_blend_expand_grouped_vjp(
-            w_g, E_in.to(X.dtype).contiguous(), Xg.contiguous(),
+            w_g, E_in, Xg.contiguous(),
             E_out if place == "between" else None)
         if not moe:
             P = P[:, :, 0]
@@ -304,9 +304,10 @@ class GrowthPlan:
         AdamW second-moment map. ``cache``: a dict the caller keeps for this
         plan and this one operator ``ligo`` (a live hop's controller does);
         a grow without gradients keeps there what it derives from the
-        operator alone (the resolved expanders, cast to each leaf dtype, and
-        the stacked depth blends), so that the next grow makes none of
-        those ops again: the same values, fewer launches on the host.
+        operator alone (the resolved expanders, the left ones cast to each
+        leaf dtype, and the stacked depth blends), so that the next grow
+        makes none of those ops again: the same values, fewer launches on
+        the host.
         """
         flat_stacks = {kind: _flatten(stack)
                        for kind, stack in small["layers"].items()}
@@ -347,16 +348,18 @@ class GrowthPlan:
             w_g = (kept(("w", gi_, square), blends)
                    if blend_tree is not None else None)
             X = leaves[0][None] if len(leaves) == 1 else torch.stack(leaves)
-            E_in, E_out = (
-                None if ref_ is None else
-                kept(("E", ref_, square, X.dtype), lambda r=ref_: (
-                    table[r].to(X.dtype).contiguous() if memo is cache
-                    else table[r]))
-                for ref_ in (g.in_ref, g.out_ref))
+            # the left expander in the leaves' dtype; the right one stays
+            # in the operator's (K1's between-split casts it, and returns
+            # its gradient in that dtype)
+            E_in = (None if g.in_ref is None else
+                    kept(("E", g.in_ref, square, X.dtype),
+                         lambda r=g.in_ref: table[r].to(X.dtype)
+                         .contiguous()))
+            E_out = table[g.out_ref] if g.out_ref is not None else None
             if use_kernel and g.kernel_ok and w_g is not None:
                 out = self._run_group_fused(g, X, E_in, E_out, w_g)
             else:
-                if w_g is not None and memo is cache:   # its blend's cast
+                if w_g is not None:                     # its blend's cast
                     w_g = kept(("wd", gi_, square, X.dtype),
                                lambda w=w_g: w.to(X.dtype))
                 out = self._run_group(g, X, E_in, E_out, w_g)

@@ -408,8 +408,7 @@ ligo_transpose_kernel(const __nv_bfloat16* __restrict__ in,
 // - The tile follows the shape (kernels/_gemm.py::f32_gemm_plan picks it and
 //   passes its code): 128 x 128 (8 x 8 a thread, 256 threads) for large
 //   products; 64 x 64 (4 x 4, 256) where 128 x 128 gives less than a wave;
-//   64 x 32 (4 x 4, 128) for N <= 32; 128 x 16 (8 x 4, 64) for N <= 16,
-//   the router's Bd = 8. Where the blocks still fall short of 132 SMs, the
+//   128 x 16 (8 x 4, 64) for N <= 16, the router's Bd = 8. Where the blocks still fall short of 132 SMs, the
 //   (r, k-slice) sequence is cut into S contiguous parts, each a block
 //   writing an f32 partial, and ligo_sum_parts_kernel adds the parts in
 //   order: no float atomics, so every call repeats bit for bit, and K1's
@@ -433,9 +432,6 @@ template <> struct F32Tile<1> {
   static constexpr int BM = 64, BN = 64, TM = 4, TN = 4;
 };
 template <> struct F32Tile<2> {
-  static constexpr int BM = 64, BN = 32, TM = 4, TN = 4;
-};
-template <> struct F32Tile<3> {
   static constexpr int BM = 128, BN = 16, TM = 8, TN = 4;
 };
 
@@ -775,8 +771,6 @@ cudaError_t f32_gemm(const TA* A, const TB* B, TC* C, float* part,
     case 1: return f32_gemm_tile<kProd, 1, kAKc, kBKc>(A, B, C, part, g, Z,
                                                         stream);
     case 2: return f32_gemm_tile<kProd, 2, kAKc, kBKc>(A, B, C, part, g, Z,
-                                                        stream);
-    case 3: return f32_gemm_tile<kProd, 3, kAKc, kBKc>(A, B, C, part, g, Z,
                                                         stream);
     default: return cudaErrorInvalidValue;
   }

@@ -16,7 +16,7 @@ SMS = 132                                        # H100 SXM
 
 # The float32 GEMM's tiles (``F32Tile<code>`` in csrc/ligo_gemm.cuh): output
 # rows x cols a block, by code
-F32_TILES = ((128, 128), (64, 64), (64, 32), (128, 16))
+F32_TILES = ((128, 128), (64, 64), (128, 16))
 F32_SLICE = 16            # contraction depth of one ring stage (kFk)
 F32_MIN_PART = 16         # slices a split part keeps at least (256 deep)
 
@@ -37,8 +37,8 @@ def f32_gemm_plan(M: int, N: int, K: int, R: int = 1,
                   Z: int = 1) -> F32Plan:
     """The tile and split of ``C[z] (M x N) = Σ_r Σ_k A_r B_r`` over ``Z``
     outputs on the float32 GEMM: 128 x 16 for N <= 16 (the MoE router's
-    Bd = 8), 64 x 32 for N <= 32, else 128 x 128 where it gives a wave of
-    blocks on the 132 SMs and 64 x 64 where it does not. Where the blocks
+    Bd = 8), else 128 x 128 where it gives a wave of blocks on the 132 SMs
+    and 64 x 64 where it does not. Where the blocks
     still fall short of the SMs, the sum of R x ceil(K / 16) slices is cut
     into contiguous parts, up to two blocks an SM, each part at least
     F32_MIN_PART slices deep (a shorter sum is too little work to repay the
@@ -46,8 +46,6 @@ def f32_gemm_plan(M: int, N: int, K: int, R: int = 1,
     function of the shape, so that K1's and K2's U, the same product,
     take the same plan and agree bit for bit."""
     if N <= 16:
-        tile = 3
-    elif N <= 32:
         tile = 2
     else:
         tile = 0 if F32Plan(0, 1).blocks(M, N, Z) >= SMS else 1

@@ -318,7 +318,7 @@ def test_k2_misaligned_operands_match_aligned(cuda):
 F32_GEMM_SHAPES = [
     ("router-bd8", "float32", (1, 4, 2, 1, 4096, 2048, 8), (128, 16), True),
     ("bd16", "float32", (1, 3, 2, 1, 1024, 1024, 16), (128, 16), True),
-    ("bd32", "float32", (1, 3, 2, 1, 512, 768, 32), (64, 32), True),
+    ("bd32", "float32", (1, 3, 2, 1, 512, 768, 32), (64, 64), True),
     ("mid-64", "float32", (1, 3, 2, 1, 256, 200, 96), (64, 64), False),
     ("moment-wq", "float32", (1, 24, 12, 1, 1024, 768, 768), (128, 128),
      False),

@@ -3,7 +3,7 @@
 shapes, beside the plain version, one library call and the bound.
 
     PYTHONPATH=src python3 tools/f32_gemm_times.py [--src DIR] [--reps 5]
-        [--json OUT]
+        [--json OUT] [--sweep] [--host-profile]
 
 Rows (kernel ms, plain ms, library ms, bound ms, each the mean of
 ``--reps`` calls after a warm-up, by CUDA events):
@@ -15,7 +15,21 @@ Rows (kernel ms, plain ms, library ms, bound ms, each the mean of
 - ``router``: the MoE router's float32 Bd = 8 group of mixtral cut to 2 ->
   4 layers (phase 13 (c)): K1, and K2 fed K1's U;
 - ``quickstart``: the quickstart twin's float32 LiGO step, K1 and K2 of
-  each of its six groups, placed as a step with gradients places them.
+  each of its six groups, placed as a step with gradients places them;
+- ``recurrent <model>``: the recurrent engine's float32 hops (phase 15
+  (c)): one grow of xlstm-125m and of zamba2-2.7b cut to 12 layers, each
+  to its ``grow_target``, K1's launches group by group.
+
+Rows of the small products (router, quickstart, recurrent) also give
+``device_ms``, the card's kernel time a call, summed from a
+``torch.profiler`` trace of ``--reps`` calls, and ``host_ms``, the host's
+wall a call to return from ``--reps`` calls in a row, so that a row whose
+events time is host-bound shows how much of it the card spends. ``--sweep``
+times each of those K1 rows again with every tile of the float32 GEMM
+forced (unsplit), on a tree that has ``f32_gemm_plan``. ``--host-profile``
+prints, for the router's and the quickstart's rows, where 200 calls
+spend the host's time (``cProfile``, the functions with the most time of
+their own).
 
 ``--src`` puts another checkout's ``src/`` first on the path (the kernels
 it imports are built from that checkout's sources), so that two versions
@@ -27,6 +41,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,6 +51,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--json", default=None)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--host-profile", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, ROOT)
@@ -57,6 +74,62 @@ def main() -> int:
 
     def t(fn):
         return cs._time_ms(torch, fn, reps)
+
+    def device_ms(fn):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   ) / 1e3 / reps
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt * 1e3 / reps
+
+    def host_profile(label, fn):
+        import cProfile
+        import io
+        import pstats
+        fn()
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(200):
+            fn()
+        prof.disable()
+        torch.cuda.synchronize()
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
+        print(f"[f32] host profile of {label}, 200 calls:\n{out.getvalue()}",
+              flush=True)
+
+    def sweep(fn):
+        """{tile code: kernel ms} with every float32 tile forced."""
+        from repro_torch.kernels import _gemm
+        planned = ligo_expand.f32_gemm_plan
+        out = {}
+        try:
+            for tile in range(len(_gemm.F32_TILES)):
+                ligo_expand.f32_gemm_plan = (
+                    lambda *a, tile=tile: _gemm.F32Plan(tile, 1))
+                out[tile] = t(fn)
+        finally:
+            ligo_expand.f32_gemm_plan = planned
+        return out
+
+    small = ("router", "quickstart", "recurrent")
 
     def k1_row(label, d, j, seed, square):
         """K1 at one of the grow's checks (chip_smoke.py::_check_k1's
@@ -109,6 +182,13 @@ def main() -> int:
                "library_ms": t(library),
                "bound_ms": max(flops / cs.PEAK_OPS["float32"],
                                nbytes / cs.PEAK_BYTES) * 1e3}
+        if label.startswith(small):
+            row["device_ms"] = device_ms(kernel)
+            row["host_ms"] = host_ms(kernel)
+            if args.host_profile and not label.startswith("recurrent"):
+                host_profile(f"K1 {label}", kernel)
+            if args.sweep and hasattr(ligo_expand, "f32_gemm_plan"):
+                row["sweep_ms"] = sweep(kernel)
         del w, B, W
         return row
 
@@ -173,6 +253,11 @@ def main() -> int:
                "library_ms": t(library),
                "bound_ms": max(flops / cs.PEAK_OPS["float32"],
                                nbytes / cs.PEAK_BYTES) * 1e3}
+        if label.startswith(small):
+            row["device_ms"] = device_ms(kernel)
+            row["host_ms"] = host_ms(kernel)
+            if args.host_profile:
+                host_profile(f"K2 {label}", kernel)
         del w, B, W, U, dP
         return row
 
@@ -202,17 +287,43 @@ def main() -> int:
                                130 + i, False))
         for i, (name, d, j, need) in enumerate(cs._k2_checks(shapes)):
             rows.append(k2_row(f"{label} {name}", d, j, need, 230 + i))
+    from repro_torch.configs import grow_target
+    xl = get_config("xlstm-125m").scaled(dtype="float32")
+    z = get_config("zamba2-2.7b")
+    z = z.scaled(name=f"{z.name}-{cs.RECUR_F32_ZAMBA}l",
+                 n_layers=cs.RECUR_F32_ZAMBA, dtype="float32")
+    for label, c1 in (("recurrent xlstm", xl), ("recurrent zamba2", z)):
+        for i, sh in enumerate(cs._k1_shapes(torch, c1, grow_target(c1))):
+            calls = cs._k1_calls(sh, False)
+            j = calls[1][1][-1] if len(calls) == 2 else None
+            rows.append(k1_row(f"{label} {sh['name']}", calls[0][1], j,
+                               330 + i, False))
     for r in rows:
+        dev = (f", device {r['device_ms']:.4f}, host {r['host_ms']:.4f}"
+               if "device_ms" in r else "")
+        swp = (", tiles " + " ".join(f"{k}:{v:.4f}" for k, v in
+                                     r["sweep_ms"].items())
+               if "sweep_ms" in r else "")
         print(f"[f32] {r['row']:>28} {r['kernel']} {r['dims']} j={r['j']}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}", flush=True)
-    for prefix in ("moment gpt2", "moment hubert", "router", "quickstart"):
-        sel = [r for r in rows if r["row"].startswith(prefix)]
-        print(f"[f32] {prefix}: {len(sel)} rows, kernel "
-              f"{sum(r['ms'] for r in sel):.3f} ms, plain "
-              f"{sum(r['plain_ms'] for r in sel):.3f}, library "
-              f"{sum(r['library_ms'] for r in sel):.3f}, bound "
-              f"{sum(r['bound_ms'] for r in sel):.3f}", flush=True)
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}{dev}{swp}",
+              flush=True)
+    for prefix in ("moment gpt2", "moment hubert", "router", "quickstart",
+                   "recurrent xlstm", "recurrent zamba2"):
+        for kern in ("K1", "K2", None):
+            sel = [r for r in rows if r["row"].startswith(prefix)
+                   and kern in (None, r["kernel"])]
+            if not sel or (kern and prefix.startswith(("moment",
+                                                       "recurrent"))):
+                continue
+            dev = (f", device {sum(r['device_ms'] for r in sel):.3f}, host "
+                   f"{sum(r['host_ms'] for r in sel):.3f}"
+                   if all("device_ms" in r for r in sel) else "")
+            print(f"[f32] {prefix}{' ' + kern if kern else ''}: {len(sel)} "
+                  f"rows, kernel {sum(r['ms'] for r in sel):.3f} ms, plain "
+                  f"{sum(r['plain_ms'] for r in sel):.3f}, library "
+                  f"{sum(r['library_ms'] for r in sel):.3f}, bound "
+                  f"{sum(r['bound_ms'] for r in sel):.3f}{dev}", flush=True)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
