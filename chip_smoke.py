@@ -107,7 +107,9 @@ sources are not beside it. Phases, each fatal on failure:
    gpt2-base -> gpt2-medium, 8 slots, 16 requests of 64-128 tokens, 32 new
    tokens, paged KV, the grow (K1) in a background thread on its own
    stream: the hop must complete on attempt 1 by re-prefill, every
-   request done, none dropped, K1 launched for ``warm()`` and the hop and
+   request done, none dropped, K1 launched for ``warm()`` (its eager
+   fill, then one timed replay of the grow it captured into a CUDA graph;
+   the capture counts none) and the hop (one replay), 3 x a grow's, and
    K3 once per layer of every prefill and re-prefill the engine counted;
    (b) the same run with the hop synchronous on the kernel route and on
    the plain route: first-token logits within the bf16 tolerance; (c)
@@ -121,7 +123,7 @@ sources are not beside it. Phases, each fatal on failure:
    (auto-disable off): (a) ``serve --live-grow-at 8 --hop-sync
    --speculative 4`` (9 (b)'s run, gpt2-base drafting 4 tokens a round for
    gpt2-medium): every request's tokens equal 9 (b)'s, one draft and one
-   verify build, K1 14 and K3 9 (b)'s plus one a layer for every drafter
+   verify build, K1 21 and K3 9 (b)'s plus one a layer for every drafter
    prefill; the acceptance, the speedup estimate, draft and verify ms a
    round and decode tok/s after the hop with and without speculation
    printed; (b) the same dense, tokens equal 9 (c)'s; (c) the LEMON hop
@@ -143,7 +145,8 @@ sources are not beside it. Phases, each fatal on failure:
    ``flightrec-*-hop-cache-grow.jsonl``; the timeline's ``B``/``E``
    matched on every tid, one async pair per ``hop.*`` span; a scrape of
    ``/metrics`` before shutdown counts the engine's decode steps; the
-   report prints the hop stages; K1 21 (``warm()`` and two grows) and K3
+   report prints the hop stages; K1 28 (``warm()``'s fill and replay, and
+   two replays) and K3
    by the engine's prefill counters; (b) ``train --trajectory`` (gpt2-base
    2 steps, LiGO into gpt2-medium 2 steps in chunks of 1, gpt2-medium 2
    steps, batch 8 x 128) with ``--ledger --obs-log --timeline
@@ -178,9 +181,11 @@ sources are not beside it. Phases, each fatal on failure:
    of 64-128 tokens through 8 slots, 16 new, paged): the dense model hops
    to its MoE twin (E 4, top 2) with 0 dropped and 0 rejected, the cache
    grown in place, K1 launched once per kernel-route group of the plan
-   (warm grow and hop), the served tree bitwise the plain route's, the E
+   for each of warm()'s fill, its replay and the hop's replay, the served
+   tree bitwise the plain route's, the E
    expert copies bitwise equal and the router a float32 zero; decode
-   p50/p99 before and after the hop and the peak memory printed; (b) the
+   p50/p99 before and after the hop, the peak memory and the grown tree
+   the graph's pool holds from warm() to the swap printed; (b) the
    upcycled model's first-token logits against the dense model's at a
    capacity of E/k = 2.0 (no token dropped), and the dropped share at the
    inherited 1.25 printed; (c) ``grow(method="ligo", ligo_steps=2)`` from
@@ -220,7 +225,8 @@ sources are not beside it. Phases, each fatal on failure:
    requests of 32-64 tokens, 16 new): each prompt prefilled at its exact
    length, the hop in the
    background re-prefilling every live history, 0 dropped, 0 rejected, K1
-   once per plan group at ``warm()`` and at the hop, no K3; (b) the same
+   once per plan group at ``warm()``'s fill and replay and at the hop's
+   replay, no K3; (b) the same
    for zamba2-2.7b at 54 layers (4 slots, 8 requests of 256-512 tokens, 8
    new) hopping to 108 x 3840: K1 likewise, K3 once per shared-block
    insertion of every prefill and re-prefill the engine counted, then K3
@@ -2174,6 +2180,17 @@ def _k3_want(eng, cfg1, cfg2):
                                + pc[(cfg2.name, "reprefill")]))
 
 
+def _hop_walls(hop):
+    """A hop's grow walls: warm()'s parts (the untimed eager fill, the
+    capture into a CUDA graph, the timed replay that seeds the watchdog),
+    the budget it seeded, and the live grow's wall (its ``hop.grow``
+    span, one replay in the grow thread)."""
+    grow = hop.timings.get("grow")
+    return (", ".join(f"warm {k} {v:.2f} ms" for k, v in hop.warm_ms.items())
+            + f", seeded budget {hop.seeded_budget_s:.3f} s, live grow "
+            + (f"{grow:.2f} ms" if grow is not None else "not recorded"))
+
+
 def _decode_report(label, eng, hop=None):
     """Decode tok/s (decode tokens over the decode steps' walls) and step
     p50/p99, before, during and after the hop where there is one."""
@@ -2245,7 +2262,7 @@ def _chaos_phase(torch, stage, device="cuda"):
     print(f"[live] chaos at {stage!r}: attempts {hop.attempts}, rollbacks "
           f"{causes}, {c['done']} done, {c['dropped']} dropped, cache "
           f"{hop.cache_path}, swap at decode step {hop.swap_at_step} of "
-          f"{eng.decode_steps}", flush=True)
+          f"{eng.decode_steps}; hop: {_hop_walls(hop)}", flush=True)
     if not ok:
         raise AssertionError(f"chaos at {stage!r}: the hop must roll back "
                              f"once for the injected cause alone and land "
@@ -2287,18 +2304,18 @@ def _live_phase(torch, shapes, llama):
     pc = eng.prefill_counts
     n_pre, n_post = pc[(cfg1.name, "admit")], pc[(cfg2.name, "admit")]
     n_rep = pc[(cfg2.name, "reprefill")]
-    want = {"ligo_blend_expand_grouped": 2 * k1_grow,
+    want = {"ligo_blend_expand_grouped": 3 * k1_grow,
             "ligo_blend_expand_bwd_fused": 0,
             "flash_attention": _k3_want(eng, cfg1, cfg2)}
-    print(f"[live] (a) launches {runs['live a']}, want {want} (K1: warm() "
-          f"and the hop, {k1_grow} each; K3: {n_pre} gpt2-base prefills x "
+    print(f"[live] (a) launches {runs['live a']}, want {want} (K1: warm()'s "
+          f"fill and replay and the hop's replay, {k1_grow} each; K3: "
+          f"{n_pre} gpt2-base prefills x "
           f"{cfg1.n_layers} + ({n_post} gpt2-medium prefills + {n_rep} "
           f"re-prefills) x {cfg2.n_layers})", flush=True)
     if runs["live a"] != want or not (n_pre and n_post and n_rep):
         raise AssertionError(f"(a) launches {runs['live a']}, want {want}")
-    print(f"[live] (a) hop ms: warm grow {hop.timings['warm']:.2f}, live "
-          f"grow (grow thread) {hop.timings['grow']:.2f}, cache migration "
-          f"({n_rep} re-prefills) {hop.timings['cache-grow']:.2f}, swap "
+    print(f"[live] (a) hop: {_hop_walls(hop)}; cache migration "
+          f"({n_rep} re-prefills) {hop.timings['cache-grow']:.2f} ms, swap "
           f"{hop.timings['swap']:.3f}, begin to swap {hop.hop_ms:.2f}; "
           f"steps {hop.begin_at_step} -> {hop.swap_at_step}; "
           f"{a['tok_s']:.1f} tok/s over {a['wall_s']:.2f} s; paged "
@@ -2419,9 +2436,8 @@ def _live_phase(torch, shapes, llama):
                 for r, q, s in zip(ed.requests, ref.requests, same) if s]
                or [0.0])
     print(f"[live] (d) LEMON hop {d['small_cfg'].name} -> {d['cfg2'].name}: "
-          f"cache {hd.cache_path}, hop ms: warm grow "
-          f"{hd.timings['warm']:.2f}, grow {hd.timings['grow']:.2f}, cache "
-          f"growth {hd.timings['cache-grow']:.2f}, swap "
+          f"cache {hd.cache_path}, hop: {_hop_walls(hd)}; cache growth "
+          f"{hd.timings['cache-grow']:.2f} ms, swap "
           f"{hd.timings['swap']:.3f}; against no hop: tokens equal in "
           f"{sum(same)}/{n_req} requests, first-token logits {first:.2e}, "
           f"last-token logits {last:.2e} (tol {LIVE_TOL:.0e}); launches "
@@ -2592,16 +2608,18 @@ def _spec_phase(torch, shapes, vanilla, device="cuda"):
         n_draft = pc[(cfg1.name, "draft")]
         toks = [list(r.tokens) for r in eng.requests]
         same = sum(t == v for t, v in zip(toks, vanilla["paged"]))
-        want = {"ligo_blend_expand_grouped": 2 * k1_grow,
+        want = {"ligo_blend_expand_grouped": 3 * k1_grow,
                 "ligo_blend_expand_bwd_fused": 0,
                 "flash_attention": vanilla["k3"] + cfg1.n_layers * n_draft}
         print(f"[spec] (a) {cfg1.name} drafts K={SPEC_K} for {cfg2.name}, "
               f"paged: tokens equal to phase 9 (b) in {same}/{LIVE_REQ} "
               f"requests; swap at step {hop.swap_at_step} (9 (b): "
               f"{vanilla['swap']}); {n_draft} drafter prefills; launches "
-              f"{runs['spec a']}, want {want} (K3: 9 (b)'s "
+              f"{runs['spec a']}, want {want} (K1: warm()'s fill and "
+              f"replay and the hop's replay; K3: 9 (b)'s "
               f"{vanilla['k3']} + {cfg1.n_layers} x {n_draft}); "
-              f"serve.spec.builds {builds}", flush=True)
+              f"serve.spec.builds {builds}; hop: {_hop_walls(hop)}",
+              flush=True)
         if not (hop.completed and hop.attempts == 1
                 and hop.cache_path == "reprefill"
                 and hop.swap_at_step == vanilla["swap"]
@@ -2864,7 +2882,8 @@ def _obs_phase(torch, shapes):
             srv.shutdown()
             srv.server_close()
         obs.set_dump_dir(None)
-        _live_launch_check("(a)", runs["obs a"], eng, cfg1, cfg2, 3, k1_grow)
+        # warm()'s fill and replay, and one replay an attempt
+        _live_launch_check("(a)", runs["obs a"], eng, cfg1, cfg2, 4, k1_grow)
         if not (hop.completed and hop.attempts == 2
                 and [s for s, _ in hop.rollbacks] == ["cache-grow"]):
             raise AssertionError(f"(a): attempts {hop.attempts}, rollbacks "
@@ -2922,7 +2941,8 @@ def _obs_phase(torch, shapes):
               f"{eng.decode_steps}, serve.prefill spans "
               f"{len(named(spans, 'serve.prefill'))} = admissions {n_pre}; "
               f"launches {runs['obs a']}; hop span ms {by_stage}, hop.warm "
-              f"{named(spans, 'hop.warm')[0]['dur_ms']}", flush=True)
+              f"{named(spans, 'hop.warm')[0]['dur_ms']}; hop: "
+              f"{_hop_walls(hop)}", flush=True)
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"(a) obs checks failed: {failed}")
@@ -3009,7 +3029,7 @@ def _obs_phase(torch, shapes):
             "--requests", str(OBS_PROFILE_REQ), "--gen",
             str(OBS_PROFILE_GEN), "--obs-profile", d],
             n_req=OBS_PROFILE_REQ, gen=OBS_PROFILE_GEN)
-        _live_launch_check("(c)", runs["obs c"], eng, cfg1, cfg2, 2, k1_grow)
+        _live_launch_check("(c)", runs["obs c"], eng, cfg1, cfg2, 3, k1_grow)
         (trace,) = os.listdir(d)
         with open(os.path.join(d, trace)) as f:
             kern = [e["name"] for e in json.load(f)["traceEvents"]
@@ -3475,6 +3495,7 @@ def _upcycle_live(torch, runs, k3):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model
+    from repro_torch.tree import tree_leaves
     cfg1 = get_config("phi4-mini-3.8b")
     cfg2 = moe_target(cfg1)
     shapes = _k1_shapes(torch, cfg1, cfg2)
@@ -3501,24 +3522,29 @@ def _upcycle_live(torch, runs, k3):
                              f"{eng.kv_layout}, target {a['cfg2'].name}")
     pc = eng.prefill_counts
     n_pre, n_post = pc[(cfg1.name, "admit")], pc[(cfg2.name, "admit")]
-    want = {"ligo_blend_expand_grouped": 2 * k1_grow,
+    want = {"ligo_blend_expand_grouped": 3 * k1_grow,
             "ligo_blend_expand_bwd_fused": 0,
             "flash_attention": _k3_want(eng, cfg1, cfg2)}
-    print(f"[moe] (a) launches {runs['moe a']}, want {want} (K1: warm() "
-          f"and the hop, {k1_grow} each; K3: ({n_pre} dense + {n_post} MoE "
+    print(f"[moe] (a) launches {runs['moe a']}, want {want} (K1: warm()'s "
+          f"fill and replay and the hop's replay, {k1_grow} each; K3: "
+          f"({n_pre} dense + {n_post} MoE "
           f"admissions) x {cfg1.n_layers}, no re-prefill: the cache grew in "
           f"place)", flush=True)
     if runs["moe a"] != want or not (n_pre and n_post):
         raise AssertionError(f"(a) launches {runs['moe a']}, want {want}")
     k3["engine prefill phi4-mini-3.8b"] = cfg1.n_layers * (n_pre + n_post)
-    print(f"[moe] (a) 0 dropped, 0 rejected, cache {hop.cache_path}; hop ms: "
-          f"warm grow {hop.timings['warm']:.2f}, live grow (grow thread) "
-          f"{hop.timings['grow']:.2f}, cache growth "
-          f"{hop.timings['cache-grow']:.2f}, swap {hop.timings['swap']:.3f}, "
+    tree_gb = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(eng.params)) / 1e9
+    print(f"[moe] (a) 0 dropped, 0 rejected, cache {hop.cache_path}; hop: "
+          f"{_hop_walls(hop)}; cache growth "
+          f"{hop.timings['cache-grow']:.2f} ms, swap "
+          f"{hop.timings['swap']:.3f} ms, "
           f"begin to swap {hop.hop_ms:.2f}; steps {hop.begin_at_step} -> "
           f"{hop.swap_at_step}; {a['tok_s']:.1f} tok/s over "
           f"{a['wall_s']:.2f} s; peak device memory {peak:.1f} GB "
-          f"(max_memory_allocated)", flush=True)
+          f"(max_memory_allocated), of which the grown tree that the grow's "
+          f"graph pool holds from warm() to the swap {tree_gb:.2f} GB",
+          flush=True)
     _decode_report("(a) phi4-mini-3.8b -> phi4-mini-3.8b-moe, background "
                    "upcycle hop", eng, hop)
     # the grown tree on the kernel route (the grow thread's, served) against
@@ -4213,7 +4239,7 @@ def _recur_live_serve(torch, argv, label, runs):
     cfg1, cfg2 = res["small_cfg"], res["cfg2"]
     shapes = _k1_shapes(torch, cfg1, cfg2)
     k1 = _launches(shapes, False)[0]
-    want = {"ligo_blend_expand_grouped": 2 * k1,
+    want = {"ligo_blend_expand_grouped": 3 * k1,
             "ligo_blend_expand_bwd_fused": 0,
             "flash_attention": _recur_k3_want(eng, {cfg1.name: cfg1,
                                                     cfg2.name: cfg2})}
@@ -4232,7 +4258,8 @@ def _recur_live_serve(torch, argv, label, runs):
           flush=True)
     _decode_report(f"{label} {cfg1.name}", eng, hop)
     sb = res["slot_bytes"]
-    print(f"[recur] {label} hop stages ms {hop.timings} (migration = "
+    print(f"[recur] {label} hop: {_hop_walls(hop)}; stages ms "
+          f"{hop.timings} (migration = "
           f"cache-grow, {pc[(cfg2.name, 'reprefill')]} re-prefills); state a "
           f"slot: {cfg1.name} recurrent {sb['before']['recurrent']} B + "
           f"attention {sb['before']['attention']} B -> {cfg2.name} recurrent "

@@ -20,7 +20,10 @@ of every forward that records no autograd graph, see
 :func:`launch_counts` reads the kernels' plain-integer launch counters and
 :func:`reset_launch_counts` sets them to 0. :data:`LAUNCH_COUNTS` is the
 JAX package's registry twin ("kernels.launches", keys ``fwd`` and ``bwd``,
-see its comment).
+see its comment). Both count the kernels the device runs: a CUDA graph's
+capture (:func:`capture_launches`) counts nothing, since it runs nothing,
+and each replay adds the launches the capture recorded
+(:func:`count_replay`).
 
 The JAX package's public wrappers sit on the same ops:
 :func:`ligo_blend_expand` and :func:`ligo_blend_expand_vjp` (one leaf, K1
@@ -41,8 +44,11 @@ K1 and K2 are registered as the custom operators
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
-from typing import Dict, Optional, Tuple
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -66,6 +72,63 @@ _flash = importlib.import_module("repro_torch.kernels.flash_attention")
 # exports it to ``/metrics`` as ``kernels_launches_total``.
 LAUNCH_COUNTS: CounterGroup = counter_group("kernels.launches")
 
+# the wrappers' plain-integer counters, by ``launch_counts()`` key
+_COUNTERS = {"ligo_blend_expand_grouped": ligo_expand,
+             "ligo_blend_expand_bwd_fused": ligo_expand_bwd,
+             "flash_attention": _flash}
+
+# the tally of a CUDA-graph capture running in this thread, if any
+_CAPTURE = threading.local()
+
+
+@dataclass
+class GraphLaunches:
+    """The kernel launches a CUDA graph holds, tallied at its capture:
+    ``counts`` by :data:`LAUNCH_COUNTS` key, ``launches`` by
+    :func:`launch_counts` key."""
+    counts: Dict[str, int] = field(default_factory=dict)
+    launches: Dict[str, int] = field(default_factory=dict)
+
+
+def _count(key: str) -> None:
+    """One kernel call for ``LAUNCH_COUNTS[key]``, or for the tally of the
+    capture running in this thread."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is None:
+        LAUNCH_COUNTS.inc(key)
+    else:
+        tally.counts[key] = tally.counts.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_launches() -> Iterator[GraphLaunches]:
+    """Tally, instead of counting, the kernel calls made in this thread
+    while a CUDA graph captures them: a capture launches nothing. Yields
+    the tally, complete when the block ends; :func:`count_replay` adds it
+    to the counts at each replay. The wrappers' plain-integer counters are
+    read before and after the block and set back, so no other thread may
+    launch a kernel while it runs (the hop captures in the engine thread
+    before any grow thread starts)."""
+    tally = GraphLaunches()
+    before = launch_counts()
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
+        for name, n in launch_counts().items():
+            if n != before[name]:
+                tally.launches[name] = n - before[name]
+            _COUNTERS[name].LAUNCHES = before[name]
+
+
+def count_replay(tally: GraphLaunches) -> None:
+    """Count one replay of a captured graph: every launch it holds."""
+    for key, n in tally.counts.items():
+        LAUNCH_COUNTS.inc(key, n)
+    for name, n in tally.launches.items():
+        _COUNTERS[name].LAUNCHES += n
+
 
 def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
                               W: torch.Tensor) -> torch.Tensor:
@@ -74,7 +137,7 @@ def ligo_blend_expand_grouped(w: torch.Tensor, B: torch.Tensor,
     w: (G, L2, L1); B: (I, A); W: (G, L1, E, A, Bd) → (G, L2, E, I, Bd).
     """
     if W.is_cuda:
-        LAUNCH_COUNTS.inc("fwd")
+        _count("fwd")
         return ligo_expand.ligo_blend_expand_grouped(w, B, W)
     return ref.ligo_blend_expand_grouped_ref(w, B, W)
 
@@ -255,7 +318,7 @@ class _BlendExpandGrouped(torch.autograd.Function):
         if plain:
             out = ref.ligo_blend_expand_grouped_ref(w, B, W, keep_u=keep_u)
         else:
-            LAUNCH_COUNTS.inc("fwd")
+            _count("fwd")
             out = _k1(w, B, W, keep_u)
         P, U = out if keep_u or not plain else (out, None)
         ctx.save_for_backward(w, B, W, U if keep_u else None)
@@ -272,7 +335,7 @@ class _BlendExpandGrouped(torch.autograd.Function):
             dw, dB, dW = ref.ligo_blend_expand_bwd_ref(w, B, W, dP, U=U,
                                                        need_dW=need[2])
         else:
-            LAUNCH_COUNTS.inc("bwd")
+            _count("bwd")
             dw, dB, dW = _k2(w, B, W, dP, U, need[2])
             dw = dw.to(w.dtype)
         return (dw if need[0] else None, dB if need[1] else None,
@@ -295,7 +358,7 @@ class _BlendExpandBetween(torch.autograd.Function):
         w, B, W, R = (x.detach() for x in (w, B, W, R))
         dt = W.dtype
         if not plain:
-            LAUNCH_COUNTS.inc("fwd")
+            _count("fwd")
         U = (ref.ligo_expand_ref(B, W) if plain
              else _k1_expand(B, W)).to(dt)
         UR = (U.reshape(-1, U.shape[-1]) @ R.to(dt).T).reshape(
@@ -315,7 +378,7 @@ class _BlendExpandBetween(torch.autograd.Function):
         if ctx.plain:
             dw, Q = ref.ligo_blend_bwd_ref(w, dP, UR)
         else:
-            LAUNCH_COUNTS.inc("bwd")
+            _count("bwd")
             dw, Q = _k2_blend(w, dP, UR)
         Rd = R.to(Q.dtype)
         dR = (Q.reshape(-1, Q.shape[-1]).T @ U.reshape(-1, U.shape[-1])
@@ -354,10 +417,11 @@ def ligo_blend_expand_grouped_vjp(w: torch.Tensor, B: torch.Tensor,
     if (use_kernel and not torch.is_grad_enabled()
             and _get_current_dispatch_mode() is None):
         # a grow without gradients and without a mode that counts or fakes
-        # the call (a live hop's grow): K1 from its wrapper, the launch
+        # the call (a serve's hot-grow, a hop's eager grow and the capture
+        # of its graph): K1 from its wrapper, the launch
         # counted as the custom op counts it, without the op's Python
         # dispatch (the most of a grow's host time on the card)
-        LAUNCH_COUNTS.inc("fwd")
+        _count("fwd")
         return ligo_expand.ligo_blend_expand_grouped(w.detach(), B.detach(),
                                                      W.detach())
     return _BlendExpandGrouped.apply(w, B, W, not use_kernel,
@@ -406,7 +470,7 @@ def ligo_blend_expand_bwd_fused(w: torch.Tensor, B: torch.Tensor,
     version on CPU tensors."""
     if not W.is_cuda:
         return ref.ligo_blend_expand_bwd_ref(w, B, W, dP)
-    LAUNCH_COUNTS.inc("bwd")
+    _count("bwd")
     dw, dB, dW = _k2(w, B, W, dP.contiguous(), None, True)
     return dw.to(w.dtype), dB, dW
 
@@ -427,15 +491,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"ligo_blend_expand_grouped": ligo_expand.LAUNCHES,
-            "ligo_blend_expand_bwd_fused": ligo_expand_bwd.LAUNCHES,
-            "flash_attention": _flash.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    ligo_expand.LAUNCHES = 0
-    ligo_expand_bwd.LAUNCHES = 0
-    _flash.LAUNCHES = 0
+    for mod in _COUNTERS.values():
+        mod.LAUNCHES = 0
 
 
 # the plain versions under the JAX package's names

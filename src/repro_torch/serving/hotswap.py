@@ -36,9 +36,23 @@ stream. It first waits for the engine stream's queued work, then waits
 for its own work to finish before it publishes the grown tree, and marks
 every grown tensor as used on the engine's stream (``record_stream``), so
 that the caching allocator cannot hand the memory back to the side stream
-while decode still reads it. :meth:`HopController.warm` runs one grow on
-the same side stream in the engine thread: the kernels build and load
-there, and the real hop reuses the side stream's cached blocks.
+while decode still reads it.
+
+**The grow as one CUDA graph.** The reference's ``warm()`` compiles the
+grow, so its live hop pays one dispatch of a compiled executable. The
+port's counterpart: on the card :meth:`HopController.warm` captures the
+grow into a ``torch.cuda.CUDAGraph`` on the side stream, in the engine
+thread, and the live hop's grow is one replay of it (one launch, then the
+device time), which is also what ``warm()`` times to seed the watchdog.
+The graph reads the engine's parameters and the operator in place and
+writes the grown tree into its private memory pool: :meth:`begin`
+recaptures if the engine's leaves are no longer the captured ones, a lock
+serialises replays (a replay never starts for an aborted attempt, so a
+watchdog-orphaned grow thread cannot write over a tree in use), and the
+graph is dropped once the hop completes or gives up, the grown tree
+staying valid as the engine's weights. A capture or a replay that fails
+raises: nothing falls back to the eager grow. On the CPU, and in a
+controller that was never warmed, the grow runs eagerly.
 """
 from __future__ import annotations
 
@@ -46,7 +60,7 @@ import contextlib
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,6 +71,7 @@ from repro_torch.core.grow_cache import (CacheGrowthError, can_grow_cache,
                                          is_lossless_operator,
                                          replay_grow_state)
 from repro_torch.core.plan import plan_for
+from repro_torch.kernels import ops
 from repro_torch.serving.engine import RECURRENT
 from repro_torch.serving.kv_pages import paged_supported
 from repro_torch.tree import tree_leaves
@@ -97,6 +112,16 @@ def refuse_recurrent_cache_mode(cfg1: ModelConfig, cfg2: ModelConfig,
 
 class HopError(RuntimeError):
     """A hop stage failed (injected or real); the hop rolls back."""
+
+
+class _GrowGraph(NamedTuple):
+    """A grow captured by :meth:`HopController._capture`: the graph, the
+    grown tree each replay writes, the kernel launches it holds, and the
+    engine leaves it reads (:meth:`HopController._leaf_keys`)."""
+    graph: Any                  # torch.cuda.CUDAGraph
+    out: Any
+    launches: ops.GraphLaunches
+    inputs: Tuple
 
 
 @dataclass
@@ -160,8 +185,12 @@ class HopController:
     ``timings`` holds the last attempt's stage walls in ms, read from the
     stage spans' ``dur_ms`` (``grow``: the ``hop.grow`` span in the grow
     thread; ``cache-grow``; ``swap``) and ``warm``'s; a wall is None while
-    the observability layer is switched off. ``rollbacks`` keeps each
-    rollback's stage and cause.
+    the observability layer is switched off. ``warm_ms`` holds the parts
+    of ``warm()``'s wall (host clock): ``fill`` (the untimed first grow),
+    ``capture`` (on the card only) and ``seed`` (the timed replay, or the
+    timed grow on the CPU), and ``seeded_budget_s`` the budget it seeded.
+    ``captures`` counts the grow's captures.
+    ``rollbacks`` keeps each rollback's stage and cause.
 
     Spans and events (the JAX package's names and attributes): ``hop.warm``,
     ``hop.begin``, ``hop.grow`` (opened in the thread that runs the grow, so
@@ -223,6 +252,13 @@ class HopController:
         # what a grow derives from the operator alone, kept by warm() for
         # the live grows (GrowthPlan.apply's ``cache``)
         self._grow_cache = {}
+        # the grow captured by warm() on the card; once one was captured,
+        # every grow is a replay, under the replay lock
+        self._graph: Optional[_GrowGraph] = None
+        self._replay_lock = threading.Lock()
+        self.captures = 0
+        self.warm_ms = {}
+        self.seeded_budget_s: Optional[float] = None
 
     # -- chaos ---------------------------------------------------------------
     def _chaos(self, stage: str) -> None:
@@ -264,31 +300,102 @@ class HopController:
                 leaf.record_stream(self._main_stream)
         return grown
 
+    def _leaf_keys(self) -> Tuple:
+        """Where and how the engine's leaves lie: a graph that read them
+        reads the same values while this is unchanged."""
+        return tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+                     for t in tree_leaves(self.engine.params))
+
+    def _capture(self) -> None:
+        """Capture the grow into a CUDA graph on the side stream, in the
+        calling (engine) thread (``warm()`` first warms the path with an
+        eager grow). Mode ``thread_local``: a CUDA call unsafe during a capture fails in
+        this thread only, so the metrics server's and the profiler's
+        threads go on. The launches the grow makes are tallied, not
+        counted (``ops.capture_launches``)."""
+        eng = self.engine
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), ops.capture_launches() as launches:
+            with torch.cuda.graph(graph, stream=self._side_stream,
+                                  capture_error_mode="thread_local"):
+                out = plan_for(eng.cfg, self.cfg2, eng.params).apply(
+                    self.ligo, eng.params, use_kernel=eng.use_kernel,
+                    cache=self._grow_cache)
+        self._graph = _GrowGraph(graph, out, launches, self._leaf_keys())
+        self.captures += 1
+
+    def _drop_graph(self) -> None:
+        """Release the graph (its pool frees once the tree it wrote is no
+        longer referenced); a grow after this raises."""
+        with self._replay_lock:
+            self._graph = None
+
+    def _replay(self, abort: threading.Event):
+        """One replay of the captured grow on the side stream, finished on
+        the device, as :meth:`_grow_once` finishes a grow; returns the tree
+        the graph writes. Replays are serialised, and none starts for an
+        aborted attempt or after the graph was dropped."""
+        with self._replay_lock:
+            g = self._graph
+            if g is None or abort.is_set():
+                raise HopError("grow aborted before its replay")
+            with self._side():
+                self._side_stream.wait_stream(self._main_stream)
+                g.graph.replay()
+                ops.count_replay(g.launches)
+                done = torch.cuda.Event()
+                done.record(self._side_stream)
+                done.synchronize()
+        for leaf in tree_leaves(g.out):
+            leaf.record_stream(self._main_stream)
+        return g.out
+
     def _stage_grow(self, abort: threading.Event):
         self._chaos("grow")
         if self.fail_at == "hang":     # wedge until the watchdog aborts us
             self.fail_at = None
             abort.wait()
             raise HopError("grow thread aborted by watchdog")
+        if self.captures:
+            return self._replay(abort)
         return self._grow_once()
 
     def warm(self) -> float:
-        """Run one synchronous grow at engine start (off the hop path,
-        chaos-free, result discarded) and seed the watchdog with its wall
-        time, so the first *live* hop is judged against a measured budget.
-        On the card it builds and loads the kernels here, in the engine
-        thread, and leaves the grow's blocks cached on the side stream."""
+        """Warm the grow path at engine start (off the hop path,
+        chaos-free) and seed the watchdog with the wall of a grow as the
+        live hop will run it, so the first *live* hop is judged against a
+        measured budget. First an untimed eager grow: it builds and loads
+        the kernels, sets their shared-memory attributes, fills the grow
+        cache and makes cuBLAS's and the allocator's first-use
+        initialisations, the warm-up PyTorch asks for before a capture. On
+        the card the grow is then captured into a CUDA graph (the
+        reference's compiled grow executor), and one replay, timed, seeds
+        the watchdog; on the CPU a second grow, timed, seeds it. All three
+        lie in one ``hop.warm`` span. A controller never warmed grows
+        eagerly at the hop, paying the first grow's one-time work there,
+        as the reference pays its first trace."""
         self._build_kernels()
-        t0 = time.perf_counter()
+        steps = [("fill", self._grow_once)]
+        if self._cuda:
+            steps += [("capture", self._capture),
+                      ("seed", lambda: self._replay(threading.Event()))]
+        else:
+            steps.append(("seed", self._grow_once))
+        self.warm_ms = {}
         with obs.span("hop.warm", src=self.engine.cfg.name,
                       dst=self.cfg2.name) as sp:
-            buf = self._grow_once()
-        dt = time.perf_counter() - t0
-        del buf
+            for name, step in steps:
+                t0 = time.perf_counter()
+                step()
+                self.warm_ms[name] = (time.perf_counter() - t0) * 1e3
+        dt = self.warm_ms["seed"] / 1e3
         self.timings["warm"] = sp.dur_ms
         self.watchdog.seed(dt)
-        print(f"[hop] warmed grow path in {dt * 1e3:.1f} ms "
-              f"(watchdog seeded: budget {self.watchdog.budget():.2f}s)")
+        self.seeded_budget_s = self.watchdog.budget()
+        print(f"[hop] warmed grow path: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in self.warm_ms.items())
+              + f" (seed: a timed {'replay' if self._cuda else 'grow'}; "
+              f"watchdog budget {self.watchdog.budget():.3f}s)")
         return dt
 
     def _launch(self) -> None:
@@ -345,6 +452,14 @@ class HopController:
         _ledger_event("hop.begin", src=eng.cfg.name, dst=self.cfg2.name,
                       live=len(eng.live))
         self._build_kernels()
+        if self._graph is not None and \
+                self._graph.inputs != self._leaf_keys():
+            self._drop_graph()
+            t0 = time.perf_counter()
+            self._capture()
+            print(f"[hop] the engine's params changed since the grow was "
+                  f"captured: recaptured in "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
         self._t_begin = time.perf_counter()
         self.begin_at_step = eng.decode_steps
         self._launch()
@@ -375,6 +490,7 @@ class HopController:
                       of=self.retries + 1, delay_ms=round(delay * 1e3, 1))
         else:
             self.failed = True
+            self._drop_graph()
             print(f"[hop] giving up after {self.attempts} attempts; "
                   f"engine continues on {eng.cfg.name}")
             obs.event("hop.giveup", attempts=self.attempts)
@@ -475,6 +591,7 @@ class HopController:
         self.timings["swap"] = sp_swap.dur_ms
         drafting = eng.adopt_drafter(*old)
         self.completed = True
+        self._drop_graph()
         self.cache_path = mode
         self.swap_at_step = eng.decode_steps
         self.hop_ms = (time.perf_counter() - self._t_begin) * 1e3

@@ -31,7 +31,12 @@ K3 takes the JAX kernel test's elementwise tolerance,
 ``|kernel - plain| <= tol + tol |plain|`` with tol 2e-2 (bf16), 2e-5 (f32).
 The live engine runs on the card too: paged and dense give the same
 tokens, and a background hop on its side stream completes while decode
-steps land. Speculative decoding through a hop, at smoke size: greedy
+steps land. The hop's grow as a CUDA graph: the tree of ``warm()``'s
+replay and the tree served after the hop's replay equal an eager grow's
+bit for bit (kernel and plain routes, bf16 and float32), the grow thread
+makes one replay and no K1 host launch (the trace's graph launch carries
+K1's GEMMs), the served weights outlive the graph, ``begin()`` recaptures
+after the engine's params changed, and a capture that fails raises. Speculative decoding through a hop, at smoke size: greedy
 speculation gives greedy decoding's tokens (paged and dense, deterministic
 algorithms on), and a round maps every live slot's pages up to pos + K + 1
 before its drafter launches. The observability layer on the kernel route:
@@ -749,11 +754,11 @@ ENGINE_CFG = {"n_layers": 2, "d_model": 256, "n_heads": 4, "n_kv_heads": 4,
               "d_head": 64, "d_ff": 512, "vocab_size": 512, "max_seq": 256}
 
 
-def _engine_run(params, cfg, layout, n_req=6):
+def _engine_run(params, cfg, layout, n_req=6, **kw):
     from repro_torch.launch.serve import live_prompts
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(params, cfg, slots=3, prompt_budget=32,
-                        gen_budget=16, kv_layout=layout, device="cuda")
+                        gen_budget=16, kv_layout=layout, device="cuda", **kw)
     reqs = [eng.submit(p, max_new=16)
             for p in live_prompts(n_req, 32, cfg.vocab_size)]
     return eng, reqs
@@ -777,29 +782,72 @@ def test_engine_paged_and_dense_tokens_equal_on_the_card(cuda):
     assert out["paged"] == out["dense"]
 
 
+def _hop_models(cuda, dtype="bfloat16", seed=0):
+    """The engine's gpt2 config in ``dtype``, its grown twin, seeded
+    params and a LiGO operator between them, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_ligo_params
+    from repro_torch.models.model import init_params
+    cfg = get_config("gpt2-base").scaled(name="gpt2-engine", dtype=dtype,
+                                         **ENGINE_CFG)
+    cfg2 = cfg.scaled(name="gpt2-engine-grown", n_layers=4, d_model=384,
+                      n_heads=6, n_kv_heads=6, d_ff=768)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(seed),
+                         device=cuda)
+    op = init_ligo_params(torch.Generator(cuda).manual_seed(1), cfg, cfg2,
+                          device=cuda)
+    return cfg, cfg2, params, op
+
+
+def _eager_grow(cfg, cfg2, params, op, use_kernel=None):
+    """One eager grow on the current stream: (flat tree, K1 launches)."""
+    from repro_torch.core.ligo import _flatten
+    from repro_torch.core.plan import plan_for
+    k1 = ops.launch_counts()["ligo_blend_expand_grouped"]
+    with torch.no_grad():
+        tree = _flatten(plan_for(cfg, cfg2, params).apply(
+            op, params, use_kernel=use_kernel))
+    torch.cuda.synchronize()
+    return tree, ops.launch_counts()["ligo_blend_expand_grouped"] - k1
+
+
+def _bitwise(got, want):
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+        for k in want)
+
+
+def _drive(eng, hop, at=3):
+    def on_step(e):
+        if e.decode_steps >= at and hop.attempts == 0:
+            hop.begin()
+        if hop.attempts:
+            hop.poll()
+
+    eng.run(on_step=on_step)
+    if hop.attempts == 0:
+        hop.begin()
+    while not hop.poll():
+        time.sleep(0.002)
+
+
 @pytest.mark.gpu
 def test_background_hop_on_a_side_stream_completes_while_decoding(cuda):
     """The grow runs in a thread on its own stream while the engine keeps
     decoding: decode steps land between the hop's begin and its swap, K1
-    launches for warm() and the hop, and every request finishes."""
-    from repro_torch.configs import get_config
-    from repro_torch.core import init_ligo_params
-    from repro_torch.models.model import init_params
+    launches for warm() (its eager fill and its timed replay of the
+    captured grow) and the hop (one replay), and every request
+    finishes."""
     from repro_torch.serving import HopController
-    cfg = get_config("gpt2-base").scaled(name="gpt2-engine", **ENGINE_CFG)
-    cfg2 = cfg.scaled(name="gpt2-engine-grown", n_layers=4, d_model=384,
-                      n_heads=6, n_kv_heads=6, d_ff=768)
-    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
-                         device=cuda)
-    op = init_ligo_params(torch.Generator(cuda).manual_seed(1), cfg, cfg2,
-                          device=cuda)
+    cfg, cfg2, params, op = _hop_models(cuda)
+    _, k1_grow = _eager_grow(cfg, cfg2, params, op)
     eng, reqs = _engine_run(params, cfg, "paged", n_req=9)
     hop = HopController(eng, cfg2, op, background=True)
     assert hop._side_stream != torch.cuda.current_stream(cuda)
     ops.reset_launch_counts()
     hop.warm()
     k1_warm = ops.launch_counts()["ligo_blend_expand_grouped"]
-    assert k1_warm > 0
+    assert k1_grow > 0 and k1_warm == 2 * k1_grow
 
     def on_step(e):
         if e.decode_steps >= 3 and hop.attempts == 0:
@@ -813,7 +861,7 @@ def test_background_hop_on_a_side_stream_completes_while_decoding(cuda):
     assert hop.completed and hop.attempts == 1 and not hop.rollbacks
     assert hop.cache_path == "reprefill"
     assert hop.swap_at_step > hop.begin_at_step      # decode ran meanwhile
-    assert ops.launch_counts()["ligo_blend_expand_grouped"] == 2 * k1_warm
+    assert ops.launch_counts()["ligo_blend_expand_grouped"] == 3 * k1_grow
     assert all(r.status == "done" and len(r.tokens) == 16 for r in reqs)
     assert eng.cfg.name == cfg2.name
 
@@ -1001,6 +1049,160 @@ def test_kernel_route_hop_spans_and_profile_name_k1_and_k3(cuda, tmp_path):
                if e.get("cat") == "kernel"}
     assert any("ligo_wgmma_gemm_kernel<3," in k for k in kernels), kernels
     assert any("flash_fwd_wgmma" in k for k in kernels), kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["kernel-route", "plain-route"])
+def test_replayed_grow_equals_the_eager_grow_bit_for_bit(cuda, dtype,
+                                                         use_kernel):
+    """``warm()`` captures the grow into a CUDA graph and replays it; the
+    live hop's grow is one more replay. On the kernel and the plain route,
+    bf16 and float32: the tree warm()'s replay wrote and the tree the
+    engine serves after the hop equal an eager grow's bit for bit, K1
+    counts warm()'s fill and each replay (none for the capture), and the
+    graph is dropped once the hop completes."""
+    from repro_torch.core.ligo import _flatten
+    from repro_torch.serving import HopController
+    cfg, cfg2, params, op = _hop_models(cuda, dtype)
+    want, k1_grow = _eager_grow(cfg, cfg2, params, op, use_kernel)
+    assert (k1_grow > 0) == use_kernel
+    eng, reqs = _engine_run(params, cfg, "paged", use_kernel=use_kernel)
+    hop = HopController(eng, cfg2, op, background=True)
+    ops.reset_launch_counts()
+    hop.warm()
+    assert hop.captures == 1 and list(hop.warm_ms) == ["fill", "capture",
+                                                       "seed"]
+    assert ops.launch_counts()["ligo_blend_expand_grouped"] == 2 * k1_grow
+    assert _bitwise(_flatten(hop._graph.out), want)
+    _drive(eng, hop)
+    assert hop.completed and hop.attempts == 1 and hop._graph is None
+    assert ops.launch_counts()["ligo_blend_expand_grouped"] == 3 * k1_grow
+    assert _bitwise(_flatten(eng.params), want)
+    assert all(r.status == "done" for r in reqs)
+
+
+@pytest.mark.gpu
+def test_live_grow_is_one_replay_and_no_k1_host_launch(cuda, tmp_path,
+                                                       monkeypatch):
+    """Under the profiler gate: the grow thread makes one graph replay and
+    no K1 host launch (every K1 launch is warm()'s eager fill, in the
+    engine thread), and the trace's last graph launch, the grow thread's,
+    carries the grow's K1 tensor-core GEMMs."""
+    import json
+    import threading
+    from repro_torch import obs
+    from repro_torch.kernels import ligo_expand
+    from repro_torch.serving import HopController
+    cfg, cfg2, params, op = _hop_models(cuda)
+    hosts, replays = [], []
+    launch, replay = ligo_expand._launch, torch.cuda.CUDAGraph.replay
+
+    def counted_launch(stage, *a, **kw):
+        hosts.append((threading.current_thread().name, stage,
+                      torch.cuda.is_current_stream_capturing()))
+        return launch(stage, *a, **kw)
+
+    def counted_replay(self):
+        replays.append(threading.current_thread().name)
+        return replay(self)
+    monkeypatch.setattr(ligo_expand, "_launch", counted_launch)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted_replay)
+    obs.set_enabled(True)
+    with obs.profile(str(tmp_path), device=cuda) as path:
+        eng, reqs = _engine_run(params, cfg, "paged", n_req=9)
+        hop = HopController(eng, cfg2, op, background=True)
+        hop.warm()
+        n_warm = len(hosts)
+        _drive(eng, hop)
+    assert hop.completed and hop.attempts == 1
+    main = threading.main_thread().name
+    # warm()'s fill, then the same calls recorded by the capture
+    fill = [h[1] for h in hosts if not h[2]]
+    assert fill and [h[1] for h in hosts if h[2]] == fill
+    assert len(hosts) == n_warm and {h[0] for h in hosts} == {main}
+    assert replays == [main, "hop-grow-1"]
+    events = json.load(open(path))["traceEvents"]
+    graph = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                    and "GraphLaunch" in e["name"]), key=lambda e: e["ts"])
+    assert len(graph) == 2 and graph[0]["tid"] != graph[1]["tid"], graph
+    corr = graph[1]["args"]["correlation"]
+    k1 = [e["name"] for e in events if e.get("cat") == "kernel"
+          and e.get("args", {}).get("correlation") == corr
+          and "ligo_wgmma_gemm_kernel<3," in e["name"]]
+    # one U GEMM a launch that computes U (all on the tensor cores here)
+    assert len(k1) == sum(stage != "blend" for stage in fill), (k1, fill)
+
+
+@pytest.mark.gpu
+def test_served_weights_outlive_the_graph(cuda):
+    """The grown tree lives in the graph's private pool: after the swap,
+    with the controller deleted, the cache emptied and the freed memory
+    written over, the served weights read back unchanged."""
+    import gc
+    from repro_torch.core.ligo import _flatten
+    from repro_torch.serving import HopController
+    cfg, cfg2, params, op = _hop_models(cuda)
+    eng, _ = _engine_run(params, cfg, "paged")
+    hop = HopController(eng, cfg2, op, background=False)
+    hop.warm()
+    _drive(eng, hop)
+    assert hop.completed and hop._graph is None
+    kept = {k: v.clone() for k, v in _flatten(eng.params).items()}
+    del hop
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = [torch.full((64 << 20,), 0x7F, dtype=torch.uint8, device=cuda)
+            for _ in range(8)]
+    torch.cuda.synchronize()
+    assert _bitwise(_flatten(eng.params), kept)
+    del junk
+
+
+@pytest.mark.gpu
+def test_begin_recaptures_after_the_engine_params_changed(cuda, capsys):
+    """A graph reads the leaves it captured: when the engine's params were
+    replaced after warm(), ``begin()`` recaptures, and the hop serves the
+    eager grow of the new params."""
+    from repro_torch.serving import HopController
+    cfg, cfg2, params, op = _hop_models(cuda)
+    _, _, other, _ = _hop_models(cuda, seed=5)
+    want, _ = _eager_grow(cfg, cfg2, other, op)
+    eng, _ = _engine_run(params, cfg, "paged", n_req=2)
+    hop = HopController(eng, cfg2, op, background=False)
+    hop.warm()
+    eng.params = other
+    _drive(eng, hop)
+    assert hop.completed and hop.captures == 2
+    assert "recaptured" in capsys.readouterr().out
+    from repro_torch.core.ligo import _flatten
+    assert _bitwise(_flatten(eng.params), want)
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A grow that cannot be captured (here: it reads a value back to the
+    host mid-capture) makes warm() raise; nothing falls back to an eager
+    grow."""
+    from repro_torch.core.plan import GrowthPlan
+    from repro_torch.serving import HopController
+    from repro_torch.tree import tree_leaves
+    cfg, cfg2, params, op = _hop_models(cuda)
+    apply = GrowthPlan.apply
+
+    def syncing(self, *a, **kw):
+        out = apply(self, *a, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            float(tree_leaves(out)[0].sum())
+        return out
+    monkeypatch.setattr(GrowthPlan, "apply", syncing)
+    eng, _ = _engine_run(params, cfg, "paged", n_req=2)
+    hop = HopController(eng, cfg2, op, background=False)
+    with pytest.raises(RuntimeError):
+        hop.warm()
+    assert hop._graph is None and hop.captures == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -6,7 +6,9 @@ the five references, each against the JAX function of the same name (the
 Pallas kernels in interpret mode) on the same numpy inputs, 1e-5 in
 float32 and 2e-2 in bf16 (scale-normalised); and ``LAUNCH_COUNTS``, whose
 count of one plan apply, and of its gradient, equals the JAX package's for
-the same plan, and which ``/metrics`` carries as the JAX package's does.
+the same plan, and which ``/metrics`` carries as the JAX package's does;
+a CUDA graph's capture tallies its launches instead of counting them, and
+each replay counts the tally.
 On CPU tensors every wrapper runs its kernel's plain version."""
 import jax
 import jax.numpy as jnp
@@ -208,3 +210,52 @@ def test_launch_counts_of_a_plan_apply_match_jax(monkeypatch):
     assert tk.launch_counts() == launched   # fake tensors launch nothing
     lines = _kernel_lines(tprom.render())
     assert lines and lines == _kernel_lines(jprom.render()), lines
+
+
+def test_a_capture_tallies_its_launches_and_each_replay_counts_them(
+        monkeypatch):
+    """``ops.capture_launches`` holds back the counts of the kernel calls
+    made in its block, as a CUDA graph's capture runs nothing, and yields
+    them as a tally: a plan apply on fake tensors (the kernel route, as on
+    CUDA tensors) tallies what it counts outside the block, and
+    ``count_replay`` adds the whole tally at each replay, to
+    ``LAUNCH_COUNTS`` and to ``launch_counts()`` alike."""
+    from repro_torch.configs import get_config, grow_target, smoke_config
+    from repro_torch.core import init_ligo_params, plan_for
+    from repro_torch.kernels import ligo_expand, ops
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_map
+
+    c1 = smoke_config(get_config("gpt2-base"))
+    c2 = grow_target(c1)
+    small = init_params(c1, torch.Generator().manual_seed(0), device="cpu")
+    op = init_ligo_params(torch.Generator().manual_seed(1), c1, c2,
+                          device="cpu")
+    plan = plan_for(c1, c2, small)
+    vjp = ops.ligo_blend_expand_grouped_vjp
+    monkeypatch.setattr(ops, "ligo_blend_expand_grouped_vjp",
+                        lambda *a, **kw: vjp(*a, **{**kw, "use_kernel": True}))
+
+    def apply():
+        with FakeTensorMode() as mode, torch.no_grad():
+            plan.apply(tree_map(mode.from_tensor, op),
+                       tree_map(mode.from_tensor, small), use_kernel=True)
+    tk.LAUNCH_COUNTS.clear()
+    apply()
+    once = dict(tk.LAUNCH_COUNTS)
+    assert once["fwd"] > 0
+    tk.LAUNCH_COUNTS.clear()
+    tk.reset_launch_counts()
+    with ops.capture_launches() as tally:
+        apply()
+        ligo_expand.LAUNCHES += 3       # a wrapper's launches while capturing
+    assert dict(tk.LAUNCH_COUNTS) == {} and tk.launch_counts() == {
+        "ligo_blend_expand_grouped": 0, "ligo_blend_expand_bwd_fused": 0,
+        "flash_attention": 0}
+    assert tally.counts == once
+    assert tally.launches == {"ligo_blend_expand_grouped": 3}
+    for n in (1, 2):
+        ops.count_replay(tally)
+        assert dict(tk.LAUNCH_COUNTS) == {k: n * v for k, v in once.items()}
+        assert tk.launch_counts()["ligo_blend_expand_grouped"] == 3 * n
+    tk.reset_launch_counts()

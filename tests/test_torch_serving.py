@@ -12,8 +12,10 @@ sizes (``tests/test_serving.py``'s TINY, WIDE, BIG; float32).
   the new layers as JAX's does.
 - Chaos at every stage rolls back and the retry lands with 0 dropped; the
   give-up case ends on the old architecture; the watchdog's budget follows
-  the reference's; ``serve --live-grow-at`` prints its report on the CPU
-  and raises without ``--device cpu``.
+  the reference's; ``warm()``'s seed leaves out its first grow's one-time
+  work, and a controller never warmed grows eagerly; ``serve
+  --live-grow-at`` prints its report on the CPU and raises without
+  ``--device cpu``.
 """
 import time
 
@@ -327,6 +329,61 @@ def test_background_grow_completes_between_decode_steps(tparams):
     assert hop.completed and hop.cache_path == "grow"
     assert eng.counts()["done"] == 4
     assert hop.swap_at_step >= hop.begin_at_step
+
+
+def test_warm_seed_leaves_out_the_first_grows_one_time_work(
+        tparams, big_op, monkeypatch):
+    """``warm()``'s first grow is untimed: a first grow made slow on
+    purpose (0.5 s, as a first build or cache fill would be) raises
+    neither the watchdog's seed nor its floor; the second grow, timed,
+    seeds both. One ``hop.warm`` span covers the two grows."""
+    from repro_torch import obs
+    from repro_torch.core.plan import GrowthPlan
+    apply, calls = GrowthPlan.apply, []
+
+    def slow_first(self, *a, **kw):
+        calls.append(time.perf_counter())
+        if len(calls) == 1:
+            time.sleep(0.5)
+        return apply(self, *a, **kw)
+    monkeypatch.setattr(GrowthPlan, "apply", slow_first)
+    obs.set_enabled(True)
+    obs.FLIGHT.clear()
+    eng, _ = _port_engine(tparams, TINY)
+    hop = HopController(eng, BIG, big_op)
+    dt = hop.warm()
+    assert len(calls) == 2 and set(hop.warm_ms) == {"fill", "seed"}
+    assert hop.warm_ms["fill"] >= 500.0 > hop.warm_ms["seed"]
+    assert dt == hop.warm_ms["seed"] / 1e3
+    assert hop.watchdog.ewma == hop.watchdog.floor == dt < 0.5
+    assert hop.watchdog.budget() == max(dt, min(120.0, max(0.05, 5 * dt)))
+    warms = [r for r in obs.FLIGHT.events(type="span")
+             if r["name"] == "hop.warm"]
+    assert len(warms) == 1 and warms[0]["dur_ms"] >= 500.0
+    assert hop.captures == 0               # no CUDA graph on the CPU
+
+
+@pytest.mark.parametrize("background", [True, False])
+def test_a_hop_never_warmed_grows_eagerly_and_completes(tparams, big_op,
+                                                        background):
+    """A controller whose ``warm()`` never ran grows eagerly at the hop
+    (the reference then pays its first trace there) against a cold
+    watchdog, and serves the tree a plan apply gives, bit for bit."""
+    from repro_torch.core.ligo import _flatten
+    from repro_torch.core.plan import plan_for
+    eng, reqs = _port_engine(tparams, TINY, gen=16)
+    hop = HopController(eng, BIG, big_op, background=background)
+    assert hop.watchdog.ewma is None and hop.watchdog.budget() == 120.0
+    _hop_run(eng, reqs, hop)
+    assert hop.completed and hop.attempts == 1 and not hop.rollbacks
+    assert hop.captures == 0 and hop.warm_ms == {}
+    assert "warm" not in hop.timings and "grow" in hop.timings
+    with torch.no_grad():
+        want = _flatten(plan_for(TINY, BIG, tparams).apply(big_op, tparams))
+    got = _flatten(eng.params)
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert eng.counts()["done"] == 4 and eng.counts()["dropped"] == 0
 
 
 def test_watchdog_budget_matches_reference():
